@@ -18,3 +18,9 @@ def small_index(small_corpus):
 @pytest.fixture(scope="session")
 def lemmatizer():
     return Lemmatizer()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none"
+    )
