@@ -30,6 +30,7 @@ one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,8 +55,10 @@ SW_COUNT, FU_COUNT, MAX_DISTANCE = 80, 250, 5
 TOP_K = 10
 SCORE_RTOL = 1e-5  # float32 scores summed in another order on each path
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the rate of 32-bit
-# operations outside the tensor cores (the kernels do integer compares/adds)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
+# the tensor cores (an FMA counted as two operations).  The data sheet lists
+# no rate for 32-bit integer compares and adds, which run slower than this,
+# so timing them at this rate keeps the bound a lower bound.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 
@@ -311,7 +314,10 @@ def main() -> int:
     plain_ms = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
     lib_ms = cuda_ms(torch, lambda: torch.isin(a, b), 200)
     na_, nb_ = len(a_np), len(b_np)
-    b_ms, b_by = bound_ms(4 * (na_ + nb_ + len(off_np) + na_), na_ * n_chunks * 256)
+    # both lists are sorted: a binary search of each a element over its
+    # block's n_chunks * 256 b elements is what the function needs
+    n_ops = na_ * math.ceil(math.log2(n_chunks * 256))
+    b_ms, b_by = bound_ms(4 * (na_ + nb_ + len(off_np) + na_), n_ops)
     print(f"intersect: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.isin {lib_ms:.4f} ms, "
           f"bound {b_ms:.6f} ms ({b_by})")
     kernels.append({

@@ -1,5 +1,5 @@
 from .builder import IndexSet, build_indexes
-from .convert import index_set_from_arrays, index_set_from_reference
+from .convert import index_set_from_arrays
 from .corpus import Document, DocumentStore, PAPER_EXAMPLE_DOCS, synthesize_corpus
 
 __all__ = [
@@ -9,6 +9,5 @@ __all__ = [
     "PAPER_EXAMPLE_DOCS",
     "build_indexes",
     "index_set_from_arrays",
-    "index_set_from_reference",
     "synthesize_corpus",
 ]

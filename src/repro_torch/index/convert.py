@@ -3,9 +3,7 @@
 An index is this system's "weights": the same corpus gives the same §3
 posting arrays in both packages.  :func:`index_set_from_arrays` builds this
 package's :class:`IndexSet` from plain dicts of numpy arrays plus the FL-list
-fields; :func:`index_set_from_reference` reads those fields off any object
-shaped like the reference's ``IndexSet`` (duck-typed — nothing of the
-reference package is imported).
+fields, so nothing of the reference package is imported.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ import numpy as np
 from ..core.lemma import FLList
 from .builder import IndexSet, NSWRecords
 
-__all__ = ["index_set_from_arrays", "index_set_from_reference"]
+__all__ = ["index_set_from_arrays"]
 
 
 def _rows(family: Mapping | None) -> dict:
@@ -72,21 +70,3 @@ def index_set_from_arrays(
         n_docs=int(n_docs),
     )
 
-
-def index_set_from_reference(ref) -> IndexSet:
-    """:func:`index_set_from_arrays` over the fields of a reference-package
-    ``IndexSet`` (or anything with the same attributes)."""
-    return index_set_from_arrays(
-        lemmas=ref.fl.lemmas,
-        frequency=ref.fl.frequency,
-        sw_count=ref.fl.sw_count,
-        fu_count=ref.fl.fu_count,
-        max_distance=ref.max_distance,
-        n_docs=ref.n_docs,
-        ordinary=ref.ordinary,
-        pair=ref.pair,
-        triple=ref.triple,
-        stop_single=ref.stop_single,
-        stop_pair=ref.stop_pair,
-        nsw={l: (r.offsets, r.stop_lemma, r.distance) for l, r in ref.nsw.items()},
-    )

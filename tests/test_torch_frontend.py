@@ -16,12 +16,7 @@ from repro.index import DocumentStore as RefDocumentStore
 from repro.index import build_indexes as ref_build_indexes
 from repro.search.frontend import SearchRequest as RefRequest
 from repro.search.frontend import ServingFrontend as RefFrontend
-from repro_torch.index import (
-    DocumentStore,
-    build_indexes,
-    index_set_from_arrays,
-    index_set_from_reference,
-)
+from repro_torch.index import DocumentStore, build_indexes, index_set_from_arrays
 from repro_torch.search import SearchEngine, SearchRequest, ServingFrontend, fused
 from tests.strategies import make_corpus, make_queries
 
@@ -69,17 +64,20 @@ def test_build_indexes_equals_reference(corpus):
     _index_sets_equal(idx, ref_idx)
 
 
+def _from_fields(ix):
+    return index_set_from_arrays(
+        lemmas=ix.fl.lemmas, frequency=ix.fl.frequency, sw_count=ix.fl.sw_count,
+        fu_count=ix.fl.fu_count, max_distance=ix.max_distance, n_docs=ix.n_docs,
+        ordinary=ix.ordinary, pair=ix.pair, triple=ix.triple, stop_single=ix.stop_single,
+        stop_pair=ix.stop_pair,
+        nsw={l: (r.offsets, r.stop_lemma, r.distance) for l, r in ix.nsw.items()},
+    )
+
+
 def test_index_set_from_arrays_round_trips(corpus):
     _, _, ref_idx, _, idx, _ = corpus
-    _index_sets_equal(index_set_from_reference(ref_idx), idx)
-    again = index_set_from_arrays(
-        lemmas=idx.fl.lemmas, frequency=idx.fl.frequency, sw_count=idx.fl.sw_count,
-        fu_count=idx.fl.fu_count, max_distance=idx.max_distance, n_docs=idx.n_docs,
-        ordinary=idx.ordinary, pair=idx.pair, triple=idx.triple, stop_single=idx.stop_single,
-        stop_pair=idx.stop_pair,
-        nsw={l: (r.offsets, r.stop_lemma, r.distance) for l, r in idx.nsw.items()},
-    )
-    _index_sets_equal(again, idx)
+    _index_sets_equal(_from_fields(ref_idx), idx)
+    _index_sets_equal(_from_fields(idx), idx)
 
 
 def test_frontend_equals_reference_frontend_and_combiner(corpus):
