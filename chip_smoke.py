@@ -7,20 +7,30 @@ Phases, each printed with its seconds:
 
 1. the device: name, count, and ``nvidia-smi``'s name and power limit;
 2. the kernel build: every ``src/repro_torch/kernels/csrc/*.cu``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together, with each ``ptxas`` report;
 3. the index: a synthetic Zipf corpus of 8,192 documents x 250 positions,
    indexed by the port (the host-side build is what bounds the corpus size);
-4. the main path: a slate of queries served twice through
-   ``ServingFrontend(device="cuda", use_kernel=True)``.  Both kernels' launch
-   counters are set to 0 just before the first round and read just after it;
-   the run fails unless both rose.  The second round must be all cache hits;
+4. the host route: a slate of queries served twice through
+   ``ServingFrontend(device="cuda", use_kernel=True)``.  The proximity and
+   intersect launch counters are set to 0 just before the first round and
+   read just after it; the run fails unless both rose.  The second round
+   must be all cache hits;
+4b. the arena route: one ``PostingArena`` with the reference launcher's
+   default budget (64 MiB) on the card — its cold acquire's seconds, bytes,
+   and resident and refused families — then the same slate through
+   ``ServingFrontend(arena=..., use_kernel=True)``.  The gather launch
+   counter is set to 0 just before and read just after; the run fails unless
+   it rose, the slate hit the arena and no upload happened during the
+   slates;
 5. the kernels against their plain PyTorch versions on the card, at the
-   shapes of the main path's own inputs (plus random inputs that exercise
-   the compute dtype's wraparound), with kernel, plain-version, bound and
-   library-call times;
-6. the slate again through fresh frontends — the event-rank cover on the
-   card and the whole port on the CPU — which must agree with the main
-   path: equal fragments and documents, scores within rtol 1e-5.
+   shapes of the main paths' own inputs (plus random inputs: compute-dtype
+   wraparound for the cover, every ``n_valid`` kind and out-of-range sources
+   for the gather), with kernel, plain-version, bound and library-call
+   times;
+6. the slate again through fresh frontends — the event-rank cover and the
+   arena route with and without the gather kernel on the card, and the host
+   route and the arena route on the CPU — which must all agree with the CPU
+   host route: equal fragments and documents, scores within rtol 1e-5.
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -53,6 +63,7 @@ SLATE = [
 N_DOCS, DOC_LEN, VOCAB, SEED = 8192, 250, 5000, 0
 SW_COUNT, FU_COUNT, MAX_DISTANCE = 80, 250, 5
 TOP_K = 10
+ARENA_BUDGET = 64 << 20  # the reference launcher's default --arena-budget-mb
 SCORE_RTOL = 1e-5  # float32 scores summed in another order on each path
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
@@ -69,18 +80,37 @@ def phase(name: str, t0: float) -> float:
     return now
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches after one warm-up,
-    from CUDA events."""
+# a spin of ~0.1 s at the H100's SM clock (about 2 GHz): long enough for the
+# host to enqueue every timed call behind it
+SPIN_CYCLES = 200_000_000
+
+
+def cuda_ms(torch, fn, iters: int) -> tuple[float, float, bool]:
+    """Mean device time of ``fn`` per call over ``iters`` calls after one
+    warm-up, from CUDA events.  A spin kernel holds the stream first, so the
+    host enqueues the calls before the first one runs and the events time
+    them back to back; without it a call whose host side is slower than its
+    kernel would be timed at the host's pace.  Returns ``(ms, host us per
+    call, back to back)``; the last is False when the calls outlasted the
+    spin (or synchronized), and the time then includes host gaps."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
+    t_host = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_us = (time.perf_counter() - t_host) * 1e6 / iters
+    back_to_back = not start.query()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_us, back_to_back
+
+
+def timing(label: str, t: tuple[float, float, bool]) -> str:
+    ms, host_us, b2b = t
+    return f"{label} {ms:.4f} ms ({'back to back' if b2b else 'host-paced'}; host {host_us:.1f} us/call)"
 
 
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -110,14 +140,53 @@ def main() -> int:
     from repro_torch.core.lemma import FLList
     from repro_torch.index import build_indexes, synthesize_corpus
     from repro_torch.kernels import _build
+    from repro_torch.kernels.gather import ARENA_BLOCK, gather_blocks, gather_blocks_plain
     from repro_torch.kernels.intersect import (
         intersect_sorted,
         intersect_sorted_plain,
     )
     from repro_torch.kernels.proximity import proximity_window, proximity_window_plain
     from repro_torch.search import SearchRequest, ServingFrontend, fused, rank_documents
+    from repro_torch.search.arena import PostingArena, plan_arena_batch
 
     dev = torch.device("cuda", 0)
+
+    def slate_profile(make_fe, label, first_ms, cached_ms):
+        """Slate latency of 5 fresh frontends (cold result cache) on a warm
+        device, the six phases of one, and one profiled slate's wall, device
+        busy share and top device operations."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        slate_ms, phases = [], {}
+        for rep in range(5):
+            fe = make_fe()
+            prev = fused.collect_phases(phases if rep == 4 else None)
+            t_serve = time.perf_counter()
+            fe.search_many(requests)
+            torch.cuda.synchronize()
+            slate_ms.append((time.perf_counter() - t_serve) * 1e3)
+            fused.collect_phases(prev)
+        print(f"{label} slate latency on {name}: first {first_ms:.1f} ms, cached {cached_ms:.3f} ms, "
+              f"fresh frontend {[round(x, 1) for x in slate_ms]} ms (median {sorted(slate_ms)[2]:.1f})")
+        print(f"{label} phases of one instrumented slate (us): "
+              + json.dumps({k: [round(x, 1) for x in v] for k, v in phases.items()}))
+        # device busy share of one fresh slate, from the profiler's kernel
+        # and copy events (one stream: they do not overlap)
+        fe = make_fe()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_serve = time.perf_counter()
+            fe.search_many(requests)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_serve) * 1e3
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+        print(f"{label} profiled slate: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.2f}%), idle {100 - 100 * busy_ms / wall_ms:.2f}%")
+        for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:90]}")
+
     t0 = time.perf_counter()
 
     # ---- 1. device ---------------------------------------------------------
@@ -154,7 +223,7 @@ def main() -> int:
           f"{index.size_bytes()['total'] / 2**20:.1f} MiB of postings, {len(triples)} triple keys")
     t0 = phase("corpus + index build (host)", t0)
 
-    # ---- 4. main path --------------------------------------------------------
+    # ---- 4. main path, host route ------------------------------------------
     requests = [SearchRequest(q, top_k=TOP_K) for q in SLATE]
     frontend = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
     proximity_window.launches = 0
@@ -169,9 +238,9 @@ def main() -> int:
         "intersect_sorted": intersect_sorted.launches,
     }
     dispatches = fused.dispatch_count()
-    print(f"main path: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches}")
+    print(f"host route: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches}")
     for kname, count in launches.items():
-        require(count > 0, f"{kname} was not launched on the main path")
+        require(count > 0, f"{kname} was not launched on the host route")
     t_serve = time.perf_counter()
     cached = frontend.search_many(requests)
     cached_ms = (time.perf_counter() - t_serve) * 1e3
@@ -180,39 +249,58 @@ def main() -> int:
         require(all(np.isfinite(d.score) and d.score > 0 for d in r.docs), f"bad scores for {r.query!r}")
         print(f"  {r.query!r}: {r.stats.results} fragments, top doc "
               f"{r.docs[0].doc_id if r.docs else None}, {r.n_subqueries} subqueries")
-    # steady state: fresh frontends (cold result cache) on a warm device
-    slate_ms, phases = [], {}
-    for rep in range(5):
-        fe = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
-        prev = fused.collect_phases(phases if rep == 4 else None)
-        t_serve = time.perf_counter()
-        fe.search_many(requests)
-        torch.cuda.synchronize()
-        slate_ms.append((time.perf_counter() - t_serve) * 1e3)
-        fused.collect_phases(prev)
-    print(f"slate latency on {name}: first {first_ms:.1f} ms, cached {cached_ms:.3f} ms, "
-          f"fresh frontend {[round(x, 1) for x in slate_ms]} ms (median {sorted(slate_ms)[2]:.1f})")
-    print("phases of one instrumented slate (us): "
-          + json.dumps({k: [round(x, 1) for x in v] for k, v in phases.items()}))
-    # device busy share of one fresh slate, from the profiler's kernel and
-    # copy events (one stream: they do not overlap)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    slate_profile(lambda: ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True,
+                                          max_batch=16), "host route", first_ms, cached_ms)
+    t0 = phase("serving (host route)", t0)
 
-    fe = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_serve = time.perf_counter()
-        fe.search_many(requests)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t_serve) * 1e3
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    print(f"profiled slate: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.2f}%), idle {100 - 100 * busy_ms / wall_ms:.2f}%")
-    for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:90]}")
-    t0 = phase("serving (main path)", t0)
+    # ---- 4b. main path, arena route ------------------------------------------
+    arena = PostingArena(budget_bytes=ARENA_BUDGET, device="cuda")
+    t_acq = time.perf_counter()
+    residency = arena.acquire(index, 0)
+    torch.cuda.synchronize()
+    acquire_s = time.perf_counter() - t_acq
+    m = arena.metrics()
+    resident = {f: fb.nbytes for f, fb in residency.families.items()}
+    refused = {key[3]: nbytes for key, nbytes in arena.refused.items()}
+    print(f"cold acquire (budget {ARENA_BUDGET >> 20} MiB): {acquire_s:.3f} s, "
+          f"{m['arena_uploads']} uploads, {m['arena_upload_bytes'] / 2**20:.1f} MiB copied to the card")
+    print(f"  resident: {json.dumps({f: f'{b / 2**20:.1f} MiB' for f, b in resident.items()})}")
+    print(f"  refused (larger than the budget): {json.dumps({f: f'{b / 2**20:.1f} MiB' for f, b in refused.items()})}")
+    print(f"  arena metrics: {json.dumps(m)}")
+    require(resident, "no family is resident under the budget")
+
+    def arena_frontend(**kw):
+        return ServingFrontend(index, lemmatizer=lem, arena=arena, device="cuda", max_batch=16,
+                               **{"use_kernel": True, **kw})
+
+    frontend = arena_frontend()
+    uploads = arena.metrics()["arena_uploads"]
+    gather_blocks.launches = 0
+    fused.reset_dispatch_count()
+    t_serve = time.perf_counter()
+    arena_resps = frontend.search_many(requests)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t_serve) * 1e3
+    launches["gather_blocks"] = gather_blocks.launches
+    dispatches = fused.dispatch_count()
+    hits = sum(r.stats.arena_hits for r in arena_resps)
+    misses = sum(r.stats.arena_misses for r in arena_resps)
+    print(f"arena route: {len(SLATE)} queries, {dispatches} device programs, gather launches "
+          f"{launches['gather_blocks']}, arena hits {hits} keys, misses {misses} keys")
+    require(launches["gather_blocks"] > 0, "gather_blocks was not launched on the arena route")
+    require(hits > 0, "the slate did not hit the arena")
+    require(dispatches > 0, "the arena route issued no device program")
+    t_serve = time.perf_counter()
+    cached = frontend.search_many(requests)
+    cached_ms = (time.perf_counter() - t_serve) * 1e3
+    require(all(r.stats.cache_hits == 1 for r in cached), "second arena round not all cache hits")
+    for r, h in zip(arena_resps, main_resps):
+        require([d.doc_id for d in r.docs] == [d.doc_id for d in h.docs],
+                f"arena route top {TOP_K} differs from the host route for {r.query!r}")
+    slate_profile(arena_frontend, "arena route", first_ms, cached_ms)
+    require(arena.metrics()["arena_uploads"] == uploads, "a slate uploaded to the arena: the cold entries were missed")
+    print(f"  arena metrics after the slates: {json.dumps(arena.metrics())}")
+    t0 = phase("serving (arena route)", t0)
 
     # ---- 5. kernels against their plain versions, main-path shapes -----------
     work = [[(sub, index) for sub in subs[q]] for q in SLATE]
@@ -263,14 +351,15 @@ def main() -> int:
             occ_w = rng.integers(-(2**31), 2**31, (256, l, n), dtype=np.int64).astype(np.int32)
         mult_w = rng.integers(0, 4, (256, l)).astype(np.int32)
         cover_check(torch.from_numpy(occ_w).to(dev), torch.from_numpy(mult_w).to(dev), dtype, "wraparound")
-        ms = cuda_ms(torch, lambda: proximity_window(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 50)
-        plain_ms = cuda_ms(torch, lambda: proximity_window_plain(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 2)
+        t_k = cuda_ms(torch, lambda: proximity_window(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 50)
+        t_p = cuda_ms(torch, lambda: proximity_window_plain(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 2)
+        ms, plain_ms = t_k[0], t_p[0]
         item = occ.element_size()
         n_bytes = r * l * n * item + r * l * item + r * n * (1 + 4)
         # an add and a compare per active (row, lemma), position and offset
         n_ops = 2 * int((plan.mult > 0).sum()) * n * (2 * MAX_DISTANCE + 1)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"proximity {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        print(f"proximity {dtype}: {timing('kernel', t_k)}, {timing('plain', t_p)}, bound {b_ms:.4f} ms ({b_by})")
         if dtype == "uint8":  # the frontend's compute dtype: the main path's entry
             kernels.append({
                 "name": "proximity_window", "route": "cuda",
@@ -310,15 +399,16 @@ def main() -> int:
         require(bool((got <= member.int()).all()), f"intersect false positive ({label})")
         if chunks >= n_chunks:
             require(torch.equal(got.bool(), member), f"intersect under-reports ({label})")
-    ms = cuda_ms(torch, lambda: intersect_sorted(a, b, off, n_chunks=n_chunks), 200)
-    plain_ms = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
-    lib_ms = cuda_ms(torch, lambda: torch.isin(a, b), 200)
+    t_k = cuda_ms(torch, lambda: intersect_sorted(a, b, off, n_chunks=n_chunks), 200)
+    t_p = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
+    t_l = cuda_ms(torch, lambda: torch.isin(a, b), 200)
+    ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
     na_, nb_ = len(a_np), len(b_np)
     # both lists are sorted: a binary search of each a element over its
     # block's n_chunks * 256 b elements is what the function needs
     n_ops = na_ * math.ceil(math.log2(n_chunks * 256))
     b_ms, b_by = bound_ms(4 * (na_ + nb_ + len(off_np) + na_), n_ops)
-    print(f"intersect: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.isin {lib_ms:.4f} ms, "
+    print(f"intersect: {timing('kernel', t_k)}, {timing('plain', t_p)}, {timing('torch.isin', t_l)}, "
           f"bound {b_ms:.6f} ms ({b_by})")
     kernels.append({
         "name": "intersect_sorted", "route": "cuda",
@@ -329,23 +419,94 @@ def main() -> int:
         "library_ms": lib_ms,
     })
     del a, b, off, events, mult
+
+    # the arena route's gather descriptors, as serve_query_batch plans them
+    items = []
+    for qi, q in enumerate(SLATE):
+        for sub in subs[q]:
+            keys = select_keys(sub, index.fl)
+            exts = [residency.lookup(key.components) for key in keys]
+            if keys and all(e is not None and e.n_rows for e in exts):
+                items.append((qi, sub, keys, exts, residency))
+    aplan = plan_arena_batch(items, n_queries=len(SLATE))
+    print(f"arena plan: {len(items)} work items, tier {aplan.tier}, {aplan.n_events} live events, "
+          f"groups {list(aplan.families)} with G={[len(x) for x in aplan.src]} output blocks, "
+          f"row_budget {aplan.row_budget}, n_budget {aplan.n_budget}, "
+          f"lemma_budget {aplan.lemma_budget}, doc_bits {aplan.doc_bits}")
+
+    def gather_check(buf, src_t, nv_t, label):
+        got = gather_blocks(buf, src_t, nv_t)
+        want = gather_blocks_plain(buf, src_t, nv_t)
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        print(f"gather {label} G={src_t.shape[0]} over {buf.shape[0] // ARENA_BLOCK} arena blocks: "
+              f"{int((got[:, 0] >= 0).sum())} live rows, max_abs_err {err}")
+        require(err == 0 and got.shape == want.shape, f"gather kernel != plain ({label})")
+        return err
+
+    gather_err, groups = 0, []
+    for g, fname in enumerate(aplan.families):
+        src_t, nv_t = (torch.from_numpy(x[g]).to(dev) for x in (aplan.src, aplan.nv))
+        gather_err = max(gather_err, gather_check(aplan.buffers[g], src_t, nv_t, f"main-path {fname}"))
+        groups.append((len(aplan.src[g]), aplan.buffers[g], src_t, nv_t, aplan.nv[g]))
+    # random descriptors over the largest resident buffer: repeated sources,
+    # padded blocks (src 0, n_valid 0), sources past either end, every
+    # n_valid kind
+    big = max((fb.buf for fb in residency.families.values()), key=lambda t: t.shape[0])
+    nb_big = big.shape[0] // ARENA_BLOCK
+    src_r = rng.integers(0, nb_big, 8192).astype(np.int32)
+    src_r[::7] = src_r[0]
+    src_r[1], src_r[2], src_r[-64:] = -5, nb_big + 5, 0
+    nv_r = rng.choice([0, 1, 63, 64, 127, ARENA_BLOCK, ARENA_BLOCK + 3, -1], 8192).astype(np.int32)
+    nv_r[-64:] = 0
+    gather_err = max(gather_err, gather_check(
+        big, torch.from_numpy(src_r).to(dev), torch.from_numpy(nv_r).to(dev), "random"))
+    # times at the main path's largest group
+    g_blocks, buf, src_t, nv_t, nv_np = max(groups, key=lambda t: t[0])
+    t_k = cuda_ms(torch, lambda: gather_blocks(buf, src_t, nv_t), 200)
+    t_p = cuda_ms(torch, lambda: gather_blocks_plain(buf, src_t, nv_t), 20)
+    blocks3 = buf.view(-1, ARENA_BLOCK, 2)
+    t_l = cuda_ms(torch, lambda: torch.index_select(blocks3, 0, src_t), 200)
+    ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
+    live_rows = int(np.clip(nv_np, 0, ARENA_BLOCK).sum())
+    # 8 B per output row written, per live row read, per block of indirection
+    b_ms, b_by = bound_ms(8 * (g_blocks * ARENA_BLOCK + live_rows + g_blocks), 0)
+    print(f"gather G={g_blocks} ({live_rows} live rows): {timing('kernel', t_k)}, {timing('plain', t_p)}, "
+          f"{timing('torch.index_select (the gather without the mask)', t_l)}, bound {b_ms:.6f} ms ({b_by})")
+    kernels.append({
+        "name": "gather_blocks", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gather.cu",
+        "replaces": "src/repro/kernels/gather.py:64",
+        "launches": launches["gather_blocks"], "max_abs_err": gather_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    del groups, buf, src_t, nv_t, blocks3
     t0 = phase("kernels vs plain versions", t0)
 
-    # ---- 6. the slate against the event-rank cover and the CPU ---------------
+    # ---- 6. the slate against the event-rank cover, the arena and the CPU -----
     full = [SearchRequest(q, top_k=len(store)) for q in SLATE]
+    cpu_arena = PostingArena(budget_bytes=ARENA_BUDGET, device="cpu")
+    t_acq = time.perf_counter()
+    cpu_arena.acquire(index, 0)
+    print(f"cpu arena cold acquire: {time.perf_counter() - t_acq:.3f} s")
     runs = {}
     for label, kwargs in (
         ("cuda kernel", dict(device="cuda", use_kernel=True)),
         ("cuda rank", dict(device="cuda", use_kernel=False)),
+        ("cuda arena kernel", dict(device="cuda", use_kernel=True, arena=arena)),
+        ("cuda arena dense", dict(device="cuda", use_kernel=False, arena=arena)),
+        ("cpu arena", dict(device="cpu", arena=cpu_arena)),
         ("cpu", dict(device="cpu")),
     ):
         t_run = time.perf_counter()
         runs[label] = ServingFrontend(index, lemmatizer=lem, max_batch=16, **kwargs).search_many(full)
         print(f"{label}: {(time.perf_counter() - t_run) * 1e3:.1f} ms for the slate, all documents ranked")
+        if "arena" in label:
+            require(sum(r.stats.arena_hits for r in runs[label]) > 0, f"{label} did not hit the arena")
     for qi, q in enumerate(SLATE):
         ref = runs["cpu"][qi]
         ref_frags = {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments}
-        for label in ("cuda kernel", "cuda rank"):
+        for label in runs.keys() - {"cpu"}:
             got = runs[label][qi]
             require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments} == ref_frags,
                     f"{label} fragments differ from the cpu run for {q!r}")
@@ -353,10 +514,11 @@ def main() -> int:
                     f"{label} documents differ from the cpu run for {q!r}")
             require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
                     f"{label} scores differ from the cpu run for {q!r}")
-        require([d.doc_id for d in main_resps[qi].docs] == [d.doc_id for d in ref.docs[:TOP_K]],
-                f"main-path top {TOP_K} differs from the cpu ranking for {q!r}")
-        print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs agree on all three runs")
-    phase("agreement: cuda kernel == cuda rank == cpu", t0)
+        for resps, route in ((main_resps, "host"), (arena_resps, "arena")):
+            require([d.doc_id for d in resps[qi].docs] == [d.doc_id for d in ref.docs[:TOP_K]],
+                    f"{route} route top {TOP_K} differs from the cpu ranking for {q!r}")
+        print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs agree on all {len(runs)} runs")
+    phase("agreement: every card and cpu run == the cpu host route", t0)
 
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

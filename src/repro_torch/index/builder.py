@@ -27,7 +27,14 @@ import numpy as np
 from ..core.lemma import FLList, LemmaType
 from .corpus import DocumentStore
 
-__all__ = ["IndexSet", "build_indexes", "build_segment", "NSWRecords", "POSTING_WIDTH"]
+__all__ = [
+    "IndexSet",
+    "build_indexes",
+    "build_segment",
+    "family_rows",
+    "NSWRecords",
+    "POSTING_WIDTH",
+]
 
 _POSTING_BYTES = {1: 8, 2: 12, 3: 16}  # int32 record sizes per key arity
 
@@ -105,6 +112,22 @@ class IndexSet:
 _EMPTY1 = np.empty((0, 2), dtype=np.int32)
 _EMPTY2 = np.empty((0, 3), dtype=np.int32)
 _EMPTY3 = np.empty((0, 4), dtype=np.int32)
+
+
+def family_rows(
+    mapping, width: int
+) -> tuple[list, list[np.ndarray], np.ndarray, np.ndarray]:
+    """One family's concatenated-rows layout (DESIGN.md §12.1/§13.1):
+    sorted keys, their int32 row arrays, per-key row counts and cumulative
+    start offsets.  The device-resident posting arena (``search/arena.py``)
+    builds its extents from it, in the reference's key order."""
+    keys = sorted(mapping.keys())
+    arrays = [np.asarray(mapping[k], dtype=np.int32) for k in keys]
+    rows = np.asarray([len(a) for a in arrays], dtype=np.int64)
+    starts = np.zeros(len(rows), dtype=np.int64)
+    if len(rows):
+        np.cumsum(rows[:-1], out=starts[1:])
+    return keys, arrays, rows, starts
 
 
 def _sorted_rows(rows: list[tuple[int, ...]], width: int) -> np.ndarray:

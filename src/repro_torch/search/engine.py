@@ -6,8 +6,10 @@
 4) Combining results        — union of fragments, §14 proximity relevance.
 
 This port serves the ``fused`` algorithm: a whole query batch — every
-subquery of every query — is one device program (``search/fused.py``).
-The reference's host algorithms (``se1`` .. ``se2.4``) are not ported yet.
+subquery of every query — is one device program (``search/fused.py``),
+over a device-resident posting arena when one is given
+(``search/arena.py``).  The reference's host algorithms (``se1`` ..
+``se2.4``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..core.keys import expand_subqueries
 from ..core.lemma import Lemmatizer
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import IndexSet
-from .fused import ARENA_NOT_PORTED, serve_query_batch
+from .fused import serve_query_batch
 from .relevance import rank_documents
 
 __all__ = ["SearchEngine", "RankedDoc", "QueryResponse"]
@@ -55,7 +57,9 @@ class QueryResponse:
 class SearchEngine:
     """Front door over one index shard: the §5 pipeline end to end
     (lemmatize -> subqueries -> fused device program -> §14 rank), on
-    ``device``."""
+    ``device``.  With ``arena`` (a ``search.arena.PostingArena``) every
+    batch acquires the index's residency first, and resident keys are
+    served by the arena program."""
 
     def __init__(
         self,
@@ -69,17 +73,25 @@ class SearchEngine:
     ):
         if algorithm != "fused":
             raise NotImplementedError(HOST_ALGORITHMS_NOT_PORTED)
-        if arena is not None:
-            raise NotImplementedError(ARENA_NOT_PORTED)
         self.index = index
         self.lemmatizer = lemmatizer or Lemmatizer()
         self.algorithm = algorithm
         self.use_kernel = use_kernel
         self.doc_len = doc_len
+        self.arena = arena
         self.device = device
 
     def search(self, query: str, top_k: int = 10) -> QueryResponse:
         return self.search_batch([query], top_k=top_k)[0]
+
+    def _residencies(self) -> dict | None:
+        """The index's arena residency, keyed by ``id(index)`` as the work
+        items carry it (``None`` without an arena)."""
+        if self.arena is None:
+            return None
+        from .planner import generation_token
+
+        return {id(self.index): self.arena.acquire(self.index, generation_token(self.index))}
 
     # ---- planned path (§5 made explicit; see search/planner.py) -----------
 
@@ -103,6 +115,7 @@ class SearchEngine:
             top_k=top_k,
             doc_len=self.doc_len,
             use_kernel=self.use_kernel,
+            residencies=self._residencies(),
             device=self.device,
         )[0]
 
@@ -123,6 +136,7 @@ class SearchEngine:
             use_kernel=self.use_kernel,
             stats=per_stats,
             batch_stats=batch_stats,
+            residencies=self._residencies(),
             device=self.device,
         )
         elapsed = time.perf_counter() - t0

@@ -16,6 +16,11 @@ three things heavy traffic needs (ROADMAP north star):
   hot posting-slice cache that the planner's cost probe warms (plan-time
   reads ARE the prefetch).  A mutation of the source bumps the token, so
   stale entries become unreachable without any explicit flush.
+* **Arena residency** (DESIGN.md §13, opt-in via ``arena_budget_mb`` or a
+  shared ``arena=``) — hot posting columns upload to the device once per
+  generation token and batches then gather/pack on the device from
+  descriptors (``search/arena.py``).  Fragments are identical with the
+  arena on or off.
 * **Deadlines** — per-request response-time budgets enforced at *admission*
   (the 2009.03679 approach: bound the work before dispatch, don't abort
   mid-kernel).  Estimated cost is the plan's exact posting counts divided by
@@ -31,9 +36,9 @@ fragment-identical to the reference package's frontend and to its scalar
 Combiner on the same index (``tests/test_torch_frontend.py``).
 
 This port serves one plain ``IndexSet`` on ``device`` (``"cuda"`` unless the
-caller asks for ``"cpu"``).  The posting arena (``arena_budget_mb > 0`` or
-``arena=``) raises ``NotImplementedError``, as do the sharded and
-incremental sources (see ``planner.resolve_index_views``).
+caller asks for ``"cpu"``); an arena the frontend builds lives on the same
+device.  The sharded and incremental sources raise ``NotImplementedError``
+(see ``planner.resolve_index_views``).
 """
 
 from __future__ import annotations
@@ -50,7 +55,6 @@ from ..core.lemma import Lemmatizer
 from ..core.postings import QueryStats
 from ..index.builder import IndexSet
 from ..runtime.clock import SystemClock
-from .fused import ARENA_NOT_PORTED
 from .planner import (
     QueryPlan,
     QueryPlanner,
@@ -194,8 +198,6 @@ class ServingFrontend:
         clock=None,
         device="cuda",
     ):
-        if arena is not None or arena_budget_mb > 0:
-            raise NotImplementedError(ARENA_NOT_PORTED)
         self._source = source
         self.device = device
         # injectable clock (DESIGN.md §16.4): every deadline/EWMA timing in
@@ -218,6 +220,20 @@ class ServingFrontend:
         self.use_kernel = use_kernel
         self.doc_len = doc_len
         self.compute_dtype = compute_dtype
+        # device-resident posting arena (DESIGN.md §13): opt-in via a byte
+        # budget (or an externally shared PostingArena).  Resident keys
+        # gather/pack on the device; non-resident keys keep the host path,
+        # so the arena never changes fragments, only locality.  Only an
+        # arena this frontend CREATED is attached to the source and released
+        # by ``close()``; a shared arena's lifecycle belongs to its owner.
+        self._owns_arena = False
+        if arena is None and arena_budget_mb and arena_budget_mb > 0:
+            from .arena import PostingArena
+
+            arena = PostingArena(budget_bytes=int(arena_budget_mb * (1 << 20)), device=device)
+            arena.attach(source)
+            self._owns_arena = True
+        self.arena = arena
         self.planner = QueryPlanner(source, lemmatizer=lemmatizer)
         self.posting_cache = PostingCache(capacity_bytes=posting_cache_bytes)
         self._result_cache: OrderedDict[tuple, object] = OrderedDict()
@@ -332,6 +348,13 @@ class ServingFrontend:
                 miss_shed[j] = True
                 self._sheds += 1
 
+        # arena residencies are acquired only when something will actually
+        # execute: a fully cache-served slate must never pay acquire work
+        # (a cold acquire uploads whole families)
+        residencies = (
+            self._acquire_residencies(views, cached_views, token) if miss_idx else None
+        )
+
         # micro-batch the misses: one fused dispatch per admitted batch.
         # Ranking runs at the chunk-wide max top_k; each response is trimmed
         # to its own request's top_k afterwards — rank_documents is a total
@@ -360,6 +383,7 @@ class ServingFrontend:
                 use_kernel=self.use_kernel,
                 compute_dtype=self.compute_dtype,
                 admitted=chunk_admitted,
+                residencies=residencies,
                 defer=self.pipeline,
                 device=self.device,
             )
@@ -419,6 +443,32 @@ class ServingFrontend:
 
         return finalize
 
+    def close(self) -> None:
+        """Release this frontend's hold on long-lived state (DESIGN.md
+        §13.2): if the frontend created its own posting arena, detach it
+        from the index source and drop its device buffers.  Idempotent.
+        Shared arenas (``arena=`` passed in) are untouched — their owner
+        closes them."""
+        if self._owns_arena and self.arena is not None:
+            self.arena.detach()
+            self.arena.release()
+
+    def _acquire_residencies(self, views, cached_views, token):
+        """Posting-arena residencies per live view (DESIGN.md §13).
+
+        Keyed by ``id(cached_view)`` because that is the view object
+        ``execute_plans`` packs into work items; uploads read the RAW view
+        (the arena walks family dicts, which the cache wrapper does not
+        carry), so entries stay keyed by the raw view's identity stamp and
+        every frontend over one index shares them.
+        """
+        if self.arena is None:
+            return None
+        all_res = self.arena.acquire_many(
+            [(raw, token, shard) for shard, raw in enumerate(views)]
+        )
+        return {id(cached): res for cached, res in zip(cached_views, all_res)}
+
     def warmup(
         self,
         shapes: Sequence[tuple] | None = None,
@@ -430,7 +480,8 @@ class ServingFrontend:
         library load, allocator growth).
 
         ``queries`` plans and executes representative queries through the
-        real serving path (result cache untouched).  ``shapes`` lists
+        real serving path (the arena and its gather kernel included, result
+        cache untouched).  ``shapes`` lists
         explicit buckets ``(events, rows, lemmas, table_depth, queries,
         window)`` run on all-padding inputs.  With neither argument, one
         default bucket at the frontend's ``max_batch``/``doc_len`` runs.
@@ -470,6 +521,7 @@ class ServingFrontend:
                 _CachedView(v, self.posting_cache, (token, i))
                 for i, v in enumerate(views)
             ]
+            residencies = self._acquire_residencies(views, cached_views, token)
             plans = [
                 self.planner.plan(q, views=cached_views, generation=token)
                 for q in queries
@@ -483,6 +535,7 @@ class ServingFrontend:
                     doc_len=self.doc_len,
                     use_kernel=self.use_kernel,
                     compute_dtype=self.compute_dtype,
+                    residencies=residencies,
                     device=self.device,
                 )
                 programs += 1
@@ -546,7 +599,9 @@ class ServingFrontend:
         """Serving counters for dashboards and the bench harness."""
         n_lookups = self._result_hits + self._result_misses
         p_lookups = self.posting_cache.hits + self.posting_cache.misses
+        arena = self.arena.metrics() if self.arena is not None else {}
         return {
+            **arena,
             "served": self._served,
             "result_cache_hits": self._result_hits,
             "result_cache_misses": self._result_misses,

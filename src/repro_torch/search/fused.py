@@ -29,8 +29,10 @@ intersection kernel (``kernels/intersect.py``).
 
 Every entry point takes ``device`` and runs there: ``"cuda"`` unless the
 caller asks for ``"cpu"``, where each kernel wrapper takes its plain
-version.  This module ports ``src/repro/search/fused.py`` without the
-posting arena (``residencies`` raises ``NotImplementedError``).
+version.  ``serve_query_batch`` routes each work item over the
+device-resident posting arena (``search/arena.py``) when its keys are
+resident, and through the host pack otherwise.  This module ports
+``src/repro/search/fused.py``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch
 
 from ..core.keys import SelectedKey, Subquery, select_keys
 from ..core.postings import QueryStats, SearchResult
-from ..index.builder import IndexSet
+from ..index.builder import POSTING_WIDTH, IndexSet
 from ..kernels.intersect import PAD, block_offsets, intersect_sorted
 from ..kernels.proximity import COMPUTE_DTYPES, proximity_window
 
@@ -71,11 +73,6 @@ __all__ = [
 # Default list size above which the Step-1 pre-filter pays for a device
 # round-trip; below it the same block intersection runs as host searchsorted.
 INTERSECT_DEVICE_THRESHOLD = 4096
-
-ARENA_NOT_PORTED = (
-    "the device-resident posting arena is not ported yet "
-    "(ROADMAP.md: arena.py and gather_blocks)"
-)
 
 _DISPATCHES = 0
 
@@ -994,37 +991,154 @@ def serve_query_batch(
     defer: bool = False,
     device: str | torch.device = "cuda",
 ) -> FusedBatchResult | PendingBatch:
-    """Serve one query batch through the host-pack path: ONE device program
-    on ``device`` for the whole batch (plus one per long-list intersect).
+    """Serve one query batch, routing each (subquery, view) work item over
+    the device-resident posting arena when its keys are resident and through
+    the host-pack path on ``device`` otherwise (DESIGN.md §13).
 
     ``work`` is the ``plan_query_batch`` cross product (items are
-    ``(subquery, index[, keys])``).  The returned per-query fragment sets
-    are exact — equal to the §10 oracle and to the reference package's
-    fragments for the same work.  ``readout``/``defer`` forward to
-    ``run_query_batch``.  ``residencies`` (device-resident posting arena
-    routing) is not ported yet and raises ``NotImplementedError``.
+    ``(subquery, index[, keys])``); ``residencies`` maps ``id(view)`` to the
+    :class:`~repro_torch.search.arena.ArenaResidency` acquired for that view
+    (no entry = host path for that view's items; the arena program runs on
+    the arena's device).  A fully resident batch is ONE arena dispatch; a
+    fully host batch is ONE host dispatch (plus one per long-list
+    intersect); a mixed batch runs both and merges.
+
+    Exactness contract: the per-query fragment sets are identical for every
+    routing (arena, host, or mixed), equal to the §10 oracle and to the
+    reference package's fragments for the same work.  ``readout``/``defer``
+    forward to ``run_query_batch`` / ``run_arena_batch``.
     """
-    if residencies:
-        raise NotImplementedError(ARENA_NOT_PORTED)
+    from .arena import ArenaOverflow, plan_arena_batch, run_arena_batch
+
+    global _DISPATCHES
+
+    def stat_for(qi: int) -> QueryStats | None:
+        if stats is None or isinstance(stats, QueryStats):
+            return stats
+        return stats[qi]
+
+    sink = _PHASE_SINK
+    host_work: list[list[tuple]] = [[] for _ in work]
+    arena_items: list[tuple] = []
+    arena_fallback: list[tuple[int, tuple, object]] = []
+    t0 = time.perf_counter()
+    for qi, items in enumerate(work):
+        for item in items:
+            sub, view = item[0], item[1]
+            res = residencies.get(id(view)) if residencies else None
+            if res is None:
+                host_work[qi].append(item)
+                continue
+            keys = (
+                list(item[2])
+                if len(item) > 2 and item[2] is not None
+                else select_keys(sub, view.fl)
+            )
+            st = stat_for(qi)
+            extents = []
+            for key in keys:
+                ext = res.lookup(key.components)
+                if ext is None:
+                    break
+                extents.append(ext)
+            if len(extents) < len(keys):
+                if st is not None:
+                    # per-key units, like arena_hits: every key of the item
+                    # is served by the host pack
+                    st.arena_misses += len(keys)
+                # carry the selected keys: the host pack accepts 3-tuples
+                host_work[qi].append((sub, view, keys))
+                continue
+
+            def account(hit=True, st=st, keys=keys, extents=extents):
+                # §11 accounting parity with the host pack: the arena path
+                # reads the same rows, on the device.  ``hit=False`` records
+                # an overflow fallback — the host pack does its own counting
+                if st is None:
+                    return
+                if not hit:
+                    st.arena_misses += len(keys)
+                    return
+                st.arena_hits += len(keys)
+                for ext in extents:
+                    st.postings_read += ext.n_rows
+                    st.bytes_read += ext.n_rows * 4 * POSTING_WIDTH.get(ext.family, 2)
+
+            # provably-empty short-circuits, mirroring the host pack
+            # (extract_segment_events returning None)
+            if (
+                not keys
+                or all(e.n_rows == 0 for e in extents)
+                or (len(keys) >= 2 and any(e.n_rows == 0 for e in extents))
+            ):
+                account()
+                if st is not None:
+                    st.empty_subqueries += 1
+                continue
+            arena_items.append((qi, sub, keys, extents, res))
+            # the accounting thunk applies ONLY if the arena plan succeeds:
+            # on ArenaOverflow the host pack does its own counting (no
+            # double charge, no phantom arena_hits)
+            arena_fallback.append((qi, (sub, view, keys), account))
+
+    results: list[FusedBatchResult | PendingBatch] = []
+    if arena_items:
+        try:
+            aplan = plan_arena_batch(arena_items, n_queries=len(work))
+        except ArenaOverflow:
+            aplan = None
+            for qi, item3, account in arena_fallback:
+                account(hit=False)
+                host_work[qi].append(item3)
+        if aplan is not None:
+            for _qi, _item3, account in arena_fallback:
+                account()
+        # the arena's whole host side — routing + descriptor planning — is
+        # the pack phase (there is no plan phase: no posting is read)
+        t0 = _phase(sink, "pack_us", t0)
+        if aplan is not None:
+            results.append(
+                run_arena_batch(
+                    aplan,
+                    max_distance=max_distance,
+                    top_k=top_k,
+                    use_kernel=use_kernel,
+                    stats=batch_stats,
+                    phases=sink,
+                    readout=readout,
+                    defer=defer,
+                )
+            )
+            _DISPATCHES += 1
+    if any(host_work):
+        hplan = plan_query_batch(
+            host_work,
+            doc_len=doc_len,
+            stats=stats,
+            intersect_device_threshold=intersect_device_threshold,
+            device=device,
+        )
+        if hplan is not None:
+            results.append(
+                run_query_batch(
+                    hplan,
+                    max_distance=max_distance,
+                    top_k=top_k,
+                    use_kernel=use_kernel,
+                    compute_dtype=compute_dtype,
+                    stats=batch_stats,
+                    readout=readout,
+                    defer=defer,
+                    device=device,
+                )
+            )
     n_queries = len(work)
-    plan = plan_query_batch(
-        work,
-        doc_len=doc_len,
-        stats=stats,
-        intersect_device_threshold=intersect_device_threshold,
-        device=device,
-    )
-    if plan is None:
+    if not results:
         empty = empty_batch_result(n_queries, top_k)
         return PendingBatch(lambda: empty) if defer else empty
-    return run_query_batch(
-        plan,
-        max_distance=max_distance,
-        top_k=top_k,
-        use_kernel=use_kernel,
-        compute_dtype=compute_dtype,
-        stats=batch_stats,
-        readout=readout,
-        defer=defer,
-        device=device,
-    )
+    if defer:
+        pending = list(results)
+        return PendingBatch(
+            lambda: _merge_results([p.result() for p in pending], n_queries, top_k)
+        )
+    return _merge_results(results, n_queries, top_k)

@@ -308,9 +308,9 @@ def execute_plans(
     (the frontend's deadline admission); default is every executable
     subquery.  Each subquery carries its plan's key bindings into the batch
     packer, so execution reads exactly the costed postings.  ``residencies``
-    maps ``id(view)`` to a posting-arena residency (DESIGN.md §13), which
-    this port does not serve yet (``NotImplementedError``).  The batch runs
-    on ``device``.  Returns ``QueryResponse`` objects
+    maps ``id(view)`` to a posting-arena residency (DESIGN.md §13): work
+    items of resident views run in the arena program on the arena's
+    device, the rest on ``device``.  Returns ``QueryResponse`` objects
     whose fragment sets are byte-identical to the unplanned engines over the
     admitted subqueries (exactness pinned by ``tests/test_planner.py``);
     ranking is ``rank_documents`` over the exact fragment union, identical

@@ -103,6 +103,31 @@ def test_frontend_equals_reference_frontend_and_combiner(corpus):
         assert (g.stats.postings_read, g.stats.bytes_read) == (w.stats.postings_read, w.stats.bytes_read)
 
 
+def test_arena_frontend_equals_reference_and_combiner(corpus):
+    """``arena_budget_mb=64`` (the reference launcher's default budget):
+    the same responses and §11 accounting as the reference's arena frontend,
+    and the Combiner's fragments."""
+    _, ref_store, ref_idx, store, idx, queries = corpus
+    top_k = 1000
+    ref_fe = RefFrontend(ref_idx, lemmatizer=ref_store.lemmatizer, arena_budget_mb=64)
+    want = ref_fe.search_many([RefRequest(q, top_k=top_k) for q in queries])
+    fe = ServingFrontend(idx, lemmatizer=store.lemmatizer, arena_budget_mb=64, device="cpu")
+    got = fe.search_many([SearchRequest(q, top_k=top_k) for q in queries])
+    for q, g, w in zip(queries, got, want):
+        assert _docs(g) == _docs(w), q
+        combiner = set()
+        for sub in ref_expand(q, ref_store.lemmatizer):
+            combiner.update(se24_combiner(sub, ref_idx)[0])
+        assert {(d.doc_id, f.start, f.end) for d in g.docs for f in d.fragments} == {
+            (r.doc_id, r.start, r.end) for r in combiner
+        }, q
+        for field in ("postings_read", "bytes_read", "arena_hits", "arena_misses", "device_dispatches"):
+            assert getattr(g.stats, field) == getattr(w.stats, field), (q, field)
+    assert fe.metrics()["arena_uploads"] == ref_fe.metrics()["arena_uploads"] > 0
+    fe.close()
+    assert fe.metrics()["arena_entries"] == 0
+
+
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_pipeline_on_off_identical_one_dispatch_per_chunk(corpus, use_kernel):
     _, _, _, store, idx, queries = corpus
@@ -148,8 +173,6 @@ def test_warmup_runs_the_serving_programs(corpus):
 
 def test_sources_and_options_outside_the_slice_raise():
     _, _, _, store, idx, _ = _build(SEEDS[0])
-    with pytest.raises(NotImplementedError, match="arena"):
-        ServingFrontend(idx, arena_budget_mb=64, device="cpu")
     with pytest.raises(NotImplementedError, match="sharded"):
         ServingFrontend(type("Svc", (), {"shards": [idx]})(), device="cpu")
     with pytest.raises(NotImplementedError, match="incremental"):

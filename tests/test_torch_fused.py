@@ -18,6 +18,7 @@ from repro.index import build_indexes as ref_build_indexes
 from repro.index import synthesize_corpus as ref_synthesize
 from repro.search import fused as ref_fused
 from repro_torch.core.keys import expand_subqueries
+from repro_torch.core.postings import QueryStats
 from repro_torch.index import build_indexes, synthesize_corpus
 from repro_torch.search import fused
 
@@ -128,9 +129,27 @@ def test_merge_results_equals_single_batch(indexes):
     np.testing.assert_array_equal(merged.n_fragments, whole.n_fragments)
 
 
-def test_arena_residencies_not_ported(indexes):
-    with pytest.raises(NotImplementedError, match="arena"):
-        fused.serve_query_batch(indexes[1], max_distance=5, residencies={1: object()}, device="cpu")
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_arena_residencies_route_through_the_arena(indexes, use_kernel):
+    """Work items of a resident view run in ONE arena program, with the
+    host route's fragments; views without a residency keep the host path."""
+    from repro_torch.search.arena import PostingArena
+
+    work = indexes[1]
+    view = work[0][0][1]
+    res = {id(view): PostingArena(device="cpu").acquire(view, 0)}
+    host = fused.serve_query_batch(work, max_distance=5, device="cpu")
+    stats = [QueryStats() for _ in work]
+    fused.reset_dispatch_count()
+    got = fused.serve_query_batch(work, max_distance=5, residencies=res, use_kernel=use_kernel,
+                                  stats=stats, device="cpu")
+    assert fused.dispatch_count() == 1
+    assert got.per_query == host.per_query
+    assert sum(s.arena_hits for s in stats) > 0 and sum(s.arena_misses for s in stats) == 0
+    stats = [QueryStats() for _ in work]
+    other = fused.serve_query_batch(work, max_distance=5, residencies={id(object()): res[id(view)]},
+                                    stats=stats, device="cpu")
+    assert other.per_query == host.per_query and sum(s.arena_hits for s in stats) == 0
 
 
 def test_intersect_candidates_tile_path_equals_host():

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the serving path's shapes, and the port's serving path on the card
-against the same path on the CPU.
+at the serving path's shapes, and the port's serving path on the card (the
+host route and the posting arena) against the host route on the CPU.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -16,12 +16,16 @@ import torch
 
 from repro_torch.index import build_indexes, synthesize_corpus
 from repro_torch.kernels import (
+    ARENA_BLOCK,
+    gather_blocks,
+    gather_blocks_plain,
     intersect_sorted,
     intersect_sorted_plain,
     proximity_window,
     proximity_window_plain,
 )
 from repro_torch.search import SearchRequest, ServingFrontend
+from repro_torch.search.arena import PostingArena
 from repro_torch.search.fused import intersect_inputs
 
 pytestmark = pytest.mark.gpu
@@ -60,6 +64,25 @@ def test_intersect_kernel_equals_plain_at_serving_shape(cuda, n_chunks):
     assert torch.equal(got, intersect_sorted_plain(a, b, off, n_chunks=n_chunks))
 
 
+def test_gather_kernel_equals_plain_at_serving_shape(cuda):
+    """8,192 output blocks over a 16,384-block arena: repeated sources,
+    padded blocks, sources past either end, every n_valid kind."""
+    rng = np.random.default_rng(2)
+    g, nb = 8192, 16384
+    arena = torch.from_numpy(rng.integers(-1, 1 << 20, (nb * ARENA_BLOCK, 2)).astype(np.int32)).to(cuda)
+    src = rng.integers(0, nb, g).astype(np.int32)
+    src[::7] = src[0]
+    src[-64:] = 0
+    src[1], src[2] = -5, nb + 5
+    nv = rng.choice([0, 1, 63, 64, 127, ARENA_BLOCK, ARENA_BLOCK + 3], g).astype(np.int32)
+    nv[-64:] = 0
+    src_t, nv_t = torch.from_numpy(src).to(cuda), torch.from_numpy(nv).to(cuda)
+    launches = gather_blocks.launches
+    got = gather_blocks(arena, src_t, nv_t)
+    assert gather_blocks.launches == launches + 1
+    assert torch.equal(got, gather_blocks_plain(arena, src_t, nv_t))
+
+
 def test_frontend_on_card_equals_cpu(cuda):
     store = synthesize_corpus(n_docs=120, doc_len=150, vocab_size=600, seed=3)
     index = build_indexes(store, sw_count=60, fu_count=150, max_distance=5)
@@ -72,8 +95,12 @@ def test_frontend_on_card_equals_cpu(cuda):
                 for r in resps]
 
     want = run(device="cpu")
-    for use_kernel in (False, True):
-        got = run(device="cuda", use_kernel=use_kernel)
+    for use_kernel, with_arena in ((False, False), (True, False), (False, True), (True, True)):
+        kw = {"arena": PostingArena(device="cuda")} if with_arena else {}
+        launches = gather_blocks.launches
+        got = run(device="cuda", use_kernel=use_kernel, **kw)
+        if with_arena and use_kernel:
+            assert gather_blocks.launches > launches
         assert [[(d, f) for d, _, f in r] for r in got] == [[(d, f) for d, _, f in r] for r in want]
         for g, w in zip(got, want):
             # float32 row sums never reach the ranking: rank_documents sums

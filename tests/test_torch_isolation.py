@@ -1,5 +1,6 @@
 """``repro_torch`` stands alone: it imports neither jax nor the reference
-package ``repro``, and serves a batch on the CPU with both blocked."""
+package ``repro``, and serves a batch on the CPU with both blocked, over
+the host route and over the posting arena."""
 
 import os
 import re
@@ -25,6 +26,14 @@ for use_kernel in (False, True):
     assert all(r.docs for r in resps), [r.query for r in resps if not r.docs]
 engine = SearchEngine(index, lemmatizer=store.lemmatizer, device="cpu")
 assert [len(r.docs) for r in engine.search_batch(queries)] == [len(r.docs) for r in resps]
+from repro_torch.kernels.gather import gather_blocks
+from repro_torch.search.arena import PostingArena
+for use_kernel in (False, True):
+    fe = ServingFrontend(index, lemmatizer=store.lemmatizer, use_kernel=use_kernel,
+                         arena=PostingArena(device="cpu"), device="cpu")
+    arena_resps = fe.search_many(queries)
+    assert [len(r.docs) for r in arena_resps] == [len(r.docs) for r in resps]
+    assert sum(r.stats.arena_hits for r in arena_resps) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))

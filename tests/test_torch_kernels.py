@@ -15,6 +15,8 @@ import torch
 import jax.numpy as jnp
 
 from repro.core.window import window_cover as ref_window_cover
+from repro.kernels.gather import gather_blocks as ref_gather_blocks
+from repro.kernels.gather import gather_blocks_ref as ref_gather_blocks_ref
 from repro.kernels.intersect import block_offsets as ref_block_offsets
 from repro.kernels.intersect import intersect_sorted as ref_intersect_sorted
 from repro.kernels.ops import proximity_search_scores as ref_search_scores
@@ -23,9 +25,12 @@ from repro.kernels.ref import fragment_scores_ref as ref_fragment_scores
 from repro.kernels.ref import intersect_ref as ref_intersect_ref
 from repro_torch.core.window import window_cover
 from repro_torch.kernels import (
+    ARENA_BLOCK,
     PAD,
     block_offsets,
     fragment_scores_ref,
+    gather_blocks,
+    gather_blocks_plain,
     intersect_ref,
     intersect_sorted,
     proximity_search_scores,
@@ -164,3 +169,51 @@ def test_search_scores_equal_reference(use_kernel):
     _assert_cover_equal(emit, start, r_emit, r_start)
     # float32 sums over 128 positions, in another order: rounding only
     np.testing.assert_allclose(scores.numpy(), np.asarray(r_scores), rtol=1e-6)
+
+
+@pytest.mark.parametrize("g", [1, 4, 33])
+@pytest.mark.parametrize("valid", ["none", "partial", "full", "mixed"])
+def test_gather_plain_equals_pallas_kernel_bitwise(g, valid):
+    """Repeated and padded source blocks (src 0, n_valid 0), sources past
+    either end of the arena (clamped per row), and every n_valid kind."""
+    rng = np.random.default_rng(g * 10 + len(valid))
+    nb = 8
+    arena = rng.integers(-5, 1000, (nb * ARENA_BLOCK, 2)).astype(np.int32)
+    src = rng.integers(0, nb, g).astype(np.int32)
+    src[::3] = src[0]  # repeated sources
+    src[-1] = 0  # a padded block
+    nv = {
+        "none": np.zeros(g),
+        "partial": rng.integers(1, ARENA_BLOCK, g),
+        "full": np.full(g, ARENA_BLOCK),
+        "mixed": rng.choice([0, 1, 77, ARENA_BLOCK, ARENA_BLOCK + 9, -3], g),
+    }[valid].astype(np.int32)
+    if g > 4:
+        src[1], src[2] = -2, nb + 3  # out of range: rows clamp to the arena
+    want = np.asarray(ref_gather_blocks(jnp.asarray(arena), jnp.asarray(src), jnp.asarray(nv)))
+    want_ref = np.asarray(ref_gather_blocks_ref(jnp.asarray(arena), jnp.asarray(src), jnp.asarray(nv)))
+    got = gather_blocks(torch.from_numpy(arena), torch.from_numpy(src), torch.from_numpy(nv))
+    assert got.dtype == torch.int32 and got.shape == (g * ARENA_BLOCK, 2)
+    np.testing.assert_array_equal(got.numpy(), want_ref)
+    np.testing.assert_array_equal(gather_blocks_plain(
+        torch.from_numpy(arena), torch.from_numpy(src), torch.from_numpy(nv)).numpy(), want_ref)
+    # the Pallas kernel agrees wherever its one-DMA-per-block fetch is in range
+    in_range = np.repeat((src >= 0) & (src < nb), ARENA_BLOCK)
+    np.testing.assert_array_equal(got.numpy()[in_range], want[in_range])
+
+
+def test_gather_rejects_what_the_kernel_cannot_take():
+    arena = torch.zeros((4 * ARENA_BLOCK, 2), dtype=torch.int32)
+    src = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of block"):
+        gather_blocks(arena[:100], src, src)
+    with pytest.raises(ValueError, match="multiple of block"):
+        gather_blocks(arena[:0], src, src)
+    with pytest.raises(ValueError, match=r"\[rows, 2\]"):
+        gather_blocks(torch.zeros((ARENA_BLOCK, 3), dtype=torch.int32), src, src)
+    with pytest.raises(ValueError, match="even"):
+        gather_blocks(arena, src, src, block=3)
+    with pytest.raises(ValueError, match="n_valid"):
+        gather_blocks(arena, src, src[:1])
+    with pytest.raises(ValueError, match="cuda device"):
+        gather_blocks(arena.to("meta"), src.to("meta"), src.to("meta"))
