@@ -23,10 +23,14 @@ Phases, each printed with its seconds:
    it rose, the slate hit the arena and no upload happened during the
    slates;
 5. the kernels against their plain PyTorch versions on the card, at the
-   shapes of the main paths' own inputs (plus random inputs: compute-dtype
-   wraparound for the cover, every ``n_valid`` kind and out-of-range sources
-   for the gather), with kernel, plain-version, bound and library-call
-   times;
+   shapes of the main paths' own inputs, with kernel, plain-version, bound
+   and library-call times.  The cover kernel: the main path's occupancy
+   (required to be 0/1, so the time is its bit path's), arbitrary values
+   that wrap in the compute dtype at the same shape (its general path, timed
+   on its own line), one launch whose rows alternate between the two, and a
+   sweep of ragged N, windows 1 to 63, 1 to 8 lemmas and awkward
+   multiplicities — emit and start equal everywhere.  The gather: every
+   ``n_valid`` kind and out-of-range sources;
 6. the slate again through fresh frontends — the event-rank cover and the
    arena route with and without the gather kernel on the card, and the host
    route and the arena route on the CPU — which must all agree with the CPU
@@ -328,48 +332,100 @@ def main() -> int:
     mult = torch.from_numpy(plan.mult).to(dev)
     kernels = []
 
-    def cover_check(occ, mult_, dtype, label):
-        ek, sk = proximity_window(occ, mult_, MAX_DISTANCE, compute_dtype=dtype)
-        ep, sp = proximity_window_plain(occ, mult_, MAX_DISTANCE, compute_dtype=dtype)
+    def cover_check(occ, mult_, dtype, label, max_distance=MAX_DISTANCE, quiet=False):
+        """The cover kernel against its plain version: emit and start must
+        be equal bit for bit at every position; returns the largest absolute
+        difference of either."""
+        ek, sk = proximity_window(occ, mult_, max_distance, compute_dtype=dtype)
+        ep, sp = proximity_window_plain(occ, mult_, max_distance, compute_dtype=dtype)
         torch.cuda.synchronize()
-        err = max(
-            int((ek != ep).sum()),
-            int(torch.where(ep, (sk - sp).abs(), 0).max()),
-        )
-        print(f"proximity {label} {dtype} {tuple(occ.shape)}: {int(ep.sum())} emits, max_abs_err {err}")
-        require(err == 0, f"proximity kernel != plain ({label}, {dtype})")
+        differ = (ek != ep) | (sk != sp)
+        err = int((sk - sp).abs().max()) if sk.numel() else 0
+        err = max(err, int(differ.any()))
+        if not quiet:
+            print(f"proximity {label} {dtype} {tuple(occ.shape)}: {int(ep.sum())} emits, "
+                  f"{int(differ.sum())} positions differ, max_abs_err {err}")
+        require(err == 0, f"proximity kernel != plain ({label}, {dtype}, max_distance {max_distance})")
         return err
 
+    def cover_inputs(b, l_, n_, window, dtype, wild_rows):
+        """0/1 rows (sparse, dense, events only at e < window) and, on
+        ``wild_rows``, arbitrary values that wrap in the compute type;
+        multiplicities with 0, negative values, values above the window and
+        256."""
+        occ_np = (rng.random((b, l_, n_)) < np.array([0.1, 0.5, 0.3])[np.arange(b) % 3, None, None])
+        occ_np = occ_np.astype(np.int64)
+        occ_np[2::3, :, window:] = 0
+        if dtype == "uint8":
+            wild = rng.integers(0, 256, (b, l_, n_))
+        else:
+            wild = rng.choice([-(2**31), -3, -1, 0, 1, 2, 3, 2**31 - 1], (b, l_, n_))
+        occ_np[wild_rows] = wild[wild_rows]
+        mult_np = rng.choice([0, 1, 1, 1, 2, 2, 3, -1, -5, window, window + 1, 64, 65, 255, 256], (b, l_))
+        return (torch.from_numpy(occ_np.astype(np.int32)).to(dev),
+                torch.from_numpy(mult_np.astype(np.int32)).to(dev))
+
     rng = np.random.default_rng(SEED)
+    n_active = int((plan.mult > 0).sum())
+    print(f"cover: {n_active} active (row, lemma) pairs of {r * l}")
+    # the earlier form of the kernel (one thread per position summing its
+    # window) on an H100 80GB HBM3 at 700 W, for comparison
+    cover_err, earlier_ms = 0, {"uint8": 1.5996, "int32": 1.5949}
     for dtype in ("uint8", "int32"):
         occ = fused.scatter_occupancy(events, r, l, n, dtype)
-        err = cover_check(occ, mult, dtype, "main-path")
-        # arbitrary occupancy values: both sides wrap in the compute dtype
+        # the main path's occupancy is 0/1: every tile takes the bit path
+        require(int(occ.max()) <= 1, "the main path's occupancy is not 0/1")
+        cover_err = max(cover_err, cover_check(occ, mult, dtype, "main-path"))
+        # arbitrary occupancy values at the main path's shape: every tile
+        # takes the general path, and both sides wrap in the compute dtype
+        gen = torch.Generator(device=dev).manual_seed(SEED)
         if dtype == "uint8":
-            occ_w = rng.integers(0, 256, (256, l, n), dtype=np.uint8)
+            occ_w = torch.randint(0, 256, (r, l, n), generator=gen, device=dev, dtype=torch.uint8)
         else:
-            occ_w = rng.integers(-(2**31), 2**31, (256, l, n), dtype=np.int64).astype(np.int32)
-        mult_w = rng.integers(0, 4, (256, l)).astype(np.int32)
-        cover_check(torch.from_numpy(occ_w).to(dev), torch.from_numpy(mult_w).to(dev), dtype, "wraparound")
+            occ_w = torch.randint(-(2**31), 2**31 - 1, (r, l, n), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        mult_w = torch.randint(0, 4, (r, l), generator=gen, device=dev, dtype=torch.int32)
+        cover_err = max(cover_err, cover_check(occ_w, mult_w, dtype, "wraparound"))
+        # one launch whose rows alternate between 0/1 and wrapping values
+        occ_m, mult_m = cover_inputs(512, l, n, 2 * MAX_DISTANCE + 1, dtype, slice(1, None, 2))
+        cover_err = max(cover_err, cover_check(occ_m, mult_m, dtype, "mixed rows"))
+        # the sweep: ragged N, windows 1 to 63, 1 to 8 lemmas, awkward mult
+        t_sweep, n_sweep = time.perf_counter(), 0
+        for n_ in (128, 200, 520, 4096):
+            for md in (0, 1, 5, 31):
+                for l_ in (1, 3, 8):
+                    occ_s, mult_s = cover_inputs(48, l_, n_, 2 * md + 1, dtype, slice(3, None, 4))
+                    cover_err = max(cover_err, cover_check(occ_s, mult_s, dtype, "sweep", md, quiet=True))
+                    n_sweep += 1
+        print(f"proximity sweep {dtype}: {n_sweep} launches (N 128/200/520/4096, max_distance "
+              f"0/1/5/31, L 1/3/8), emit and start equal everywhere, "
+              f"{time.perf_counter() - t_sweep:.2f} s")
         t_k = cuda_ms(torch, lambda: proximity_window(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 50)
+        t_g = cuda_ms(torch, lambda: proximity_window(occ_w, mult_w, MAX_DISTANCE, compute_dtype=dtype), 20)
         t_p = cuda_ms(torch, lambda: proximity_window_plain(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 2)
         ms, plain_ms = t_k[0], t_p[0]
         item = occ.element_size()
-        n_bytes = r * l * n * item + r * l * item + r * n * (1 + 4)
-        # an add and a compare per active (row, lemma), position and offset
-        n_ops = 2 * int((plan.mult > 0).sum()) * n * (2 * MAX_DISTANCE + 1)
+        # the active occupancy rows read once (an inactive row never changes
+        # the output), mult read, emit and start written
+        n_bytes = n_active * n * item + r * l * item + r * n * (1 + 4)
+        whole_ms = (r * l * n * item + r * l * item + r * n * (1 + 4)) / HBM_BYTES_PER_S * 1e3
+        # one test per active (row, lemma) and position
+        n_ops = n_active * n
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"proximity {dtype}: {timing('kernel', t_k)}, {timing('plain', t_p)}, bound {b_ms:.4f} ms ({b_by})")
+        print(f"proximity {dtype}: {timing('kernel (bit path)', t_k)} [earlier per-position form: {earlier_ms[dtype]} ms], "
+              f"{timing('plain', t_p)}, bound {b_ms:.4f} ms ({b_by}; whole-input bytes {whole_ms:.4f} ms)")
+        print(f"proximity {dtype} general path: {timing('kernel on the wraparound input', t_g)}")
         if dtype == "uint8":  # the frontend's compute dtype: the main path's entry
-            kernels.append({
+            cover_entry = {
                 "name": "proximity_window", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/proximity.cu",
                 "replaces": "src/repro/kernels/proximity.py:105",
-                "launches": launches["proximity_window"], "max_abs_err": err,
+                "launches": launches["proximity_window"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
-            })
-        del occ
+            }
+        del occ, occ_w
+    kernels.append({**cover_entry, "max_abs_err": cover_err})
 
     # the two longest doc lists of one multi-key subquery of the slate
     pairs = []

@@ -2,13 +2,17 @@
 its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/proximity.py::
-proximity_window``.  The kernel (``csrc/proximity.cu``) gives each thread one
-document position and sums each candidate window directly — at most 64
-additions per lemma, from a tile of positions staged in shared memory with a
-halo of ``window - 1`` — instead of the TPU's log2(N) doubling prefix scan.
-Its roofline bound is the bytes of the occupancy it reads and the
-emit/start rows it writes; this first form runs well above that bound,
-issue-limited by its per-position window loop (see the source's note).
+proximity_window``.  The kernel (``csrc/proximity.cu``) gives one CTA a tile
+of 512 positions of one row, stages the active lemmas' occupancy of the
+tile and a 64-position halo in shared memory, and picks one of two branches
+per tile from the data: where every staged value is 0 or 1 (the serving
+path's occupancy) it packs the occupancy into bit words and finds each
+lemma's covering offset with leading-zero and population counts; elsewhere
+it sums each candidate window in the compute type's wrapping arithmetic.
+Both branches compute the plain version's function for any input.  Its
+roofline bound is the bytes of the active occupancy rows it reads and the
+emit/start rows it writes (the source's note says more; ``PERF.md`` has its
+times on the H100).
 
 :func:`proximity_window` runs the kernel for CUDA tensors and the plain
 version (``core.window.window_cover_batch``) for CPU tensors only.
@@ -27,7 +31,7 @@ from . import _build
 __all__ = ["proximity_window", "proximity_window_plain", "COMPUTE_DTYPES"]
 
 COMPUTE_DTYPES = {"uint8": torch.uint8, "int32": torch.int32}
-MAX_WINDOW = 64  # one bit per window offset in the kernel's cover mask
+MAX_WINDOW = 64  # one bit per window offset in the kernel's 64-bit masks
 
 
 def _compute_dtype(compute_dtype: str, window: int) -> torch.dtype:

@@ -51,6 +51,40 @@ def test_proximity_kernel_equals_plain_at_serving_shape(cuda, dtype):
     assert torch.equal(torch.where(p_emit, start, 0), torch.where(p_emit, p_start, 0))
 
 
+def _mixed_cover_inputs(rng, b, l, n, window, dtype):
+    """Rows cycling through sparse 0/1, dense 0/1, 0/1 with events only at
+    e < window, and arbitrary values that wrap in the compute type; awkward
+    multiplicities (0, negative, above the window, 256)."""
+    occ = (rng.random((b, l, n)) < np.array([0.1, 0.5, 0.3, 0.0])[np.arange(b) % 4, None, None])
+    occ = occ.astype(np.int64)
+    occ[2::4, :, window:] = 0
+    if dtype == "uint8":
+        wild = rng.integers(0, 256, (b, l, n))
+    else:
+        wild = rng.choice([-(2**31), -3, -1, 0, 1, 2, 3, 2**31 - 1], (b, l, n))
+    occ[3::4] = wild[3::4]
+    mult = rng.choice([0, 1, 1, 1, 2, 2, 3, -1, -5, window, window + 1, 64, 65, 255, 256],
+                      (b, l))
+    return occ.astype(np.int32), mult.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32"])
+@pytest.mark.parametrize("n", [1, 7, 128, 200, 513, 520, 1030, 4096])
+def test_proximity_kernel_equals_plain_on_any_input(cuda, dtype, n):
+    """Both branches of the kernel in one launch (0/1 rows take the bit
+    path, rows with other values the general path), ragged N, windows 1 to
+    63: emit and start equal everywhere."""
+    rng = np.random.default_rng(n)
+    for max_distance in (0, 1, 2, 5, 15, 31):
+        for l in (1, 3, 8):
+            occ_np, mult_np = _mixed_cover_inputs(rng, 8, l, n, 2 * max_distance + 1, dtype)
+            occ, mult = torch.from_numpy(occ_np).to(cuda), torch.from_numpy(mult_np).to(cuda)
+            emit, start = proximity_window(occ, mult, max_distance, compute_dtype=dtype)
+            p_emit, p_start = proximity_window_plain(occ, mult, max_distance, compute_dtype=dtype)
+            assert torch.equal(emit, p_emit), (max_distance, l)
+            assert torch.equal(start, p_start), (max_distance, l)
+
+
 @pytest.mark.parametrize("n_chunks", [1, 2, 32])
 def test_intersect_kernel_equals_plain_at_serving_shape(cuda, n_chunks):
     rng = np.random.default_rng(1)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core.window import window_cover as ref_window_cover
@@ -102,6 +103,154 @@ def test_proximity_rejects_what_the_kernel_cannot_hold():
         proximity_window(occ, mult, 5, compute_dtype="uint16")
     with pytest.raises(ValueError, match="cuda or cpu"):
         proximity_window(occ.to("meta"), mult.to("meta"), 5)
+
+
+# ---- a numpy model of the cover kernel's bit path ---------------------------
+# The CUDA kernel takes this path on tiles whose occupancy is all 0/1.  The
+# model mirrors it step for step — words of 32 positions (bit i <-> position
+# base + i) after a 64-position zero halo; per position, a 32-bit window
+# (window <= 32) or a 64-bit one from the word holding e and the words
+# before it by funnel shift, e at the top bit and e - o at o bits below;
+# o_l = the offset of the lemma's m-th occurrence counting down from e: for
+# m <= 2 from the unmasked window at the first of each thread's 8
+# positions, followed along the rest (_nearest_m); for m > 2 the
+# leading-zero count of the window masked to o < window after dropping its
+# m - 1 highest set bits, or the window's width where the popcount is below
+# m; o* = max over active lemmas covers where it is below the window — and
+# is held to the reference's Pallas kernel and its jnp cover, emit and
+# start at every position.
+
+_HALO = 64
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def _clz(x, n_bits):
+    """Leading zeros of the ``n_bits``-bit values ``x`` (uint64)."""
+    out = np.zeros(x.shape, np.int64)
+    for i in range(n_bits):
+        out += (x >> np.uint64(i)) == 0
+    return out
+
+
+def _nearest_m(r, here, m, n_bits):
+    """The offset of the m-th occurrence counting back from each position:
+    at the first of each thread's 8 positions from its unmasked window (the
+    nearer occurrences shifted out; n_bits or more where it holds fewer),
+    at the later ones an occurrence there becomes the nearest and moves the
+    others one rank back, all offsets growing by one."""
+    out = np.zeros(len(r), np.int64)
+    full = (1 << n_bits) - 1
+    for e in range(len(r)):
+        if e % 8 == 0:
+            o, used, rest = [], 0, int(r[e])
+            for _ in range(m):
+                z = n_bits - rest.bit_length()
+                o.append(used + z)
+                used += z + 1
+                rest = (rest << (z + 1)) & full if z + 1 < n_bits else 0
+        else:
+            o = [0 if here[e] else o[0] + 1] + [(o[k - 1] if here[e] else o[k]) + 1 for k in range(1, m)]
+        out[e] = o[m - 1]
+    return out
+
+
+def _bit_path_model(occ, mult, max_distance, dtype):
+    window = 2 * max_distance + 1
+    n_bits = 32 if window <= 32 else 64
+    top = np.uint64(1 << (n_bits - 1))
+    b, n_lemmas, n = occ.shape
+    m_all = mult.astype(np.int64)
+    if dtype == "uint8":
+        m_all = m_all & 0xFF  # mult in the compute type, as the kernel reads it
+    n_words = (_HALO + n + 31) // 32
+    pos = np.arange(n)
+    j = _HALO + pos
+    wi, sh = j >> 5, (31 - (j & 31)).astype(np.uint64)
+    wmask = np.uint64(((1 << window) - 1) << (n_bits - window))  # the top `window` bits
+    emit = np.zeros((b, n), bool)
+    start = np.zeros((b, n), np.int64)
+    for row in range(b):
+        o_star = np.zeros(n, np.int64)
+        event = np.zeros(n, bool)
+        for lem in range(n_lemmas):
+            m = int(m_all[row, lem])
+            if m <= 0:
+                continue  # inactive lemma slot
+            bits = np.zeros(n_words * 32, np.uint64)
+            bits[_HALO:_HALO + n] = occ[row, lem] != 0
+            words = (bits.reshape(n_words, 32) << np.arange(32, dtype=np.uint64)).sum(axis=1)
+            wa, wb, wc = words[wi - 2], words[wi - 1], words[wi]
+            r = ((wc << np.uint64(32) | wb) << sh >> np.uint64(32)) & _U32  # funnel shift left
+            if n_bits == 64:
+                r = r << np.uint64(32) | (((wb << np.uint64(32) | wa) << sh >> np.uint64(32)) & _U32)
+            event |= (r & top) != 0
+            if m <= 2:
+                o_l = _nearest_m(r, occ[row, lem] != 0, m, n_bits)
+            else:
+                r &= wmask
+                ok = np.bitwise_count(r) >= m
+                for _ in range(min(m, n_bits + 1) - 1):  # drop the m - 1 nearest occurrences
+                    nearest = top >> np.minimum(_clz(r, n_bits), n_bits - 1).astype(np.uint64)
+                    r = np.where(ok, r ^ nearest, r)
+                o_l = np.where(ok, _clz(r, n_bits), n_bits)
+            o_star = np.maximum(o_star, o_l)
+        cover = o_star < window
+        emit[row] = cover & event
+        start[row] = pos - np.where(cover, o_star, 0)
+    return emit, start
+
+
+_AWKWARD_MULT = [0, 1, 1, 2, 3, -1, -7, 64, 65, 255, 256, 300]
+
+
+def _bit_path_inputs(n, max_distance, n_lemmas, seed):
+    """Four rows of 0/1 occupancy: sparse, dense, events only at e < window,
+    very sparse; row 0 has one active lemma of multiplicity 1, the others
+    draw multiplicities from 0, negative values, values above the window
+    and 256."""
+    window = 2 * max_distance + 1
+    rng = np.random.default_rng(seed)
+    density = np.array([0.1, 0.4, 0.5, 0.03])[:, None, None]
+    occ = (rng.random((4, n_lemmas, n)) < density).astype(np.int32)
+    occ[2, :, window:] = 0
+    mult = rng.choice(_AWKWARD_MULT, (4, n_lemmas)).astype(np.int32)
+    mult[:, 0] = rng.integers(1, 3, 4)
+    mult[1, -1] = window + 1  # above the window: never covers
+    mult[0] = 0
+    mult[0, 0] = 1
+    return occ, mult
+
+
+_BIT_PATH_CASES = [
+    (n, md, (1, 3, 8)[i % 3], ("uint8", "int32")[i % 2])
+    for i, (n, md) in enumerate((n, md) for n in (128, 200, 520, 4096) for md in (0, 1, 5, 31))
+] + [
+    (128, 31, 8, "uint8"), (200, 5, 8, "uint8"), (520, 0, 3, "int32"), (520, 31, 1, "uint8"),
+    (4096, 5, 3, "uint8"), (200, 1, 1, "int32"), (128, 5, 3, "int32"), (520, 5, 8, "int32"),
+]
+
+
+@pytest.mark.parametrize("n,max_distance,n_lemmas,dtype", _BIT_PATH_CASES)
+def test_bit_path_model_equals_reference(n, max_distance, n_lemmas, dtype):
+    occ, mult = _bit_path_inputs(n, max_distance, n_lemmas, seed=n * 100 + max_distance * 10 + n_lemmas)
+    emit, start = _bit_path_model(occ, mult, max_distance, dtype)
+    ref_emit, ref_start = ref_proximity_window(
+        jnp.asarray(occ), jnp.asarray(mult), max_distance, compute_dtype=dtype
+    )
+    assert np.asarray(ref_emit)[0].any()
+    np.testing.assert_array_equal(emit, np.asarray(ref_emit))
+    np.testing.assert_array_equal(start, np.asarray(ref_start))
+    occ_c = occ.astype(np.uint8) if dtype == "uint8" else occ
+    cover = jax.jit(ref_window_cover, static_argnums=2)
+    for row in range(occ.shape[0]):
+        w_emit, w_start = cover(jnp.asarray(occ_c[row]), jnp.asarray(mult[row]), 2 * max_distance + 1)
+        np.testing.assert_array_equal(emit[row], np.asarray(w_emit))
+        np.testing.assert_array_equal(start[row], np.asarray(w_start))
+    p_emit, p_start = proximity_window(
+        torch.from_numpy(occ), torch.from_numpy(mult), max_distance, compute_dtype=dtype
+    )
+    np.testing.assert_array_equal(p_emit.numpy(), emit)
+    np.testing.assert_array_equal(p_start.numpy(), start)
 
 
 def _sorted_lists(na, nb, univ, seed):
