@@ -13,8 +13,11 @@ Phases, each printed with its seconds:
 4. the host route: a slate of queries served twice through
    ``ServingFrontend(device="cuda", use_kernel=True)``.  The proximity and
    intersect launch counters are set to 0 just before the first round and
-   read just after it; the run fails unless both rose.  The second round
-   must be all cache hits;
+   read just after it; the run fails unless both rose, and unless the
+   intersect launches equal the rounds of the slate's Step-1 folds (derived
+   here from the key lists, independently of the port).  The second round
+   must be all cache hits.  The fused batch's readout phase is then timed
+   with and without the slate's device intersects, in turns;
 4b. the arena route: one ``PostingArena`` with the reference launcher's
    default budget (64 MiB) on the card — its cold acquire's seconds, bytes,
    and resident and refused families — then the same slate through
@@ -30,7 +33,15 @@ Phases, each printed with its seconds:
    on its own line), one launch whose rows alternate between the two, and a
    sweep of ragged N, windows 1 to 63, 1 to 8 lemmas and awkward
    multiplicities — emit and start equal everywhere.  The gather: every
-   ``n_valid`` kind and out-of-range sources;
+   ``n_valid`` kind and out-of-range sources.  The intersect: one pair at
+   the planner's, full and partial ``n_chunks``; one segmented launch per
+   fold round of the slate (6 and 3 pairs); a segment list with mixed
+   ``n_chunks``, a single-tile ``b``, windows clamped at the last tile and
+   a window above the kernel's shared-memory budget; unsorted windows
+   (which a search alone would get wrong); duplicates and PAD runs — with
+   single-pair, segmented, launch-floor, plain and ``torch.isin`` times,
+   and the slate's Step-1 host wall one launch per pair against one per
+   round;
 6. the slate again through fresh frontends — the event-rank cover and the
    arena route with and without the gather kernel on the card, and the host
    route and the arena route on the CPU — which must all agree with the CPU
@@ -43,6 +54,7 @@ one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -146,8 +158,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.gather import ARENA_BLOCK, gather_blocks, gather_blocks_plain
     from repro_torch.kernels.intersect import (
+        PAD,
+        block_offsets,
         intersect_sorted,
         intersect_sorted_plain,
+        intersect_sorted_segments,
+        pack_segments,
     )
     from repro_torch.kernels.proximity import proximity_window, proximity_window_plain
     from repro_torch.search import SearchRequest, ServingFrontend, fused, rank_documents
@@ -228,6 +244,30 @@ def main() -> int:
     t0 = phase("corpus + index build (host)", t0)
 
     # ---- 4. main path, host route ------------------------------------------
+    # the slate's Step-1 folds as the planner forms them (each multi-key
+    # subquery's key doc lists, shortest first; step r on the card when both
+    # sides hold at least the threshold's docs), grouped by round
+    fold_items = []
+    for q in SLATE:
+        for sub in subs[q]:
+            keys = select_keys(sub, index.fl)
+            if len(keys) >= 2:
+                fold_items.append([np.unique(index.key_postings(key.components)[:, 0]) for key in keys])
+    by_round: dict[int, list] = {}
+    for lists in fold_items:
+        lists = sorted(lists, key=len)
+        acc = lists[0]
+        for r, other in enumerate(lists[1:]):
+            if not len(acc):
+                break
+            if min(len(acc), len(other)) >= fused.INTERSECT_DEVICE_THRESHOLD:
+                by_round.setdefault(r, []).append((acc, other))
+            acc = np.intersect1d(acc, other)
+    rounds = [by_round[r] for r in sorted(by_round)]
+    n_pairs = sum(len(pairs) for pairs in rounds)
+    print(f"slate Step-1 folds: {len(fold_items)} multi-key subqueries, {n_pairs} device pairs in "
+          f"{len(rounds)} rounds {[len(pairs) for pairs in rounds]}")
+
     requests = [SearchRequest(q, top_k=TOP_K) for q in SLATE]
     frontend = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
     proximity_window.launches = 0
@@ -242,9 +282,12 @@ def main() -> int:
         "intersect_sorted": intersect_sorted.launches,
     }
     dispatches = fused.dispatch_count()
-    print(f"host route: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches}")
+    print(f"host route: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches} "
+          f"(intersect: one per fold round, {len(rounds)} expected; one per pair would be {n_pairs})")
     for kname, count in launches.items():
         require(count > 0, f"{kname} was not launched on the host route")
+    require(launches["intersect_sorted"] == len(rounds),
+            f"the host route made {launches['intersect_sorted']} intersect launches for {len(rounds)} fold rounds")
     t_serve = time.perf_counter()
     cached = frontend.search_many(requests)
     cached_ms = (time.perf_counter() - t_serve) * 1e3
@@ -255,6 +298,21 @@ def main() -> int:
               f"{r.docs[0].doc_id if r.docs else None}, {r.n_subqueries} subqueries")
     slate_profile(lambda: ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True,
                                           max_batch=16), "host route", first_ms, cached_ms)
+    # the fused batch's readout phase with the slate's Step-1 rounds on the
+    # card and with a threshold no list reaches (no device intersect), in
+    # turns: the rounds run on a stream of their own and must not slow it
+    work = [[(sub, index) for sub in subs[q]] for q in SLATE]
+    readout_us: dict[int, list] = {}
+    for rep in range(8):
+        threshold = (fused.INTERSECT_DEVICE_THRESHOLD, 1 << 30)[rep % 2]
+        sink = {}
+        prev = fused.collect_phases(sink)
+        fused.serve_query_batch(work, max_distance=MAX_DISTANCE, top_k=TOP_K, use_kernel=True,
+                                intersect_device_threshold=threshold, device="cuda")
+        fused.collect_phases(prev)
+        readout_us.setdefault(threshold, []).append(round(sink["readout_us"][0], 1))
+    print(f"host route readout_us, 4 batches each in turns: device intersects "
+          f"{readout_us[fused.INTERSECT_DEVICE_THRESHOLD]}, none {readout_us[1 << 30]}")
     t0 = phase("serving (host route)", t0)
 
     # ---- 4b. main path, arena route ------------------------------------------
@@ -307,7 +365,6 @@ def main() -> int:
     t0 = phase("serving (arena route)", t0)
 
     # ---- 5. kernels against their plain versions, main-path shapes -----------
-    work = [[(sub, index) for sub in subs[q]] for q in SLATE]
     plan = fused.plan_query_batch(work, device="cpu")
     r, l, k = plan.postab.shape
     n = plan.doc_len
@@ -429,43 +486,164 @@ def main() -> int:
 
     # the two longest doc lists of one multi-key subquery of the slate
     pairs = []
-    for q in SLATE:
-        for sub in subs[q]:
-            keys = select_keys(sub, index.fl)
-            docs = sorted(
-                (np.unique(index.key_postings(key.components)[:, 0]) for key in keys), key=len
-            )
-            if len(docs) >= 2:
-                pairs.append((min(len(docs[-1]), len(docs[-2])), docs[-2], docs[-1]))
+    for lists in fold_items:
+        docs = sorted(lists, key=len)
+        pairs.append((min(len(docs[-1]), len(docs[-2])), docs[-2], docs[-1]))
     _, a_docs, b_docs = max(pairs, key=lambda t: t[0])
     a_np, b_np, off_np, n_chunks = fused.intersect_inputs(a_docs, b_docs)
     a, b, off = (torch.from_numpy(x).to(dev) for x in (a_np, b_np, off_np))
     print(f"intersect inputs: |a|={len(a_docs)} |b|={len(b_docs)} NA={len(a_np)} NB={len(b_np)} n_chunks={n_chunks}")
     full_chunks = len(b_np) // 256
-    member = torch.isin(a, b) & (a != int(fused.PAD))
+    member = torch.isin(a, b) & (a != int(PAD))
     intersect_err = 0
     for chunks, label in ((n_chunks, "main-path"), (full_chunks, "full"), (1, "partial")):
         got = intersect_sorted(a, b, off, n_chunks=chunks)
         want = intersect_sorted_plain(a, b, off, n_chunks=chunks)
-        err = int((got != want).sum())
+        err = int((got - want).abs().max())
         print(f"intersect {label} n_chunks={chunks}: {int(got.sum())} hits, "
-              f"{int(member.sum())} members, max_abs_err {err}")
+              f"{int(member.sum())} members, {int((got != want).sum())} elements differ")
         require(err == 0, f"intersect kernel != plain ({label})")
         intersect_err = max(intersect_err, err)
         require(bool((got <= member.int()).all()), f"intersect false positive ({label})")
         if chunks >= n_chunks:
             require(torch.equal(got.bool(), member), f"intersect under-reports ({label})")
+
+    def segments_check(segments, label):
+        """One segmented launch against the plain version of each segment
+        alone, every element; returns the packed buffer on the card, its
+        layout and the per-segment masks."""
+        nonlocal intersect_err
+        buf, pack = pack_segments(segments)
+        buf = buf.to(dev)
+        masks = pack.split(intersect_sorted_segments(buf, pack))
+        differ = hits = 0
+        for s_, mask in enumerate(masks):
+            a_s, b_s, off_s = pack.segment(buf, s_)
+            want = intersect_sorted_plain(a_s, b_s, off_s, n_chunks=pack.n_chunks[s_])
+            differ += int((mask != want).sum())
+            hits += int(want.sum())
+            intersect_err = max(intersect_err, int((mask - want).abs().max()))
+        print(f"intersect segmented {label}: {len(masks)} segments in one launch, n_chunks "
+              f"{list(pack.n_chunks)}, NB {list(pack.nb)}, {hits} hits, {differ} elements differ")
+        require(differ == 0, f"segmented intersect kernel != plain ({label})")
+        return buf, pack, masks
+
+    def search_only(a_s, b_s, off_s, chunks):
+        """What a kernel that only binary-searched would report: a
+        lower bound over each block's window, sorted or not."""
+        last, out = len(b_s) // 256 - 1, np.zeros(len(a_s), bool)
+        for blk, o in enumerate(off_s.tolist()):
+            lo, hi = (min(max(t, 0), last) for t in (o // 256, o // 256 + chunks - 1))
+            w, v = b_s[lo * 256:(hi + 1) * 256], a_s[blk * 128:(blk + 1) * 128]
+            out[blk * 128:(blk + 1) * 128] = (w[np.minimum(np.searchsorted(w, v), len(w) - 1)] == v) & (v != PAD)
+        return out
+
+    # one launch per fold round of the slate, as the planner forms them; the
+    # planner sizes n_chunks to cover every span, so the masks are exact
+    round_packs = []
+    for r, round_pairs in enumerate(rounds):
+        buf, pack, masks = segments_check([fused.intersect_inputs(x, y) for x, y in round_pairs],
+                                          f"round {r + 1}")
+        for s_, mask in enumerate(masks):
+            a_s, b_s, _ = pack.segment(buf, s_)
+            require(torch.equal(mask.bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
+                    f"round {r + 1} segment {s_}: not the exact membership")
+        round_packs.append((buf, pack))
+    base = [fused.intersect_inputs(x, y) for x, y in rounds[0]]
+    irng = np.random.default_rng(SEED + 1)
+    big_b = np.sort(irng.choice(20000, 16000, replace=False)).astype(np.int32)
+    big_a = np.sort(irng.choice(20000, 5000, replace=False)).astype(np.int32)
+    a_g, b_g, off_g, _ = fused.intersect_inputs(big_a, big_b)
+    # mixed n_chunks (the planner's, 1, 3, the whole list); every window
+    # clamped at the last tile; a single-tile b; a 16,384-element window
+    # above the kernel's shared-memory budget, searched in place
+    mixed = [(x, y, o, (c, 1, 3, len(y) // 256)[k]) for k, (x, y, o, c) in enumerate(base[:4])]
+    x, y, o, _ = base[4 % len(base)]
+    mixed.append((x, y, np.full_like(o, len(y) - 256), 4))
+    a_small, b_small = base[0][0][:256].copy(), np.full(256, PAD, np.int32)
+    b_small[:200] = base[0][1][:200]
+    mixed.append((a_small, b_small, block_offsets(a_small, b_small, 128, 256), 2))
+    mixed.append((a_g, b_g, off_g, len(b_g) // 256))
+    segments_check(mixed, "mixed")
+    # unsorted windows (a reversed span, a shuffled b, and the in-place
+    # window reversed): equal to the plain version only through the scan
+    unsorted = []
+    for k, (x, y, o, c) in enumerate(base[:2]):
+        y = y.copy()
+        y[:3000] = y[:3000][::-1] if k == 0 else irng.permutation(y[:3000])
+        unsorted.append((x, y, o, c))
+    y = b_g.copy()
+    y[100:12000] = y[100:12000][::-1]
+    unsorted.append((a_g, y, off_g, len(y) // 256))
+    _, _, masks = segments_check(unsorted, "unsorted")
+    wrong = [int((search_only(*seg) != m.cpu().numpy().astype(bool)).sum()) for seg, m in zip(unsorted, masks)]
+    print(f"intersect unsorted: a search alone would get {wrong} elements wrong per segment")
+    require(all(w_ > 0 for w_ in wrong), "an unsorted window a search gets right: the scan branch is not shown")
+    # duplicates and PAD runs in b (non-decreasing: the search stays exact)
+    dups = []
+    for k, (x, y, _, _) in enumerate(base[:2]):
+        y = np.sort(np.repeat(y[: len(y) // 4], 4))
+        y[len(y) // 2: len(y) // 2 + 700] = PAD
+        y = np.sort(y)
+        dups.append((x, y, block_offsets(x, y, 128, 256), (2, len(y) // 256)[k]))
+    _, _, masks = segments_check(dups, "duplicates and PAD runs")
+    a_s, b_s = (torch.from_numpy(t_).to(dev) for t_ in dups[1][:2])
+    require(torch.equal(masks[1].bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
+            "duplicates and PAD runs: the whole-list window is not the exact membership")
+
     t_k = cuda_ms(torch, lambda: intersect_sorted(a, b, off, n_chunks=n_chunks), 200)
     t_p = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
     t_l = cuda_ms(torch, lambda: torch.isin(a, b), 200)
+    buf1, pack1 = round_packs[0]
+    t_seg = [cuda_ms(torch, lambda: intersect_sorted_segments(buf_, pack_), 200) for buf_, pack_ in round_packs]
+    a_f, b_f, off_f = a[:128], b[:256], torch.zeros(1, dtype=torch.int32, device=dev)
+    t_f = cuda_ms(torch, lambda: intersect_sorted(a_f, b_f, off_f, n_chunks=1), 200)
     ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
     na_, nb_ = len(a_np), len(b_np)
     # both lists are sorted: a binary search of each a element over its
     # block's n_chunks * 256 b elements is what the function needs
     n_ops = na_ * math.ceil(math.log2(n_chunks * 256))
     b_ms, b_by = bound_ms(4 * (na_ + nb_ + len(off_np) + na_), n_ops)
+    # a round: the packed buffer read once, the masks written once, one
+    # search per a element over its segment's window
+    seg_ops = sum(na_s * math.ceil(math.log2(min(c, nb_s // 256) * 256))
+                  for na_s, nb_s, c in zip(pack1.na, pack1.nb, pack1.n_chunks))
+    seg_b_ms, seg_b_by = bound_ms(4 * (pack1.size + sum(pack1.na)), seg_ops)
     print(f"intersect: {timing('kernel', t_k)}, {timing('plain', t_p)}, {timing('torch.isin', t_l)}, "
           f"bound {b_ms:.6f} ms ({b_by})")
+    for r, (t_r, (_, pack_)) in enumerate(zip(t_seg, round_packs)):
+        print(f"intersect round {r + 1}, {len(pack_.na)} segments in one launch: "
+              f"{timing('kernel', t_r)} [{len(pack_.na)} single-pair launches: {len(pack_.na) * ms:.4f} ms]")
+    print(f"intersect round 1 bound {seg_b_ms:.6f} ms ({seg_b_by}); "
+          f"{timing('launch floor (one 128-element block, one 256-element tile)', t_f)}")
+
+    # the slate's Step-1 host wall: one launch and one readout per pair
+    # (intersect_candidates per item) against one per round
+    def step1(batched):
+        launched = intersect_sorted.launches
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        if batched:
+            out = fused.intersect_candidates_many(fold_items, device="cuda")
+        else:
+            out = [fused.intersect_candidates(lists, device="cuda") for lists in fold_items]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_s) * 1e3, intersect_sorted.launches - launched, out
+
+    walls, step1_launches = {False: [], True: []}, {}
+    want = [functools.reduce(np.intersect1d, lists) for lists in fold_items]
+    for rep in range(6):
+        for batched in ((False, True) if rep % 2 == 0 else (True, False)):
+            wall, step1_launches[batched], out = step1(batched)
+            walls[batched].append(wall)
+            require(all(np.array_equal(g, w_) for g, w_ in zip(out, want)),
+                    f"Step-1 candidates differ ({'per round' if batched else 'per pair'})")
+    print(f"slate Step-1 host wall (ms, 6 runs each, alternating): one launch per pair "
+          f"{[round(w_, 3) for w_ in walls[False]]} (median {sorted(walls[False])[3]:.3f}, "
+          f"{step1_launches[False]} launches); one per round {[round(w_, 3) for w_ in walls[True]]} "
+          f"(median {sorted(walls[True])[3]:.3f}, {step1_launches[True]} launches)")
+    require(step1_launches[True] == len(rounds) and step1_launches[False] == n_pairs,
+            f"Step-1 launches {step1_launches}, expected {len(rounds)} per round and {n_pairs} per pair")
     kernels.append({
         "name": "intersect_sorted", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/intersect.cu",
@@ -473,8 +651,10 @@ def main() -> int:
         "launches": launches["intersect_sorted"], "max_abs_err": intersect_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
+        "segmented_ms": t_seg[0][0], "segments": len(pack1.na),
+        "segmented_bound_ms": seg_b_ms, "launch_floor_ms": t_f[0],
     })
-    del a, b, off, events, mult
+    del a, b, off, events, mult, round_packs, buf1
 
     # the arena route's gather descriptors, as serve_query_batch plans them
     items = []

@@ -4,7 +4,15 @@ Nothing here builds or loads a kernel at import time; see ``_build.py``.
 """
 
 from .gather import ARENA_BLOCK, gather_blocks, gather_blocks_plain
-from .intersect import PAD, block_offsets, intersect_sorted, intersect_sorted_plain
+from .intersect import (
+    PAD,
+    SegmentPack,
+    block_offsets,
+    intersect_sorted,
+    intersect_sorted_plain,
+    intersect_sorted_segments,
+    pack_segments,
+)
 from .ops import proximity_search_scores
 from .proximity import proximity_window, proximity_window_plain
 from .ref import fragment_scores_ref, intersect_ref, proximity_window_ref
@@ -12,6 +20,7 @@ from .ref import fragment_scores_ref, intersect_ref, proximity_window_ref
 __all__ = [
     "ARENA_BLOCK",
     "PAD",
+    "SegmentPack",
     "block_offsets",
     "fragment_scores_ref",
     "gather_blocks",
@@ -19,6 +28,8 @@ __all__ = [
     "intersect_ref",
     "intersect_sorted",
     "intersect_sorted_plain",
+    "intersect_sorted_segments",
+    "pack_segments",
     "proximity_search_scores",
     "proximity_window",
     "proximity_window_plain",

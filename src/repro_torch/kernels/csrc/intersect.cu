@@ -1,23 +1,40 @@
 // Sorted-list block intersection (the Combiner's Step-1 pre-filter) for
-// Hopper (sm_90a).
+// Hopper (sm_90a), over any number of independent segments in one launch.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/intersect.py::
-// intersect_sorted (body _intersect_kernel). out[i] = 1 when a[i] != PAD
-// occurs in one of the n_chunks block_b-wide tiles of b that a's block
-// i / block_a scans: tile index min(offsets[blk] / block_b + j,
-// nb / block_b - 1) for j < n_chunks. So it under-reports when the tiles
-// miss a match span and never reports a false positive, exactly like the
-// TPU kernel; the caller sizes n_chunks so the tiles cover every span.
+// intersect_sorted (body _intersect_kernel), applied per segment. For
+// segment s with a_s, b_s, tile offsets offsets_s and its own n_chunks_s:
+// out_s[i] = 1 when a_s[i] != PAD occurs in one of the block_b-wide tiles
+// clamp(floor(offsets_s[blk] / block_b) + j, 0, nb_s / block_b - 1),
+// j < n_chunks_s, of a_s's block blk = i / block_a. Those tiles are one
+// contiguous window of b_s: the first tile clamped through the last one
+// clamped. So the kernel under-reports exactly where the TPU kernel does
+// (the window misses a match span) and never reports a false positive.
 //
-// The TPU grid walks the chunk axis in order and ORs into a resident output
-// block. Here one CTA owns one a block (one thread per element, the value in
-// a register) and walks its chunks in a loop, staging each b tile in shared
-// memory and comparing against every tile element (all threads read the
-// same shared word, a broadcast). The offsets are read by the CTA itself
-// instead of a scalar prefetch.
+// The TPU grid walks the chunk axis in order and ORs each tile's broadcast
+// compare into a resident output block. Here:
+// - One CTA of block_a threads (one warp group at 128) owns one a block of
+//   any segment; a per-block segment id and a per-segment table (b base,
+//   nb, n_chunks) let one grid cover every segment of a fold round, so a
+//   round of six 8,192-element pairs is 384 CTAs across the 132 SMs.
+// - The block's window is staged into shared memory with cp.async (16-byte
+//   copies where the window is 16-byte aligned, 4-byte ones otherwise);
+//   each thread loads its a value while the copies are in flight. A window
+//   above the shared-memory budget (kSmemCapElems) is read in place through
+//   the read-only path instead.
+// - Each thread runs a lower-bound binary search of its value over the
+//   window: ceil(log2(window)) + 1 probes, 10 for the serving path's
+//   512-element windows, where the TPU kernel compares against all 512.
+// - The function holds for any b, sorted or not: each thread checks its
+//   adjacent pairs of the staged window, and __syncthreads_or sends a CTA
+//   whose window is not non-decreasing to the linear compare of every
+//   window element (the earlier form of this kernel). Duplicates and PAD
+//   runs in b are non-decreasing and keep the search exact.
 //
-// Bound on this card: at the serving path's sizes (a few thousand
-// elements) the launch itself; the bytes are a, b and out once each.
+// Bound on this card: a, b, offsets and out are a few tens of KB at the
+// serving path's sizes, well under a microsecond of HBM time, so the time
+// is the launch and one dependent chain of shared-memory probes per thread.
+// Tensor cores do not apply: there is no product, only compares.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -25,44 +42,131 @@
 namespace {
 
 constexpr int32_t kPad = 0x7fffffff;  // 2^31 - 1, the padding value
+// 32 KB of staged window per CTA: under the 48 KB that a launch may ask for
+// without cudaFuncAttributeMaxDynamicSharedMemorySize, and small enough to
+// keep many CTAs resident on an SM.
+constexpr int kSmemCapElems = 8192;
 
-__global__ void intersect_sorted_kernel(const int32_t* __restrict__ a,
-                                        const int32_t* __restrict__ b,
-                                        const int32_t* __restrict__ offsets,
-                                        int32_t* __restrict__ out, int nb,
-                                        int block_b, int n_chunks) {
-  extern __shared__ int32_t btile[];  // [block_b]
-  const int blk = blockIdx.x;
-  const int i = blk * blockDim.x + threadIdx.x;
-  const int32_t v = a[i];
-  const int last_tile = nb / block_b - 1;
-  const int first_tile = offsets[blk] / block_b;
+__device__ __forceinline__ void cp_async16(int32_t* smem, const int32_t* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
 
-  int hit = 0;
-  for (int j = 0; j < n_chunks; ++j) {
-    int t = min(first_tile + j, last_tile);
-    t = max(t, 0);
-    __syncthreads();  // previous tile fully read
-    for (int k = threadIdx.x; k < block_b; k += blockDim.x)
-      btile[k] = b[static_cast<long long>(t) * block_b + k];
-    __syncthreads();
-    for (int k = 0; k < block_b; ++k) hit |= (btile[k] == v);
+__device__ __forceinline__ void cp_async4(int32_t* smem, const int32_t* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ int32_t load(const int32_t* p) {
+  if constexpr (kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
   }
-  out[i] = hit && (v != kPad);
+}
+
+// 1 when some adjacent pair of w[0, n) is out of order, in any thread of
+// the CTA (every thread takes part).
+template <bool kGlobal>
+__device__ __forceinline__ int cta_unsorted(const int32_t* w, int n) {
+  int bad = 0;
+  for (int k = threadIdx.x; k + 1 < n; k += blockDim.x)
+    bad |= load<kGlobal>(w + k) > load<kGlobal>(w + k + 1);
+  return __syncthreads_or(bad);
+}
+
+// v occurs in w[0, n): a lower-bound search over a sorted window, a linear
+// compare over an unsorted one.
+template <bool kGlobal>
+__device__ __forceinline__ bool window_has(const int32_t* w, int n, int32_t v,
+                                           bool sorted) {
+  if (sorted) {
+    int lo = 0, len = n;
+    while (len > 0) {
+      const int half = len >> 1;
+      if (load<kGlobal>(w + lo + half) < v) {
+        lo += half + 1;
+        len -= half + 1;
+      } else {
+        len = half;
+      }
+    }
+    return lo < n && load<kGlobal>(w + lo) == v;
+  }
+  bool hit = false;
+  for (int k = 0; k < n; ++k) hit |= load<kGlobal>(w + k) == v;
+  return hit;
+}
+
+// blk_seg == nullptr: one segment, (b base 0, nb0, n_chunks0).
+// Otherwise segs[3 * s] = (b base, nb, n_chunks) of segment s = blk_seg[blk].
+__global__ void intersect_segments_kernel(
+    const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ blk_seg,
+    const int32_t* __restrict__ segs, int32_t* __restrict__ out, int nb0,
+    int n_chunks0, int block_b, int smem_elems) {
+  extern __shared__ __align__(16) int32_t win[];
+  const int blk = blockIdx.x;
+  long long b_base = 0;
+  int nb = nb0, n_chunks = n_chunks0;
+  if (blk_seg != nullptr) {
+    const int s = blk_seg[blk];
+    b_base = segs[3 * s];
+    nb = segs[3 * s + 1];
+    n_chunks = segs[3 * s + 2];
+  }
+  // the clamped tile range [lo_t, hi_t]; floor division, as the plain
+  // version divides, for offsets below 0
+  const long long off = offsets[blk];
+  const long long first = off >= 0 ? off / block_b : -((-off + block_b - 1) / block_b);
+  const long long last = nb / block_b - 1;
+  const long long lo_t = min(max(first, 0LL), last);
+  const long long hi_t = min(max(first + n_chunks - 1, 0LL), last);
+  const int n = static_cast<int>(hi_t - lo_t + 1) * block_b;
+  const int32_t* src = b + b_base + lo_t * block_b;
+  const long long i = static_cast<long long>(blk) * blockDim.x + threadIdx.x;
+
+  int32_t v;
+  bool hit;
+  if (n <= smem_elems) {
+    const bool vec = ((reinterpret_cast<uintptr_t>(src) | (static_cast<uintptr_t>(n) * 4)) & 15) == 0;
+    if (vec) {
+      for (int k = threadIdx.x * 4; k < n; k += blockDim.x * 4) cp_async16(win + k, src + k);
+    } else {
+      for (int k = threadIdx.x; k < n; k += blockDim.x) cp_async4(win + k, src + k);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    v = a[i];  // overlaps the window's copies
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    const bool sorted = !cta_unsorted<false>(win, n);
+    hit = window_has<false>(win, n, v, sorted);
+  } else {
+    v = a[i];
+    const bool sorted = !cta_unsorted<true>(src, n);
+    hit = window_has<true>(src, n, v, sorted);
+  }
+  out[i] = hit && v != kPad;
 }
 
 }  // namespace
 
-extern "C" int intersect_sorted_i32(const void* a, const void* b,
-                                    const void* offsets, void* out, int na,
-                                    int nb, int block_a, int block_b,
-                                    int n_chunks, void* stream) {
-  const int blocks = na / block_a;
-  if (blocks == 0) return 0;
-  intersect_sorted_kernel<<<blocks, block_a, block_b * sizeof(int32_t),
-                            static_cast<cudaStream_t>(stream)>>>(
+// One launch over n_blocks a blocks. blk_seg and segs null: the single
+// segment (nb, n_chunks). window_max: the largest window of any block
+// (min(n_chunks, nb / block_b) * block_b over the segments), which sizes
+// the shared memory. Returns cudaGetLastError() after the launch.
+extern "C" int intersect_sorted_segments_i32(
+    const void* a, const void* b, const void* offsets, const void* blk_seg,
+    const void* segs, void* out, int n_blocks, int block_a, int block_b,
+    int nb, int n_chunks, int window_max, void* stream) {
+  if (n_blocks == 0) return 0;
+  const int smem_elems = window_max < kSmemCapElems ? window_max : kSmemCapElems;
+  intersect_segments_kernel<<<n_blocks, block_a, smem_elems * sizeof(int32_t),
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-      static_cast<const int32_t*>(offsets), static_cast<int32_t*>(out), nb,
-      block_b, n_chunks);
+      static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(blk_seg),
+      static_cast<const int32_t*>(segs), static_cast<int32_t*>(out), nb,
+      n_chunks, block_b, smem_elems);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,8 @@ of similar batches have equal shapes.
 Candidate selection for multi-key subqueries runs the Combiner's Step-1
 document alignment as a pre-filter over sorted doc-id lists; lists of at
 least ``INTERSECT_DEVICE_THRESHOLD`` docs go through the CUDA block
-intersection kernel (``kernels/intersect.py``).
+intersection kernel (``kernels/intersect.py``), one segmented launch per
+round of the batch's folds.
 
 Every entry point takes ``device`` and runs there: ``"cuda"`` unless the
 caller asks for ``"cpu"``, where each kernel wrapper takes its plain
@@ -47,7 +48,7 @@ import torch
 from ..core.keys import SelectedKey, Subquery, select_keys
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import POSTING_WIDTH, IndexSet
-from ..kernels.intersect import PAD, block_offsets, intersect_sorted
+from ..kernels.intersect import PAD, block_offsets, intersect_sorted_segments, pack_segments
 from ..kernels.proximity import COMPUTE_DTYPES, proximity_window
 
 __all__ = [
@@ -58,6 +59,7 @@ __all__ = [
     "bucket_pow2",
     "extract_segment_events",
     "intersect_candidates",
+    "intersect_candidates_many",
     "intersect_inputs",
     "plan_query_batch",
     "fused_serve_batch",
@@ -79,7 +81,12 @@ _DISPATCHES = 0
 
 def dispatch_count() -> int:
     """Device programs issued by this module since the last reset: one per
-    fused batch plus one per device intersect."""
+    fused batch plus one per Step-1 fold round that has device work.  A
+    round is step r of every item's intersection fold in the batch
+    (``intersect_candidates_many``), so a batch whose items each take at
+    most one device step per round counts one per round, not one per pair
+    (the reference counts one per pair); a single item counts one per
+    device step, as the reference does."""
     return _DISPATCHES
 
 
@@ -175,27 +182,86 @@ def intersect_inputs(
     return a_p, b_p, offsets, n_chunks
 
 
-def _device_intersect(
-    a: np.ndarray,
-    b: np.ndarray,
+# the port's own stream for the Step-1 rounds: a round's readout waits for
+# its own copies and launch, not for a fused batch queued on the current
+# stream.  Nothing of a round crosses streams: its inputs are made on this
+# stream and its outputs land in host memory.
+_INTERSECT_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _intersect_stream(device: torch.device) -> torch.cuda.Stream:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _INTERSECT_STREAMS.get(idx)
+    if stream is None:
+        stream = _INTERSECT_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return stream
+
+
+def _device_intersect_round(
+    pairs: Sequence[tuple[np.ndarray, np.ndarray]],
     device: str | torch.device,
     block_a: int = 128,
     block_b: int = 256,
-) -> np.ndarray:
-    """Membership mask of sorted-unique ``a`` in sorted-unique ``b`` through
-    the block-intersection kernel (host-computed tile offsets)."""
+) -> list[np.ndarray]:
+    """Membership masks of sorted-unique ``a`` in sorted-unique ``b`` for
+    every ``(a, b)`` pair of one fold round, through ONE launch of the
+    segmented block-intersection kernel (host-computed tile offsets, each
+    pair with its own ``n_chunks``).  On a card the pairs go over in one
+    pinned buffer with one asynchronous copy, and the masks come back with
+    one readout into pinned memory."""
     global _DISPATCHES
-    a_p, b_p, offsets, n_chunks = intersect_inputs(a, b, block_a, block_b)
-    hit = intersect_sorted(
-        torch.from_numpy(a_p).to(device),
-        torch.from_numpy(b_p).to(device),
-        torch.from_numpy(offsets).to(device),
-        block_a=block_a,
-        block_b=block_b,
-        n_chunks=n_chunks,
-    ).cpu().numpy()
+    segments = [intersect_inputs(a, b, block_a, block_b) for a, b in pairs]
+    device = torch.device(device)
+    if device.type == "cuda":
+        with torch.cuda.device(device), torch.cuda.stream(_intersect_stream(device)):
+            staged, pack = pack_segments(segments, block_a, block_b, pinned=True)
+            hit = intersect_sorted_segments(staged.to(device, non_blocking=True), pack)
+            host = torch.empty(hit.shape, dtype=hit.dtype, pin_memory=True)
+            host.copy_(hit, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        done.synchronize()
+    else:
+        staged, pack = pack_segments(segments, block_a, block_b)
+        host = intersect_sorted_segments(staged, pack)
     _DISPATCHES += 1
-    return hit[: len(a)] > 0
+    return [m[: len(a)] > 0 for m, (a, _) in zip(pack.split(host.numpy()), pairs)]
+
+
+def intersect_candidates_many(
+    doc_lists_per_item: Sequence[Sequence[np.ndarray]],
+    device_threshold: int = INTERSECT_DEVICE_THRESHOLD,
+    device: str | torch.device = "cuda",
+) -> list[np.ndarray]:
+    """:func:`intersect_candidates` of every item, the folds run side by
+    side in rounds.
+
+    Each item's fold is unchanged: its lists shortest first, step r
+    intersects the running result with list r + 1, an empty result ends
+    it, and a step with ``min(len(acc), len(other)) >= device_threshold``
+    runs the block intersection on ``device`` (host ``searchsorted``
+    otherwise).  Steps of different items are independent, so round r takes
+    step r of every live item, and all of a round's device steps are one
+    launch (one dispatch).
+    """
+    folds = [sorted((np.asarray(d) for d in lists), key=len) for lists in doc_lists_per_item]
+    accs = [fold[0] for fold in folds]
+    for r in range(1, max((len(fold) for fold in folds), default=0)):
+        on_device = []
+        for i, fold in enumerate(folds):
+            if r >= len(fold) or not len(accs[i]):
+                continue
+            acc, other = accs[i], fold[r]
+            if min(len(acc), len(other)) >= device_threshold:
+                on_device.append(i)
+            else:
+                j = np.minimum(np.searchsorted(other, acc), len(other) - 1)
+                accs[i] = acc[other[j] == acc]
+        if on_device:
+            hits = _device_intersect_round([(accs[i], folds[i][r]) for i in on_device], device)
+            for i, hit in zip(on_device, hits):
+                accs[i] = accs[i][hit]
+    return accs
 
 
 def intersect_candidates(
@@ -208,41 +274,36 @@ def intersect_candidates(
     pre-filter (DESIGN.md §9.1).
 
     Lists at or above ``device_threshold`` go through the block intersection
-    on ``device``; smaller ones use the identical host form (searchsorted)
-    where a device round-trip would not pay off.
+    on ``device``, one launch per step; smaller ones use the identical host
+    form (searchsorted) where a device round-trip would not pay off.
     """
-    lists = sorted((np.asarray(d) for d in doc_lists), key=len)
-    acc = lists[0]
-    for other in lists[1:]:
-        if not len(acc):
-            return acc
-        if min(len(acc), len(other)) >= device_threshold:
-            hit = _device_intersect(acc, other, device)
-        else:
-            i = np.minimum(np.searchsorted(other, acc), len(other) - 1)
-            hit = other[i] == acc
-        acc = acc[hit]
-    return acc
+    return intersect_candidates_many([doc_lists], device_threshold, device)[0]
 
 
-def extract_segment_events(
+@dataclass
+class _KeyEvents:
+    """One work item up to Step 1: each key's sorted unique doc ids and the
+    item's raw (doc, pos, lemma) event columns."""
+
+    key_docs: list[np.ndarray]
+    doc: np.ndarray
+    pos: np.ndarray
+    lem: np.ndarray
+    doc_len: int
+    lemmas: list[str]
+    mult: np.ndarray
+
+
+def _key_events(
     subquery: Subquery,
     index: IndexSet,
-    keys: Sequence[SelectedKey] | None = None,
-    doc_len: int = 512,
-    stats: QueryStats | None = None,
-    intersect_device_threshold: int = INTERSECT_DEVICE_THRESHOLD,
-    device: str | torch.device = "cuda",
-) -> SegmentEvents | None:
-    """Key postings -> compact (doc_slot, pos, lemma) event triples — the
-    §10.4 ``Set`` calls batched, plus the §10.1/§10.3 pre-filters
-    (DESIGN.md §9.1).
-
-    Returns ``None`` for an empty subquery (no key events, or the Step-1
-    candidate intersection is empty) so callers short-circuit instead of
-    dispatching an all-padding batch; the skip is counted in
-    ``QueryStats.empty_subqueries``.
-    """
+    keys: Sequence[SelectedKey] | None,
+    doc_len: int,
+    stats: QueryStats | None,
+) -> _KeyEvents | None:
+    """The half of ``extract_segment_events`` before Step 1: key postings ->
+    event columns.  ``None`` (counted in ``empty_subqueries``) when the item
+    has no key events."""
     if index.n_docs == 0:
         if stats is not None:
             stats.empty_subqueries += 1
@@ -289,12 +350,48 @@ def extract_segment_events(
         # the position modulus must cover every real position: documents
         # longer than the caller's doc_len hint must not lose fragments
         doc_len = max(doc_len, int(pos_a.max()) + 1)
+    return _KeyEvents(key_docs, doc_a, pos_a, lem_a, doc_len, lemmas, mult)
 
-    # Step-1 pre-filter: a fragment needs every key iterator on the document
-    if len(key_docs) >= 2:
+
+def extract_segment_events(
+    subquery: Subquery,
+    index: IndexSet,
+    keys: Sequence[SelectedKey] | None = None,
+    doc_len: int = 512,
+    stats: QueryStats | None = None,
+    intersect_device_threshold: int = INTERSECT_DEVICE_THRESHOLD,
+    device: str | torch.device = "cuda",
+) -> SegmentEvents | None:
+    """Key postings -> compact (doc_slot, pos, lemma) event triples — the
+    §10.4 ``Set`` calls batched, plus the §10.1/§10.3 pre-filters
+    (DESIGN.md §9.1).
+
+    Returns ``None`` for an empty subquery (no key events, or the Step-1
+    candidate intersection is empty) so callers short-circuit instead of
+    dispatching an all-padding batch; the skip is counted in
+    ``QueryStats.empty_subqueries``.
+    """
+    ke = _key_events(subquery, index, keys, doc_len, stats)
+    if ke is None:
+        return None
+    cand = None
+    if len(ke.key_docs) >= 2:
         cand = intersect_candidates(
-            key_docs, device_threshold=intersect_device_threshold, device=device
+            ke.key_docs, device_threshold=intersect_device_threshold, device=device
         )
+    return _segment_events(ke, cand, stats)
+
+
+def _segment_events(
+    ke: _KeyEvents, cand: np.ndarray | None, stats: QueryStats | None
+) -> SegmentEvents | None:
+    """The half of ``extract_segment_events`` after Step 1: the candidate
+    filter (``cand``, the item's Step-1 intersection, ``None`` for a
+    single-key item), event dedup, the counting gate and ranks."""
+    doc_a, pos_a, lem_a = ke.doc, ke.pos, ke.lem
+    doc_len, lemmas, mult = ke.doc_len, ke.lemmas, ke.mult
+    # Step-1 pre-filter: a fragment needs every key iterator on the document
+    if cand is not None:
         if len(cand) and len(doc_a):
             i = np.minimum(np.searchsorted(cand, doc_a), len(cand) - 1)
             keep = cand[i] == doc_a
@@ -406,22 +503,23 @@ def plan_query_batch(
 
     sink = _PHASE_SINK
     t0 = time.perf_counter()
-    segs: list[tuple[int, SegmentEvents]] = []
+    # extract_segment_events item by item, with every item's Step-1 fold
+    # run side by side: one launch per round of the batch, not per pair
+    items_ke: list[tuple[int, _KeyEvents]] = []
     for qi, items in enumerate(work):
         for item in items:
-            sub, index = item[0], item[1]
             keys = item[2] if len(item) > 2 else None
-            se = extract_segment_events(
-                sub,
-                index,
-                keys=keys,
-                doc_len=doc_len,
-                stats=stat_for(qi),
-                intersect_device_threshold=intersect_device_threshold,
-                device=device,
-            )
-            if se is not None:
-                segs.append((qi, se))
+            ke = _key_events(item[0], item[1], keys, doc_len, stat_for(qi))
+            if ke is not None:
+                items_ke.append((qi, ke))
+    multi = [ke.key_docs for _, ke in items_ke if len(ke.key_docs) >= 2]
+    cands = iter(intersect_candidates_many(multi, intersect_device_threshold, device))
+    segs: list[tuple[int, SegmentEvents]] = []
+    for qi, ke in items_ke:
+        cand = next(cands) if len(ke.key_docs) >= 2 else None
+        se = _segment_events(ke, cand, stat_for(qi))
+        if se is not None:
+            segs.append((qi, se))
     t0 = _phase(sink, "plan_us", t0)
     if not segs:
         return None
@@ -1000,8 +1098,8 @@ def serve_query_batch(
     :class:`~repro_torch.search.arena.ArenaResidency` acquired for that view
     (no entry = host path for that view's items; the arena program runs on
     the arena's device).  A fully resident batch is ONE arena dispatch; a
-    fully host batch is ONE host dispatch (plus one per long-list
-    intersect); a mixed batch runs both and merges.
+    fully host batch is ONE host dispatch (plus one per Step-1 fold round
+    with long-list intersects); a mixed batch runs both and merges.
 
     Exactness contract: the per-query fragment sets are identical for every
     routing (arena, host, or mixed), equal to the §10 oracle and to the

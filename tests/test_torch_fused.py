@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.core.keys import expand_subqueries as ref_expand
+from repro.core.postings import QueryStats as RefStats
 from repro.index import build_indexes as ref_build_indexes
 from repro.index import synthesize_corpus as ref_synthesize
 from repro.search import fused as ref_fused
@@ -165,6 +166,69 @@ def test_intersect_candidates_tile_path_equals_host():
     np.testing.assert_array_equal(host, dev)
     np.testing.assert_array_equal(dev, ref_fused.intersect_candidates(lists, device_threshold=1))
     np.testing.assert_array_equal(host, np.intersect1d(np.intersect1d(lists[0], lists[1]), lists[2]))
+
+
+def _fold_items(seed):
+    """Multi-list items sharing a core of docs (every fold stays live to its
+    end; the deepest is 3 steps), one item of disjoint lists (its fold ends
+    early on an empty result) and one single-list item."""
+    rng = np.random.default_rng(seed)
+    core = rng.choice(4000, 40, replace=False)
+
+    def doc_list(lo=0, hi=4000, with_core=True):
+        docs = rng.integers(lo, hi, size=rng.integers(50, 1500))
+        return np.unique(np.concatenate([core, docs]) if with_core else docs).astype(np.int32)
+
+    items = [[doc_list() for _ in range(n)] for n in (2, 4, 3, 2)]
+    items.append([doc_list(0, 2000, False), doc_list(2000, 4000, False), doc_list()])
+    items.append([doc_list()])
+    return items
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("threshold", [1, 200])
+def test_intersect_candidates_many_folds_in_rounds(seed, threshold):
+    """Every item's fold equals the reference's intersect_candidates; all
+    device steps of a round are one dispatch, so the batch counts at most
+    one per round (one per round at threshold 1, where every live step
+    runs on the device; at 200 only the steps of long lists do) instead of
+    the reference's one per pair."""
+    items = _fold_items(seed)
+    fused.reset_dispatch_count()
+    got = fused.intersect_candidates_many(items, device_threshold=threshold, device="cpu")
+    dispatches = fused.dispatch_count()
+    ref_fused.reset_dispatch_count()
+    want = [ref_fused.intersect_candidates(lists, device_threshold=threshold) for lists in items]
+    pairs = ref_fused.dispatch_count()
+    assert len(got) == len(items)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"item {i}")
+    rounds = max(len(lists) for lists in items) - 1
+    assert 0 < dispatches <= rounds < pairs
+    if threshold == 1:
+        assert dispatches == rounds
+    assert len(got[-2]) == 0  # the disjoint fold ended early
+
+
+def test_plan_with_device_intersects_equals_reference(indexes):
+    """At a threshold low enough for the 60-doc corpus's lists, the plan
+    (Step-1 folds run in rounds) equals the reference's (one intersect per
+    pair), array for array, with equal read and empty-subquery counts."""
+    ref_work, work = indexes
+    ref_stats, stats = [RefStats() for _ in QUERIES], [QueryStats() for _ in QUERIES]
+    ref_fused.reset_dispatch_count()
+    want = ref_fused.plan_query_batch(ref_work, stats=ref_stats, intersect_device_threshold=16)
+    pairs = ref_fused.dispatch_count()
+    fused.reset_dispatch_count()
+    plan = fused.plan_query_batch(work, stats=stats, intersect_device_threshold=16, device="cpu")
+    assert 0 < fused.dispatch_count() <= pairs
+    for name in ("events", "primary", "postab", "row_doc", "row_query", "mult"):
+        np.testing.assert_array_equal(getattr(plan, name), getattr(want, name), err_msg=name)
+    for name in ("n_queries", "query_budget", "doc_len"):
+        assert getattr(plan, name) == getattr(want, name), name
+    for st, ref in zip(stats, ref_stats):
+        assert (st.postings_read, st.bytes_read, st.empty_subqueries) == (
+            ref.postings_read, ref.bytes_read, ref.empty_subqueries)
 
 
 def _dedup_reference(q, d, s, e):

@@ -21,11 +21,14 @@ from repro_torch.kernels import (
     gather_blocks_plain,
     intersect_sorted,
     intersect_sorted_plain,
+    intersect_sorted_segments,
+    pack_segments,
     proximity_window,
     proximity_window_plain,
 )
 from repro_torch.search import SearchRequest, ServingFrontend
 from repro_torch.search.arena import PostingArena
+from repro_torch.search import fused
 from repro_torch.search.fused import intersect_inputs
 
 pytestmark = pytest.mark.gpu
@@ -96,6 +99,69 @@ def test_intersect_kernel_equals_plain_at_serving_shape(cuda, n_chunks):
     got = intersect_sorted(a, b, off, n_chunks=n_chunks)
     assert intersect_sorted.launches == launches + 1
     assert torch.equal(got, intersect_sorted_plain(a, b, off, n_chunks=n_chunks))
+
+
+def _serving_segments(rng, kind):
+    """Pairs of 4,100-6,000 docs out of 8,192, padded as the planner pads
+    them, with mixed n_chunks: the planner's own, 1 (partial), twice it and
+    the whole list.  "unsorted" reverses a span of one b; "global" adds a
+    16,384-element b searched whole, a window above the kernel's
+    shared-memory budget, sorted and unsorted."""
+    n = {"round1": 6, "round2": 3, "unsorted": 4, "global": 2}[kind]
+    segments = []
+    for k in range(n):
+        a_docs, b_docs = (np.sort(rng.choice(8192, rng.integers(4100, 6000), replace=False))
+                          .astype(np.int32) for _ in range(2))
+        a_p, b_p, off_p, n_chunks = intersect_inputs(a_docs, b_docs)
+        n_chunks = (n_chunks, 1, 2 * n_chunks, len(b_p) // 256)[k % 4]
+        segments.append((a_p, b_p, off_p, n_chunks))
+    if kind == "unsorted":
+        b_p = segments[1][1].copy()
+        b_p[:1500] = b_p[:1500][::-1]
+        segments[1] = (segments[1][0], b_p, segments[1][2], segments[1][3])
+    if kind == "global":
+        for reverse in (False, True):
+            b_docs = np.sort(rng.choice(20000, 16000, replace=False)).astype(np.int32)
+            a_docs = np.sort(rng.choice(20000, 5000, replace=False)).astype(np.int32)
+            a_p, b_p, off_p, _ = intersect_inputs(a_docs, b_docs)
+            if reverse:
+                b_p[100:9000] = b_p[100:9000][::-1]
+            segments.append((a_p, b_p, off_p, len(b_p) // 256))
+    return segments
+
+
+@pytest.mark.parametrize("kind", ["round1", "round2", "unsorted", "global"])
+def test_intersect_segments_kernel_equals_plain(cuda, kind):
+    """One launch over every segment, each equal to the plain version of
+    that segment alone with its own n_chunks."""
+    segments = _serving_segments(np.random.default_rng(len(kind)), kind)
+    buf, pack = pack_segments(segments)
+    buf = buf.to(cuda)
+    launches = intersect_sorted.launches
+    got = intersect_sorted_segments(buf, pack)
+    assert intersect_sorted.launches == launches + 1
+    for s, mask in enumerate(pack.split(got)):
+        a, b, off = pack.segment(buf, s)
+        assert torch.equal(mask, intersect_sorted_plain(a, b, off, n_chunks=pack.n_chunks[s])), s
+
+
+def test_intersect_candidates_many_on_card_equals_cpu(cuda):
+    """The batch's folds in rounds on the card: the CPU's candidates, one
+    launch per round."""
+    rng = np.random.default_rng(5)
+    core = rng.choice(8192, 64, replace=False)
+    items = [
+        [np.unique(np.concatenate([core, rng.choice(8192, rng.integers(4100, 6000), replace=False)]))
+         .astype(np.int32) for _ in range(n)]
+        for n in (2, 3, 2, 4, 3, 2)
+    ]
+    want = fused.intersect_candidates_many(items, device_threshold=1, device="cpu")
+    launches = intersect_sorted.launches
+    fused.reset_dispatch_count()
+    got = fused.intersect_candidates_many(items, device_threshold=1, device=cuda)
+    assert fused.dispatch_count() == intersect_sorted.launches - launches == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_gather_kernel_equals_plain_at_serving_shape(cuda):

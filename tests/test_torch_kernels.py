@@ -34,6 +34,9 @@ from repro_torch.kernels import (
     gather_blocks_plain,
     intersect_ref,
     intersect_sorted,
+    intersect_sorted_plain,
+    intersect_sorted_segments,
+    pack_segments,
     proximity_search_scores,
     proximity_window,
 )
@@ -293,6 +296,126 @@ def test_intersect_rejects_unaligned_inputs():
     a = torch.zeros(128, dtype=torch.int32)
     with pytest.raises(ValueError, match="n_chunks"):
         intersect_sorted(a, b, torch.zeros(1, dtype=torch.int32), n_chunks=0)
+
+
+# segments of mixed sizes and n_chunks (1, 2, 4 and the full list) in one
+# pack: (na, nb, universe, n_chunks); nb == 256 is a single-tile b, and
+# n_chunks above nb / 256 clamps every window at the last tile
+_SEGMENT_CASES = {
+    "mixed": [(128, 256, 1000, 1), (512, 512, 800, 2), (256, 1024, 10**6, 4),
+              (1024, 2048, 2500, "full"), (128, 256, 300, 4)],
+    "partial": [(1024, 2048, 2500, 1), (512, 4096, 6000, 2), (2048, 1024, 3000, 1),
+                (128, 512, 700, 4)],
+    "single-tile": [(256, 256, 400, 1), (128, 256, 200, 2), (512, 256, 600, "full")],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SEGMENT_CASES))
+def test_intersect_segments_plain_equals_pallas_kernel_bitwise(case):
+    """One pack of segments, each with its own n_chunks: every segment's
+    mask equals the TPU kernel's on that segment alone, bit for bit."""
+    segments, want = [], []
+    for k, (na, nb, univ, n_chunks) in enumerate(_SEGMENT_CASES[case]):
+        a, b = _sorted_lists(na, nb, univ, 31 * k + na + nb)
+        n_chunks = nb // 256 if n_chunks == "full" else n_chunks
+        off = block_offsets(a, b, 128, 256)
+        segments.append((a, b, off, n_chunks))
+        want.append(np.asarray(
+            ref_intersect_sorted(jnp.asarray(a), jnp.asarray(b), jnp.asarray(off), n_chunks=n_chunks)
+        ))
+    buf, pack = pack_segments(segments)
+    out = intersect_sorted_segments(buf, pack)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (sum(pack.na),)
+    for s, (got, ref) in enumerate(zip(pack.split(out), want)):
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"segment {s}")
+
+
+def test_segment_pack_rejects_bad_layouts():
+    a, b = _sorted_lists(128, 256, 300, 0)
+    off = block_offsets(a, b, 128, 256)
+    with pytest.raises(ValueError, match="len"):
+        pack_segments([(a, b[:200], off, 1)])
+    with pytest.raises(ValueError, match="offsets"):
+        pack_segments([(a, b, off[:0], 1)])
+    with pytest.raises(ValueError, match="n_chunks"):
+        pack_segments([(a, b, off, 0)])
+    buf, pack = pack_segments([(a, b, off, 1)])
+    with pytest.raises(ValueError, match="buffer"):
+        intersect_sorted_segments(buf[:-1], pack)
+    assert intersect_sorted_segments(*pack_segments([])).numel() == 0
+
+
+# ---- a numpy model of the segmented intersect kernel ------------------------
+# Per a block, as csrc/intersect.cu runs it: the window of b from the first
+# clamped tile through the last clamped one (floor division of the offset);
+# the CTA's vote on whether every adjacent pair of the window is in order; a
+# lower-bound binary search of each value over a sorted window (duplicates
+# and PAD runs included), a linear compare over an unsorted one; PAD in a
+# never hits.  Held to the plain version on sorted and unsorted windows.
+
+
+def _intersect_model(a, b, offsets, n_chunks, block_a=128, block_b=256):
+    out = np.zeros(len(a), np.int32)
+    last = len(b) // block_b - 1
+    unsorted_blocks = 0
+    for blk, off in enumerate(offsets.tolist()):
+        first = off // block_b
+        lo, hi = (min(max(t, 0), last) for t in (first, first + n_chunks - 1))
+        w = b[lo * block_b : (hi + 1) * block_b].astype(np.int64)
+        v = a[blk * block_a : (blk + 1) * block_a].astype(np.int64)
+        if (w[:-1] <= w[1:]).all():
+            at, left = np.zeros(len(v), np.int64), np.full(len(v), len(w))
+            while (left > 0).any():
+                half = left >> 1
+                right = (left > 0) & (w[np.minimum(at + half, len(w) - 1)] < v)
+                at = np.where(right, at + half + 1, at)
+                left = np.where(right, left - half - 1, half)
+            hit = (at < len(w)) & (w[np.minimum(at, len(w) - 1)] == v)
+        else:
+            unsorted_blocks += 1
+            hit = (v[:, None] == w[None, :]).any(axis=1)
+        out[blk * block_a : (blk + 1) * block_a] = hit & (v != int(PAD))
+    return out, unsorted_blocks
+
+
+def _model_inputs(kind, na, nb, seed):
+    """Sorted lists; duplicates and PAD runs inside b; offsets anywhere
+    (below 0, past the end, unaligned); b with reversed and shuffled spans
+    (unsorted windows)."""
+    rng = np.random.default_rng(seed)
+    a = np.sort(rng.integers(0, 3 * nb, na)).astype(np.int32)
+    a[-rng.integers(1, 40):] = PAD
+    b = np.sort(rng.integers(0, 3 * nb, nb)).astype(np.int32)
+    if kind == "duplicates":
+        b = np.sort(np.repeat(b[: nb // 4], 4))
+        b[nb // 2 : nb // 2 + 300] = PAD
+        b = np.sort(b)
+    elif kind == "unsorted":
+        b[: nb // 3] = b[: nb // 3][::-1]
+        span = slice(nb // 2, nb // 2 + 200)
+        b[span] = rng.permutation(b[span])
+    b[-rng.integers(1, 64):] = PAD
+    if kind == "any-offsets":
+        off = rng.integers(-3 * 256, nb + 3 * 256, na // 128).astype(np.int32)
+        off[:2] = -1, -257  # floor and truncating division differ here
+    else:
+        off = block_offsets(a, np.sort(b), 128, 256)
+    return a, b.astype(np.int32), off
+
+
+@pytest.mark.parametrize("kind", ["sorted", "duplicates", "unsorted", "any-offsets"])
+@pytest.mark.parametrize("na,nb,n_chunks", [(512, 1024, 1), (1024, 2048, 2), (256, 2048, 3),
+                                            (384, 256, 2), (1024, 4096, 16)])
+def test_intersect_kernel_model_equals_plain(kind, na, nb, n_chunks):
+    a, b, off = _model_inputs(kind, na, nb, na + nb + n_chunks)
+    got, unsorted_blocks = _intersect_model(a, b, off, n_chunks)
+    want = intersect_sorted_plain(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(off),
+                                  n_chunks=n_chunks)
+    np.testing.assert_array_equal(got, want.numpy())
+    if kind == "unsorted":
+        assert unsorted_blocks > 0  # the linear-compare branch ran
+    else:
+        assert unsorted_blocks == 0
 
 
 def test_fragment_scores_equal_jnp_oracle():
