@@ -45,7 +45,22 @@ Phases, each printed with its seconds:
 6. the slate again through fresh frontends — the event-rank cover and the
    arena route with and without the gather kernel on the card, and the host
    route and the arena route on the CPU — which must all agree with the CPU
-   host route: equal fragments and documents, scores within rtol 1e-5.
+   host route: equal fragments and documents, scores within rtol 1e-5;
+7. the reference launcher's default deployment: the first 4,096 documents
+   of phase 3's store under a 4-shard ``ShardedSearchService`` (one
+   corpus-global FL-list, every key built), its build seconds, each shard's
+   size and longest Step-1 lists, and one index over the same documents
+   served by the host route on the CPU.
+   The slate through ``ServingFrontend(svc, use_kernel=True)`` (host route)
+   and over a 64 MiB arena — and, where that budget refuses the slate's
+   triples, over the smallest power-of-two budget that keeps them — each
+   with its launch counters set to 0 before and read after, 5 fresh-frontend
+   latencies and a profile; then ``svc.search_batch`` with ``fused`` and
+   with ``se2.4``, the host Combiner over the same shards.  Every route must
+   equal ``se2.4`` over the shards and the single-index CPU route.
+   The baselines SE1 and SE2.1-SE2.3 are timed on "to be or not to be" and
+   each held to its own oracle, and ``device_topk_merge`` runs on the card
+   over per-shard top-10 lists with a forced tie, against a stable host sort.
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -80,6 +95,10 @@ N_DOCS, DOC_LEN, VOCAB, SEED = 8192, 250, 5000, 0
 SW_COUNT, FU_COUNT, MAX_DISTANCE = 80, 250, 5
 TOP_K = 10
 ARENA_BUDGET = 64 << 20  # the reference launcher's default --arena-budget-mb
+N_SHARDS = 4  # the reference launcher's default --n-shards
+# phase 7's corpus: every shard builds every key, so 8,192 documents would
+# take the run past its time budget (526 s of command time on an H100)
+SHARDED_DOCS = 4096
 SCORE_RTOL = 1e-5  # float32 scores summed in another order on each path
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
@@ -154,7 +173,7 @@ def main() -> int:
 
     from repro_torch.core.keys import expand_subqueries, select_keys
     from repro_torch.core.lemma import FLList
-    from repro_torch.index import build_indexes, synthesize_corpus
+    from repro_torch.index import DocumentStore, build_indexes, synthesize_corpus
     from repro_torch.kernels import _build
     from repro_torch.kernels.gather import ARENA_BLOCK, gather_blocks, gather_blocks_plain
     from repro_torch.kernels.intersect import (
@@ -166,10 +185,31 @@ def main() -> int:
         pack_segments,
     )
     from repro_torch.kernels.proximity import proximity_window, proximity_window_plain
-    from repro_torch.search import SearchRequest, ServingFrontend, fused, rank_documents
+    from repro_torch.core.baselines import simple_key_cover
+    from repro_torch.core.oracle import key_events, ordinary_events, sweep_events
+    from repro_torch.search import (
+        SearchRequest,
+        ServingFrontend,
+        ShardedSearchService,
+        device_topk_merge,
+        fused,
+        rank_documents,
+    )
     from repro_torch.search.arena import PostingArena, plan_arena_batch
+    from repro_torch.search.planner import generation_token
 
     dev = torch.device("cuda", 0)
+    counted = {"proximity_window": proximity_window, "intersect_sorted": intersect_sorted,
+               "gather_blocks": gather_blocks}
+    path_launches: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(path):
+        path_launches[path] = {kname: fn.launches for kname, fn in counted.items()}
+        return path_launches[path]
 
     def slate_profile(make_fe, label, first_ms, cached_ms):
         """Slate latency of 5 fresh frontends (cold result cache) on a warm
@@ -244,43 +284,45 @@ def main() -> int:
     t0 = phase("corpus + index build (host)", t0)
 
     # ---- 4. main path, host route ------------------------------------------
-    # the slate's Step-1 folds as the planner forms them (each multi-key
-    # subquery's key doc lists, shortest first; step r on the card when both
-    # sides hold at least the threshold's docs), grouped by round
-    fold_items = []
-    for q in SLATE:
-        for sub in subs[q]:
-            keys = select_keys(sub, index.fl)
-            if len(keys) >= 2:
-                fold_items.append([np.unique(index.key_postings(key.components)[:, 0]) for key in keys])
-    by_round: dict[int, list] = {}
-    for lists in fold_items:
-        lists = sorted(lists, key=len)
-        acc = lists[0]
-        for r, other in enumerate(lists[1:]):
-            if not len(acc):
-                break
-            if min(len(acc), len(other)) >= fused.INTERSECT_DEVICE_THRESHOLD:
-                by_round.setdefault(r, []).append((acc, other))
-            acc = np.intersect1d(acc, other)
-    rounds = [by_round[r] for r in sorted(by_round)]
+    def step1_folds(views):
+        """The slate's Step-1 folds as the planner forms them over ``views``
+        (each multi-key (subquery, view) item's key doc lists, shortest
+        first; step r on the card when both sides hold at least the
+        threshold's docs): the items' lists and the device pairs by round."""
+        items = []
+        for q in SLATE:
+            for view in views:
+                for sub in subs[q]:
+                    keys = select_keys(sub, view.fl)
+                    if len(keys) >= 2:
+                        items.append([np.unique(view.key_postings(key.components)[:, 0]) for key in keys])
+        by_round: dict[int, list] = {}
+        for lists in items:
+            lists = sorted(lists, key=len)
+            acc = lists[0]
+            for r, other in enumerate(lists[1:]):
+                if not len(acc):
+                    break
+                if min(len(acc), len(other)) >= fused.INTERSECT_DEVICE_THRESHOLD:
+                    by_round.setdefault(r, []).append((acc, other))
+                acc = np.intersect1d(acc, other)
+        return items, [by_round[r] for r in sorted(by_round)]
+
+    fold_items, rounds = step1_folds([index])
     n_pairs = sum(len(pairs) for pairs in rounds)
     print(f"slate Step-1 folds: {len(fold_items)} multi-key subqueries, {n_pairs} device pairs in "
           f"{len(rounds)} rounds {[len(pairs) for pairs in rounds]}")
 
     requests = [SearchRequest(q, top_k=TOP_K) for q in SLATE]
     frontend = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
-    proximity_window.launches = 0
-    intersect_sorted.launches = 0
+    zero_counts()
     fused.reset_dispatch_count()
     t_serve = time.perf_counter()
     main_resps = frontend.search_many(requests)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t_serve) * 1e3
-    launches = {
-        "proximity_window": proximity_window.launches,
-        "intersect_sorted": intersect_sorted.launches,
-    }
+    launches = dict(read_counts("host route"))
+    del launches["gather_blocks"]
     dispatches = fused.dispatch_count()
     print(f"host route: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches} "
           f"(intersect: one per fold round, {len(rounds)} expected; one per pair would be {n_pairs})")
@@ -337,13 +379,13 @@ def main() -> int:
 
     frontend = arena_frontend()
     uploads = arena.metrics()["arena_uploads"]
-    gather_blocks.launches = 0
+    zero_counts()
     fused.reset_dispatch_count()
     t_serve = time.perf_counter()
     arena_resps = frontend.search_many(requests)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t_serve) * 1e3
-    launches["gather_blocks"] = gather_blocks.launches
+    launches["gather_blocks"] = read_counts("arena route")["gather_blocks"]
     dispatches = fused.dispatch_count()
     hits = sum(r.stats.arena_hits for r in arena_resps)
     misses = sum(r.stats.arena_misses for r in arena_resps)
@@ -591,6 +633,26 @@ def main() -> int:
     require(torch.equal(masks[1].bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
             "duplicates and PAD runs: the whole-list window is not the exact membership")
 
+    def any_offsets(na_, nb_, chunks):
+        """The CPU tests' arbitrary-offset pairs (same seeds): offsets below
+        0 (-1 and -257 first: floor and truncating division differ there,
+        and a negative first tile wraps to the end), past the end,
+        unaligned."""
+        g = np.random.default_rng(na_ + nb_ + chunks)
+        a_o = np.sort(g.integers(0, 3 * nb_, na_)).astype(np.int32)
+        a_o[-g.integers(1, 40):] = PAD
+        b_o = np.sort(g.integers(0, 3 * nb_, nb_)).astype(np.int32)
+        b_o[-g.integers(1, 64):] = PAD
+        off_o = g.integers(-3 * 256, nb_ + 3 * 256, na_ // 128).astype(np.int32)
+        off_o[:2] = -1, -257
+        return a_o, b_o, off_o, chunks
+
+    anyoff = [any_offsets(*shape) for shape in
+              ((512, 1024, 1), (1024, 2048, 2), (256, 2048, 3), (384, 256, 2), (1024, 4096, 16))]
+    print(f"intersect any offsets: {sum(int((o < 0).sum()) for _, _, o, _ in anyoff)} blocks below 0, "
+          f"{sum(int((o >= len(b_o)).sum()) for _, b_o, o, _ in anyoff)} past the end")
+    segments_check(anyoff, "any offsets")
+
     t_k = cuda_ms(torch, lambda: intersect_sorted(a, b, off, n_chunks=n_chunks), 200)
     t_p = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
     t_l = cuda_ms(torch, lambda: torch.isin(a, b), 200)
@@ -754,8 +816,227 @@ def main() -> int:
             require([d.doc_id for d in resps[qi].docs] == [d.doc_id for d in ref.docs[:TOP_K]],
                     f"{route} route top {TOP_K} differs from the cpu ranking for {q!r}")
         print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs agree on all {len(runs)} runs")
-    phase("agreement: every card and cpu run == the cpu host route", t0)
+    t0 = phase("agreement: every card and cpu run == the cpu host route", t0)
 
+    # ---- 7. the launcher's default deployment: 4 shards, se2.4 ---------------
+    # the first SHARDED_DOCS documents of phase 3's store: every key of every
+    # shard is built, and two cold acquires build and copy every family
+    shard_store = DocumentStore(documents=store.documents[:SHARDED_DOCS], lemmatizer=lem)
+    t_build = time.perf_counter()
+    svc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
+                               max_distance=MAX_DISTANCE, device="cuda")
+    print(f"sharded service: {len(shard_store)} docs of phase 3's store in {N_SHARDS} shards under one "
+          f"FL-list, built in {time.perf_counter() - t_build:.1f} s")
+    for i, shard in enumerate(svc.shards):
+        sizes = shard.size_bytes()
+        longest = max((len(sorted(lists, key=len)[0]) for lists in step1_folds([shard])[0]), default=0)
+        print(f"  shard {i}: {shard.n_docs} docs, {sizes['total'] / 2**20:.1f} MiB of postings "
+              f"({sizes['triple'] / 2**20:.1f} MiB triple); the longest shortest Step-1 list of a "
+              f"multi-key item: {longest} docs (device threshold {fused.INTERSECT_DEVICE_THRESHOLD})")
+    _, shard_rounds = step1_folds(svc.shards)
+    print(f"sharded slate Step-1 folds: {sum(len(pairs) for pairs in shard_rounds)} device pairs in "
+          f"{len(shard_rounds)} rounds")
+    # one index over the same documents (the slate's (f,s,t) keys, as in
+    # phase 3), served by the host route on the CPU
+    fl_one = FLList.from_frequencies(shard_store.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
+    one = build_indexes(shard_store, SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE, fl=fl_one,
+                        triple_key_filter={k.components for q in SLATE for sub in subs[q]
+                                           for k in select_keys(sub, fl_one) if k.arity == 3})
+    single_cpu = ServingFrontend(one, lemmatizer=lem, max_batch=16, device="cpu").search_many(full)
+    t0 = phase("sharded service and single-index build (host), single-index cpu host route", t0)
+
+    def sharded_route(path, make_fe, expect):
+        """The slate once through a fresh frontend with the launch counters
+        at 0 before and read after, its cached repeat, the profile of 5
+        fresh frontends, and every document ranked through one more."""
+        fe = make_fe()
+        zero_counts()
+        fused.reset_dispatch_count()
+        t_serve = time.perf_counter()
+        resps = fe.search_many(requests)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t_serve) * 1e3
+        counts, dispatches = read_counts(path), fused.dispatch_count()
+        hits = sum(r.stats.arena_hits for r in resps)
+        print(f"{path}: {dispatches} device programs, kernel launches {counts}, arena hits {hits} keys, "
+              f"misses {sum(r.stats.arena_misses for r in resps)} keys")
+        for kname in ("proximity_window", "gather_blocks"):
+            if expect[kname]:
+                require(counts[kname] > 0, f"{kname} was not launched on the {path}")
+        require(counts["intersect_sorted"] == expect["intersect_sorted"],
+                f"the {path} made {counts['intersect_sorted']} intersect launches, "
+                f"{expect['intersect_sorted']} expected")
+        require(hits > 0 or not expect["gather_blocks"], f"the {path} did not hit the arena")
+        t_serve = time.perf_counter()
+        cached = fe.search_many(requests)
+        cached_ms = (time.perf_counter() - t_serve) * 1e3
+        require(all(r.stats.cache_hits == 1 for r in cached), f"second {path} round not all cache hits")
+        slate_profile(make_fe, path, first_ms, cached_ms)
+        return make_fe().search_many(full)
+
+    sharded = {"sharded host route": sharded_route(
+        "sharded host route",
+        lambda: ServingFrontend(svc, device="cuda", use_kernel=True, max_batch=16),
+        {"proximity_window": True, "gather_blocks": False, "intersect_sorted": len(shard_rounds)})}
+
+    def cold_arena(budget_bytes):
+        """An arena on the card with the frontend's own tokens, acquired
+        cold for every shard: its seconds and each shard's resident and
+        refused families."""
+        fe = ServingFrontend(svc, arena_budget_mb=budget_bytes / 2**20, device="cuda", use_kernel=True,
+                             max_batch=16)
+        token = generation_token(svc)
+        t_acq = time.perf_counter()
+        res = fe.arena.acquire_many([(shard, token, i) for i, shard in enumerate(svc.shards)])
+        torch.cuda.synchronize()
+        m = fe.arena.metrics()
+        print(f"sharded cold acquire (budget {budget_bytes >> 20} MiB): {time.perf_counter() - t_acq:.3f} s, "
+              f"{m['arena_uploads']} uploads, {m['arena_upload_bytes'] / 2**20:.1f} MiB copied to the card, "
+              f"{m['arena_bytes'] / 2**20:.1f} MiB kept")
+        fam_bytes = []
+        for i, r in enumerate(res):
+            refused_i = {key[3]: nb for key, nb in fe.arena.refused.items() if key[2] == i}
+            print(f"  shard {i}: resident {json.dumps({f: f'{fb.nbytes / 2**20:.1f} MiB' for f, fb in r.families.items()})}, "
+                  f"refused {json.dumps({f: f'{nb / 2**20:.1f} MiB' for f, nb in refused_i.items()})}")
+            fam_bytes.append({**{f: fb.nbytes for f, fb in r.families.items()}, **refused_i})
+        return fe.arena, res, fam_bytes
+
+    def arena_route(budget_bytes, arena_, res):
+        uploads = arena_.metrics()["arena_uploads"]
+        triples = all("triple" in r.families for r in res)
+        path = f"sharded arena route ({budget_bytes >> 20} MiB)"
+        sharded[path] = sharded_route(
+            path, lambda: ServingFrontend(svc, arena=arena_, device="cuda", use_kernel=True, max_batch=16),
+            {"proximity_window": not triples, "gather_blocks": triples,
+             "intersect_sorted": 0 if triples else len(shard_rounds)})
+        require(arena_.metrics()["arena_uploads"] == uploads, f"the {path} uploaded: the cold entries were missed")
+        return triples
+
+    arena64, res64, fam_bytes = cold_arena(ARENA_BUDGET)
+    triples_resident = arena_route(ARENA_BUDGET, arena64, res64)
+    arena64.release()
+    if not triples_resident:
+        # the smallest power-of-two budget at which the acquire's admission
+        # (every shard's families in order, none evictable) keeps every
+        # shard's triples, from the sizes the cold acquire recorded
+        def admits(budget):
+            used, kept = 0, 0
+            for sizes in fam_bytes:
+                for fname in ("stop_single", "stop_pair", "pair", "triple"):
+                    if used + sizes[fname] <= budget:
+                        used += sizes[fname]
+                        kept += fname == "triple"
+            return kept == N_SHARDS
+
+        budget = ARENA_BUDGET
+        while not admits(budget):
+            budget *= 2
+        print(f"the slate's triples are refused at {ARENA_BUDGET >> 20} MiB; the smallest power-of-two "
+              f"budget that admits every shard's triple family: {budget >> 20} MiB")
+        arena_big, res_big, _ = cold_arena(budget)
+        require(arena_route(budget, arena_big, res_big), f"the triples are not resident at {budget >> 20} MiB")
+        arena_big.release()
+    t0 = phase("serving (sharded host and arena routes)", t0)
+
+    svc.algorithm, svc.use_kernel = "fused", True
+    zero_counts()
+    t_serve = time.perf_counter()
+    sharded["svc.search_batch fused"] = svc.search_batch(SLATE, top_k=len(store))
+    torch.cuda.synchronize()
+    counts = read_counts("sharded svc.search_batch fused")
+    print(f"svc.search_batch (fused, use_kernel): {(time.perf_counter() - t_serve) * 1e3:.1f} ms for the slate, "
+          f"all documents ranked, kernel launches {counts}")
+    require(counts["proximity_window"] > 0, "proximity_window was not launched by svc.search_batch")
+    svc.algorithm = "se2.4"
+    t_serve = time.perf_counter()
+    combiner = svc.search_batch(SLATE, top_k=len(store))
+    print(f"svc.search_batch (se2.4, the host Combiner over the same shards): "
+          f"{time.perf_counter() - t_serve:.2f} s for the slate")
+    for qi, q in enumerate(SLATE):
+        ref = combiner[qi]
+        ref_frags = {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments}
+        for label, resps in (*sharded.items(), ("single-index cpu host route", single_cpu)):
+            got = resps[qi]
+            require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments} == ref_frags,
+                    f"{label} fragments differ from se2.4 over the shards for {q!r}")
+            require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
+                    f"{label} documents differ from se2.4 over the shards for {q!r}")
+            require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
+                    f"{label} scores differ from se2.4 over the shards for {q!r}")
+        print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs; se2.4 == "
+              f"{len(sharded) + 1} routes")
+    t0 = phase("agreement: sharded routes == se2.4 over the shards == the single index", t0)
+
+    # the baselines on one query, each held to the contract the reference's
+    # own tests hold it to (tests/test_combiner.py): se2.2 and se2.3 equal
+    # the §10 sweep over their own keys' events in the documents every key
+    # reaches, as se2.4 does over its keys, and SE1 the sweep over the
+    # ordinary index; SE2.1 treats the query as a lemma set, and every
+    # fragment it reports is checked against the document's own lemmas.
+    # Their fragment sets differ from se2.4's by design (other events, other
+    # keys, set semantics): the overlap is printed
+    q = "to be or not to be"
+    qsubs = expand_subqueries(q, lem)
+    docs_by_id = {d.doc_id: d for d in store.documents}
+    want = {"se1": set(), "se2.2": set(), "se2.3": set(), "se2.4": set()}
+    for shard in svc.shards:
+        for sub in qsubs:
+            mult, span = sub.multiplicity(), 2 * MAX_DISTANCE
+            for alg, keys, honor in (("se2.2", simple_key_cover(sub, shard.fl), True),
+                                     ("se2.3", select_keys(sub, shard.fl), False),
+                                     ("se2.4", select_keys(sub, shard.fl), True)):
+                post = {k: shard.key_postings(k.components) for k in keys}
+                # the documents every key's iterator reaches (Step 1)
+                aligned = functools.reduce(np.intersect1d, [np.unique(a[:, 0]) for a in post.values()])
+                for doc, events in key_events(keys, post, honor_stars=honor).items():
+                    if doc in aligned:
+                        want[alg] |= {tuple(r) for r in sweep_events(doc, events, mult, span)}
+            for doc, events in ordinary_events(sub.lemmas, shard.ordinary).items():
+                want["se1"] |= {tuple(r) for r in sweep_events(doc, events, mult, span)}
+    got = {}
+    for alg in ("se2.4", "se1", "se2.1", "se2.2", "se2.3"):
+        svc.algorithm = alg
+        t_q = time.perf_counter()
+        r = svc.search(q, top_k=len(store))
+        secs = time.perf_counter() - t_q
+        got[alg] = {(d.doc_id, f.start, f.end) for d in r.docs for f in d.fragments}
+        print(f"{alg} over the 4 shards, {q!r}: {secs:.3f} s, {len(got[alg])} fragments, "
+              f"{len(got[alg] & got['se2.4'])} shared with se2.4, "
+              f"postings read {r.stats.postings_read}")
+    for alg, frags in want.items():
+        require(got[alg] == frags, f"{alg} != the sweep over its own events for {q!r}")
+    for doc, start, end in got["se2.1"]:
+        words = {lm for pos in docs_by_id[doc].lemma_stream[start:end + 1] for lm in pos}
+        require(end - start <= 2 * MAX_DISTANCE and any(set(sub.lemmas) <= words for sub in qsubs),
+                f"se2.1 fragment {(doc, start, end)} does not hold the query's lemmas")
+    print("baselines against se2.4: " + ", ".join(
+        f"{alg} {'==' if got[alg] == got['se2.4'] else '!='} se2.4" for alg in ("se1", "se2.1", "se2.2", "se2.3")))
+    svc.algorithm = "se2.4"
+
+    # device_topk_merge on the card: each shard's top 10 of a response
+    # (from se2.4 over the shards), a tie forced across shards at the top
+    ref = max(combiner, key=lambda r: len(r.docs))
+    per_shard = [[(d.score, d.doc_id) for d in ref.docs if d.doc_id % N_SHARDS == s_][:TOP_K]
+                 for s_ in range(N_SHARDS)]
+    sc = np.full((N_SHARDS, TOP_K), -np.inf, np.float32)
+    dc = np.full((N_SHARDS, TOP_K), -1, np.int32)
+    for s_, lst in enumerate(per_shard):
+        sc[s_, :len(lst)] = [x for x, _ in lst]
+        dc[s_, :len(lst)] = [y for _, y in lst]
+    sc[1, 0] = sc[3, 0] = sc[0, 0]
+    top_s, top_d = device_topk_merge(torch.from_numpy(sc).to(dev), torch.from_numpy(dc).to(dev), TOP_K)
+    order = np.argsort(-sc.reshape(-1), kind="stable")[:TOP_K]
+    print(f"device_topk_merge on {top_s.device}: {ref.query!r}, {N_SHARDS} x {TOP_K} per-shard lists, "
+          f"merged top docs {top_d.tolist()}")
+    require(top_d.device.type == "cuda" and np.array_equal(top_d.cpu().numpy(), dc.reshape(-1)[order])
+            and np.array_equal(top_s.cpu().numpy(), sc.reshape(-1)[order]),
+            "device_topk_merge != a stable host sort")
+    phase("baselines and device_topk_merge", t0)
+
+    for entry in kernels:
+        by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,23 @@
-"""Search results and per-query accounting (paper §10.2, §11)."""
+"""Posting-list iterators (paper §4) and per-query accounting.
+
+A posting array for a key of arity ``a`` has rows ``(doc, P, D1 .. D_{a-1})``
+sorted lexicographically — the §4 record order.  ``KeyIterator`` exposes the
+paper's iterator protocol: ``Next()``, ``Value`` (current record) and ``Key``
+(canonical components, plus the §6 ``*`` marks).
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import NamedTuple
 
-__all__ = ["QueryStats", "SearchResult"]
+import numpy as np
+
+from .keys import SelectedKey
+
+__all__ = ["KeyIterator", "QueryStats", "SearchResult"]
+
+_RECORD_BYTES = 4  # int32 per field
 
 
 class SearchResult(NamedTuple):
@@ -95,3 +107,77 @@ class QueryStats:
         self.shards_degraded = max(self.shards_degraded, other.shards_degraded)
         self.recoveries += other.recoveries
         self.shed = max(self.shed, other.shed)
+
+
+class KeyIterator:
+    """Sequential reader over one key's posting array.
+
+    Reading is *accounted*: every ``Next`` charges one posting and the record
+    byte size to ``stats`` — this is the "data read size"/"postings per
+    query" measure of §11 (our in-memory analogue of the paper's disk reads).
+    """
+
+    __slots__ = ("key", "rows", "idx", "stats", "_n", "_width")
+
+    def __init__(self, key: SelectedKey, rows: np.ndarray, stats: QueryStats):
+        self.key = key
+        self.rows = rows
+        self.idx = 0
+        self.stats = stats
+        self._n = rows.shape[0]
+        self._width = rows.shape[1] if rows.ndim == 2 else 0
+        if self._n:  # the first record is materialized by opening the iterator
+            stats.postings_read += 1
+            stats.bytes_read += self._width * _RECORD_BYTES
+
+    # -- paper protocol ----------------------------------------------------
+    @property
+    def exhausted(self) -> bool:
+        return self.idx >= self._n
+
+    @property
+    def doc(self) -> int:
+        return int(self.rows[self.idx, 0])
+
+    @property
+    def pos(self) -> int:
+        return int(self.rows[self.idx, 1])
+
+    def distances(self) -> tuple[int, ...]:
+        return tuple(int(x) for x in self.rows[self.idx, 2:])
+
+    def next(self) -> None:
+        self.idx += 1
+        if self.idx < self._n:
+            self.stats.postings_read += 1
+            self.stats.bytes_read += self._width * _RECORD_BYTES
+
+    def skip_to_doc(self, doc_id: int) -> None:
+        """Galloping skip used by Step 1 (doc alignment)."""
+        lo = np.searchsorted(self.rows[:, 0], doc_id, side="left")
+        if lo > self.idx:
+            # charge skipped block reads conservatively: sequential readers
+            # in the paper fetch pages; we charge each skipped record once.
+            n_skipped = int(lo) - self.idx
+            self.stats.postings_read += min(n_skipped, 1)
+            self.stats.bytes_read += self._width * _RECORD_BYTES
+            self.idx = int(lo)
+
+    def events(self, honor_stars: bool = True) -> list[tuple[int, str]]:
+        """(pos, lemma) events of the current record.
+
+        With ``honor_stars`` (SE2.4, §10.4) the ``*``-marked components are
+        skipped; the pre-Combiner algorithms (SE2.1–SE2.3) lack that
+        optimization and emit every component — the duplicate work §12
+        measures on "to be or not to be".
+        """
+        row = self.rows[self.idx]
+        p = int(row[1])
+        out = []
+        comps, stars = self.key.components, self.key.starred
+        if not (honor_stars and stars[0]):
+            out.append((p, comps[0]))
+        for slot in range(1, len(comps)):
+            if not (honor_stars and stars[slot]):
+                out.append((p + int(row[1 + slot]), comps[slot]))
+        return out

@@ -5,10 +5,14 @@
 // intersect_sorted (body _intersect_kernel), applied per segment. For
 // segment s with a_s, b_s, tile offsets offsets_s and its own n_chunks_s:
 // out_s[i] = 1 when a_s[i] != PAD occurs in one of the block_b-wide tiles
-// clamp(floor(offsets_s[blk] / block_b) + j, 0, nb_s / block_b - 1),
-// j < n_chunks_s, of a_s's block blk = i / block_a. Those tiles are one
-// contiguous window of b_s: the first tile clamped through the last one
-// clamped. So the kernel under-reports exactly where the TPU kernel does
+// t_j = floor(offsets_s[blk] / block_b) + j, j < n_chunks_s, of a_s's block
+// blk = i / block_a, each clamped at the last tile of b_s. A t_j below 0
+// counts once from the end (t_j + nb_s / block_b) and then clamps at tile
+// 0: what the TPU kernel reads in interpret mode for a negative offset,
+// which block_offsets never gives. The distinct tiles form one contiguous
+// window of b_s, or two when a negative first tile wraps: [0, t_last] and
+// [t_0 + nb_s / block_b, the last tile], searched as one window in index
+// order. So the kernel under-reports exactly where the TPU kernel does
 // (the window misses a match span) and never reports a false positive.
 //
 // The TPU grid walks the chunk axis in order and ORs each tile's broadcast
@@ -66,36 +70,47 @@ __device__ __forceinline__ int32_t load(const int32_t* p) {
   }
 }
 
-// 1 when some adjacent pair of w[0, n) is out of order, in any thread of
+// A block's window of n elements: w1[0, n1) followed by w2[0, n - n1).
+struct Window {
+  const int32_t* w1;
+  const int32_t* w2;
+  int n1, n;
+};
+
+template <bool kGlobal>
+__device__ __forceinline__ int32_t at(const Window& w, int k) {
+  return k < w.n1 ? load<kGlobal>(w.w1 + k) : load<kGlobal>(w.w2 + (k - w.n1));
+}
+
+// 1 when some adjacent pair of the window is out of order, in any thread of
 // the CTA (every thread takes part).
 template <bool kGlobal>
-__device__ __forceinline__ int cta_unsorted(const int32_t* w, int n) {
+__device__ __forceinline__ int cta_unsorted(const Window& w) {
   int bad = 0;
-  for (int k = threadIdx.x; k + 1 < n; k += blockDim.x)
-    bad |= load<kGlobal>(w + k) > load<kGlobal>(w + k + 1);
+  for (int k = threadIdx.x; k + 1 < w.n; k += blockDim.x)
+    bad |= at<kGlobal>(w, k) > at<kGlobal>(w, k + 1);
   return __syncthreads_or(bad);
 }
 
-// v occurs in w[0, n): a lower-bound search over a sorted window, a linear
-// compare over an unsorted one.
+// v occurs in the window: a lower-bound search over a sorted window, a
+// linear compare over an unsorted one.
 template <bool kGlobal>
-__device__ __forceinline__ bool window_has(const int32_t* w, int n, int32_t v,
-                                           bool sorted) {
+__device__ __forceinline__ bool window_has(const Window& w, int32_t v, bool sorted) {
   if (sorted) {
-    int lo = 0, len = n;
+    int lo = 0, len = w.n;
     while (len > 0) {
       const int half = len >> 1;
-      if (load<kGlobal>(w + lo + half) < v) {
+      if (at<kGlobal>(w, lo + half) < v) {
         lo += half + 1;
         len -= half + 1;
       } else {
         len = half;
       }
     }
-    return lo < n && load<kGlobal>(w + lo) == v;
+    return lo < w.n && at<kGlobal>(w, lo) == v;
   }
   bool hit = false;
-  for (int k = 0; k < n; ++k) hit |= load<kGlobal>(w + k) == v;
+  for (int k = 0; k < w.n; ++k) hit |= at<kGlobal>(w, k) == v;
   return hit;
 }
 
@@ -116,36 +131,64 @@ __global__ void intersect_segments_kernel(
     nb = segs[3 * s + 1];
     n_chunks = segs[3 * s + 2];
   }
-  // the clamped tile range [lo_t, hi_t]; floor division, as the plain
-  // version divides, for offsets below 0
+  // the tiles t_j = first + j (floor division, as the plain version
+  // divides), j < n_chunks, as the tile spans [lo1, hi1] and [lo2, hi2]
+  // (empty unless a negative first tile wraps to the end)
   const long long off = offsets[blk];
   const long long first = off >= 0 ? off / block_b : -((-off + block_b - 1) / block_b);
-  const long long last = nb / block_b - 1;
-  const long long lo_t = min(max(first, 0LL), last);
-  const long long hi_t = min(max(first + n_chunks - 1, 0LL), last);
-  const int n = static_cast<int>(hi_t - lo_t + 1) * block_b;
-  const int32_t* src = b + b_base + lo_t * block_b;
+  const long long end = first + n_chunks - 1;
+  const long long n_tiles = nb / block_b, last = n_tiles - 1;
+  long long lo1, hi1, lo2 = 0, hi2 = -1;
+  if (first >= 0) {
+    lo1 = min(first, last);
+    hi1 = min(end, last);
+  } else {
+    // the negative tiles, counted from the end and clamped at tile 0
+    const long long w_lo = max(first + n_tiles, 0LL);
+    const long long w_hi = max(min(end, -1LL) + n_tiles, 0LL);
+    if (end < 0) {
+      lo1 = w_lo;
+      hi1 = w_hi;
+    } else if (w_lo <= min(end, last) + 1) {  // the two spans meet
+      lo1 = 0;
+      hi1 = last;
+    } else {
+      lo1 = 0;
+      hi1 = min(end, last);
+      lo2 = w_lo;
+      hi2 = w_hi;
+    }
+  }
+  const int n1 = static_cast<int>(hi1 - lo1 + 1) * block_b;
+  const int n = n1 + static_cast<int>(hi2 - lo2 + 1) * block_b;
+  const int32_t* src1 = b + b_base + lo1 * block_b;
+  const int32_t* src2 = b + b_base + lo2 * block_b;
   const long long i = static_cast<long long>(blk) * blockDim.x + threadIdx.x;
 
   int32_t v;
   bool hit;
   if (n <= smem_elems) {
-    const bool vec = ((reinterpret_cast<uintptr_t>(src) | (static_cast<uintptr_t>(n) * 4)) & 15) == 0;
+    const bool vec = ((reinterpret_cast<uintptr_t>(src1) | reinterpret_cast<uintptr_t>(src2) |
+                       (static_cast<uintptr_t>(n1) * 4) | (static_cast<uintptr_t>(n) * 4)) & 15) == 0;
     if (vec) {
-      for (int k = threadIdx.x * 4; k < n; k += blockDim.x * 4) cp_async16(win + k, src + k);
+      for (int k = threadIdx.x * 4; k < n; k += blockDim.x * 4)
+        cp_async16(win + k, k < n1 ? src1 + k : src2 + (k - n1));
     } else {
-      for (int k = threadIdx.x; k < n; k += blockDim.x) cp_async4(win + k, src + k);
+      for (int k = threadIdx.x; k < n; k += blockDim.x)
+        cp_async4(win + k, k < n1 ? src1 + k : src2 + (k - n1));
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     v = a[i];  // overlaps the window's copies
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    const bool sorted = !cta_unsorted<false>(win, n);
-    hit = window_has<false>(win, n, v, sorted);
+    const Window w{win, win, n, n};
+    const bool sorted = !cta_unsorted<false>(w);
+    hit = window_has<false>(w, v, sorted);
   } else {
     v = a[i];
-    const bool sorted = !cta_unsorted<true>(src, n);
-    hit = window_has<true>(src, n, v, sorted);
+    const Window w{src1, src2, n1, n};
+    const bool sorted = !cta_unsorted<true>(w);
+    hit = window_has<true>(w, v, sorted);
   }
   out[i] = hit && v != kPad;
 }

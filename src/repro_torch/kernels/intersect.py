@@ -7,10 +7,14 @@ intersect_sorted``.  The host computes, per 128-element block of the probe
 list ``a``, the tile offset into the build list ``b`` that could hold its
 matches (:func:`block_offsets`, a ``searchsorted`` — the galloping skip of
 the paper's iterators).  Each block then looks for its values in
-``n_chunks`` consecutive ``b`` tiles from that offset, clamped at the last
-tile.  The kernel (``csrc/intersect.cu``) runs one CTA per ``a`` block of
-any segment, stages the block's window asynchronously in shared memory and
-binary-searches it (a linear compare where the window is not sorted).
+``n_chunks`` consecutive ``b`` tiles from that offset (the floor of the
+offset over the tile width), each clamped at the last tile.  A tile index
+below 0 counts once from the end, as an index into the tiles does, and
+clamps at the first tile: what the TPU kernel reads in interpret mode for a
+negative offset (``block_offsets`` never gives one).  The kernel
+(``csrc/intersect.cu``) runs one CTA per ``a`` block of any segment, stages
+the block's window asynchronously in shared memory and binary-searches it
+(a linear compare where the window is not sorted).
 
 Both forms keep the TPU kernel's tile semantics exactly, per segment: when
 the tiles do not cover a block's match span they under-report, and they
@@ -81,9 +85,10 @@ def intersect_sorted_plain(
     ``b`` tiles, then compare.  Returns int32 ``[NA]`` 1/0."""
     _check_shapes(a.shape, b.shape, offsets.shape, block_a, block_b, n_chunks)
     n_blocks = a.shape[0] // block_a
-    last_tile = b.shape[0] // block_b - 1
+    n_tiles = b.shape[0] // block_b
     chunk = torch.arange(n_chunks, device=a.device)
-    tiles = (offsets.long()[:, None] // block_b + chunk).clamp(0, last_tile)
+    tiles = offsets.long()[:, None] // block_b + chunk
+    tiles = torch.where(tiles < 0, tiles + n_tiles, tiles).clamp(0, n_tiles - 1)
     cols = tiles[..., None] * block_b + torch.arange(block_b, device=a.device)
     btiles = b[cols].reshape(n_blocks, 1, n_chunks * block_b)
     a_blk = a.reshape(n_blocks, block_a)

@@ -77,11 +77,10 @@ _SOURCE_IDS = itertools.count(1)
 
 INCREMENTAL_NOT_PORTED = (
     "mutation hooks of incremental sources are not ported yet "
-    "(ROADMAP.md queue item 4: incremental/store/wal/checkpoint)"
+    "(ROADMAP.md: incremental/store/wal/checkpoint)"
 )
 INJECTION_NOT_PORTED = (
-    "fault injection is not ported yet (ROADMAP.md queue item 5: "
-    "resilience/service)"
+    "fault injection is not ported yet (ROADMAP.md: resilience/service)"
 )
 
 

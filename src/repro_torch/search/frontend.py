@@ -35,10 +35,10 @@ Exactness contract: with no deadline pressure, frontend responses are
 fragment-identical to the reference package's frontend and to its scalar
 Combiner on the same index (``tests/test_torch_frontend.py``).
 
-This port serves one plain ``IndexSet`` on ``device`` (``"cuda"`` unless the
-caller asks for ``"cpu"``); an arena the frontend builds lives on the same
-device.  The sharded and incremental sources raise ``NotImplementedError``
-(see ``planner.resolve_index_views``).
+This port serves a plain ``IndexSet`` or a static ``ShardedSearchService``
+on ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``); an arena
+the frontend builds lives on the same device.  Incremental sources raise
+``NotImplementedError`` (see ``planner.resolve_index_views``).
 """
 
 from __future__ import annotations
@@ -285,12 +285,7 @@ class ServingFrontend:
             r if isinstance(r, SearchRequest) else SearchRequest(query=r)
             for r in requests
         ]
-        token = generation_token(self._source)
-        views, _, max_distance, _ = resolve_index_views(self._source)
-        cached_views = [
-            _CachedView(v, self.posting_cache, (token, i))
-            for i, v in enumerate(views)
-        ]
+        token, views, shard_ids, cached_views, max_distance = self._live_views()
 
         responses: list = [None] * len(reqs)
         miss_idx: list[int] = []
@@ -352,7 +347,9 @@ class ServingFrontend:
         # execute: a fully cache-served slate must never pay acquire work
         # (a cold acquire uploads whole families)
         residencies = (
-            self._acquire_residencies(views, cached_views, token) if miss_idx else None
+            self._acquire_residencies(views, cached_views, token, shard_ids)
+            if miss_idx
+            else None
         )
 
         # micro-batch the misses: one fused dispatch per admitted batch.
@@ -453,19 +450,45 @@ class ServingFrontend:
             self.arena.detach()
             self.arena.release()
 
-    def _acquire_residencies(self, views, cached_views, token):
-        """Posting-arena residencies per live view (DESIGN.md §13).
+    def _live_views(self):
+        """``(token, views, shard_ids, cached_views, max_distance)`` of the
+        source as it stands.  Posting-cache keys carry each view's TRUE shard
+        id.  Every shard is live: there is no probe barrier until
+        resilience/service is ported."""
+        token = generation_token(self._source)
+        views, _, max_distance, _ = resolve_index_views(self._source)
+        shard_ids = list(range(len(views)))
+        cached_views = [
+            _CachedView(v, self.posting_cache, (token, shard))
+            for shard, v in zip(shard_ids, views)
+        ]
+        return token, views, shard_ids, cached_views, max_distance
+
+    def _acquire_residencies(self, views, cached_views, token, shard_ids):
+        """Posting-arena residencies per live shard view (DESIGN.md §13).
 
         Keyed by ``id(cached_view)`` because that is the view object
         ``execute_plans`` packs into work items; uploads read the RAW view
         (the arena walks family dicts, which the cache wrapper does not
         carry), so entries stay keyed by the raw view's identity stamp and
-        every frontend over one index shares them.
+        every frontend over one index shares them.  A sharded source's tuple
+        token splits into per-shard tokens, so one shard's change only
+        invalidates its own buffers; ``shard_ids`` names each view's TRUE
+        shard.
         """
         if self.arena is None:
             return None
+        # the token is a per-shard tuple exactly when the source is a sharded
+        # service with one token entry per shard
+        n_shards = getattr(self._source, "n_shards", None)
+        per_shard = (
+            [token[s] for s in shard_ids]
+            if isinstance(token, tuple) and n_shards is not None
+            and len(token) == n_shards
+            else [token] * len(views)
+        )
         all_res = self.arena.acquire_many(
-            [(raw, token, shard) for shard, raw in enumerate(views)]
+            [(raw, per_shard[i], shard_ids[i]) for i, raw in enumerate(views)]
         )
         return {id(cached): res for cached, res in zip(cached_views, all_res)}
 
@@ -515,13 +538,8 @@ class ServingFrontend:
             out["res"].cpu()  # wait for the program
             programs += 1
         if queries:
-            token = generation_token(self._source)
-            views, _, max_distance, _ = resolve_index_views(self._source)
-            cached_views = [
-                _CachedView(v, self.posting_cache, (token, i))
-                for i, v in enumerate(views)
-            ]
-            residencies = self._acquire_residencies(views, cached_views, token)
+            token, views, shard_ids, cached_views, max_distance = self._live_views()
+            residencies = self._acquire_residencies(views, cached_views, token, shard_ids)
             plans = [
                 self.planner.plan(q, views=cached_views, generation=token)
                 for q in queries

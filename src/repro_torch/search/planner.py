@@ -50,10 +50,6 @@ from ..index.builder import IndexSet
 from .fused import serve_query_batch
 from .relevance import rank_documents
 
-SHARDED_NOT_PORTED = (
-    "sharded sources are not ported yet (ROADMAP.md: distributed.py, the "
-    "sharded service with device_topk_merge)"
-)
 INCREMENTAL_NOT_PORTED = (
     "incremental index sources are not ported yet (ROADMAP.md: "
     "incremental/store/wal/checkpoint)"
@@ -187,12 +183,23 @@ def generation_token(obj) -> object:
 def resolve_index_views(source) -> tuple[list[IndexSet], FLList, int, Lemmatizer | None]:
     """Resolve an index source into ``(live views, fl, max_distance, lemmatizer)``.
 
-    This slice serves one plain ``IndexSet``.  A sharded service (it has
-    ``shards``) or an incremental indexer (it has a ``generation_token``)
+    Accepted sources:
+
+    * ``ShardedSearchService`` — every shard view, the corpus-global
+      FL-list, the service's lemmatizer;
+    * plain ``IndexSet`` — itself.
+
+    An incremental indexer (it has a ``generation_token`` but no ``shards``)
     raises ``NotImplementedError`` naming the roadmap item that ports it.
     """
-    if getattr(source, "shards", None) is not None:
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+    shards = getattr(source, "shards", None)
+    if shards is not None:  # ShardedSearchService
+        return (
+            list(shards),
+            source.fl,
+            source.max_distance,
+            getattr(source, "lemmatizer", None),
+        )
     if getattr(source, "generation_token", None) is not None:
         raise NotImplementedError(INCREMENTAL_NOT_PORTED)
     return [source], source.fl, source.max_distance, None

@@ -452,8 +452,9 @@ def test_frontends_share_one_arena_and_warmup_uses_it(corpora):
 def test_engine_arena_equals_host_route(corpora):
     _, lem = corpora["lemmatizers"]
     _, idx = corpora["pack32"]
-    eng = SearchEngine(idx, lemmatizer=lem, arena=arena.PostingArena(device="cpu"), device="cpu")
-    host = SearchEngine(idx, lemmatizer=lem, device="cpu")
+    eng = SearchEngine(idx, lemmatizer=lem, algorithm="fused",
+                       arena=arena.PostingArena(device="cpu"), device="cpu")
+    host = SearchEngine(idx, lemmatizer=lem, algorithm="fused", device="cpu")
     fused.reset_dispatch_count()
     got = eng.search_batch(QUERIES, top_k=1000)
     assert fused.dispatch_count() == 1

@@ -17,7 +17,13 @@ from repro.index import build_indexes as ref_build_indexes
 from repro.search.frontend import SearchRequest as RefRequest
 from repro.search.frontend import ServingFrontend as RefFrontend
 from repro_torch.index import DocumentStore, build_indexes, index_set_from_arrays
-from repro_torch.search import SearchEngine, SearchRequest, ServingFrontend, fused
+from repro_torch.search import (
+    SearchEngine,
+    SearchRequest,
+    ServingFrontend,
+    ShardedSearchService,
+    fused,
+)
 from tests.strategies import make_corpus, make_queries
 
 PROBE = "to be who you are"
@@ -153,7 +159,7 @@ def test_pipeline_on_off_identical_one_dispatch_per_chunk(corpus, use_kernel):
 
 def test_engine_equals_frontend(corpus):
     _, _, _, store, idx, queries = corpus
-    eng = SearchEngine(idx, lemmatizer=store.lemmatizer, device="cpu")
+    eng = SearchEngine(idx, lemmatizer=store.lemmatizer, algorithm="fused", device="cpu")
     fe = ServingFrontend(idx, lemmatizer=store.lemmatizer, device="cpu")
     assert [_docs(r) for r in eng.search_batch(queries, top_k=1000)] == [
         _docs(fe.search(q, top_k=1000)) for q in queries
@@ -173,9 +179,15 @@ def test_warmup_runs_the_serving_programs(corpus):
 
 def test_sources_and_options_outside_the_slice_raise():
     _, _, _, store, idx, _ = _build(SEEDS[0])
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ServingFrontend(type("Svc", (), {"shards": [idx]})(), device="cpu")
-    with pytest.raises(NotImplementedError, match="incremental"):
+    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
         ServingFrontend(type("Ix", (), {"generation_token": 3})(), device="cpu")
-    with pytest.raises(NotImplementedError, match="host algorithms"):
-        SearchEngine(idx, algorithm="se2.4", device="cpu")
+    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
+        SearchEngine(type("Ix", (), {"generation_token": 3, "fl": idx.fl})(), device="cpu")
+    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
+        ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, incremental=True,
+                             device="cpu")
+    svc = ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, device="cpu")
+    with pytest.raises(NotImplementedError, match="resilience/service"):
+        svc.search("who are you who", dead_shards=[1])
+    with pytest.raises(KeyError):
+        SearchEngine(idx, algorithm="se3", device="cpu")

@@ -17,6 +17,7 @@ import torch
 from repro_torch.index import build_indexes, synthesize_corpus
 from repro_torch.kernels import (
     ARENA_BLOCK,
+    PAD,
     gather_blocks,
     gather_blocks_plain,
     intersect_sorted,
@@ -101,12 +102,32 @@ def test_intersect_kernel_equals_plain_at_serving_shape(cuda, n_chunks):
     assert torch.equal(got, intersect_sorted_plain(a, b, off, n_chunks=n_chunks))
 
 
+def _any_offsets(na, nb, n_chunks):
+    """``tests/test_torch_kernels.py``'s ``_model_inputs("any-offsets", ...)``
+    (same seed): sorted a and b padded with PAD, block offsets anywhere —
+    -1 and -257 first (floor and truncating division differ there, and a
+    negative first tile wraps to the end), below 0, past the end,
+    unaligned."""
+    rng = np.random.default_rng(na + nb + n_chunks)
+    a = np.sort(rng.integers(0, 3 * nb, na)).astype(np.int32)
+    a[-rng.integers(1, 40):] = PAD
+    b = np.sort(rng.integers(0, 3 * nb, nb)).astype(np.int32)
+    b[-rng.integers(1, 64):] = PAD
+    off = rng.integers(-3 * 256, nb + 3 * 256, na // 128).astype(np.int32)
+    off[:2] = -1, -257
+    return a, b, off, n_chunks
+
+
 def _serving_segments(rng, kind):
     """Pairs of 4,100-6,000 docs out of 8,192, padded as the planner pads
     them, with mixed n_chunks: the planner's own, 1 (partial), twice it and
     the whole list.  "unsorted" reverses a span of one b; "global" adds a
     16,384-element b searched whole, a window above the kernel's
-    shared-memory budget, sorted and unsorted."""
+    shared-memory budget, sorted and unsorted.  "any-offsets" is the CPU
+    tests' arbitrary-offset pairs instead."""
+    if kind == "any-offsets":
+        return [_any_offsets(*shape) for shape in
+                ((512, 1024, 1), (1024, 2048, 2), (256, 2048, 3), (384, 256, 2), (1024, 4096, 16))]
     n = {"round1": 6, "round2": 3, "unsorted": 4, "global": 2}[kind]
     segments = []
     for k in range(n):
@@ -130,7 +151,7 @@ def _serving_segments(rng, kind):
     return segments
 
 
-@pytest.mark.parametrize("kind", ["round1", "round2", "unsorted", "global"])
+@pytest.mark.parametrize("kind", ["round1", "round2", "unsorted", "global", "any-offsets"])
 def test_intersect_segments_kernel_equals_plain(cuda, kind):
     """One launch over every segment, each equal to the plain version of
     that segment alone with its own n_chunks."""

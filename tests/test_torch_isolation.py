@@ -1,6 +1,7 @@
 """``repro_torch`` stands alone: it imports neither jax nor the reference
 package ``repro``, and serves a batch on the CPU with both blocked, over
-the host route and over the posting arena."""
+the host route, the posting arena and a sharded service, and runs the
+scalar Combiner."""
 
 import os
 import re
@@ -24,7 +25,7 @@ for use_kernel in (False, True):
     fe = ServingFrontend(index, lemmatizer=store.lemmatizer, use_kernel=use_kernel, device="cpu")
     resps = fe.search_many(queries)
     assert all(r.docs for r in resps), [r.query for r in resps if not r.docs]
-engine = SearchEngine(index, lemmatizer=store.lemmatizer, device="cpu")
+engine = SearchEngine(index, lemmatizer=store.lemmatizer, algorithm="fused", device="cpu")
 assert [len(r.docs) for r in engine.search_batch(queries)] == [len(r.docs) for r in resps]
 from repro_torch.kernels.gather import gather_blocks
 from repro_torch.search.arena import PostingArena
@@ -34,6 +35,20 @@ for use_kernel in (False, True):
     arena_resps = fe.search_many(queries)
     assert [len(r.docs) for r in arena_resps] == [len(r.docs) for r in resps]
     assert sum(r.stats.arena_hits for r in arena_resps) > 0
+from repro_torch.core.combiner import se24_combiner
+from repro_torch.core.keys import expand_subqueries
+from repro_torch.search import ShardedSearchService, device_topk_merge
+svc = ShardedSearchService(store, n_shards=2, sw_count=40, fu_count=80, device="cpu")
+sharded = ServingFrontend(svc, device="cpu").search_many(queries)
+host = svc.search_batch(queries)
+assert [[d.doc_id for d in r.docs] for r in sharded] == [[d.doc_id for d in r.docs] for r in host]
+frags = set()
+for shard in svc.shards:
+    for sub in expand_subqueries(queries[0], store.lemmatizer):
+        frags.update(se24_combiner(sub, shard)[0])
+assert {(d.doc_id, f.start, f.end) for d in host[0].docs for f in d.fragments} <= frags
+import torch
+assert device_topk_merge(torch.ones(2, 3), torch.arange(6).reshape(2, 3), 4)[1].tolist() == [0, 1, 2, 3]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))

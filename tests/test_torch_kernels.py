@@ -346,22 +346,36 @@ def test_segment_pack_rejects_bad_layouts():
 
 
 # ---- a numpy model of the segmented intersect kernel ------------------------
-# Per a block, as csrc/intersect.cu runs it: the window of b from the first
-# clamped tile through the last clamped one (floor division of the offset);
-# the CTA's vote on whether every adjacent pair of the window is in order; a
-# lower-bound binary search of each value over a sorted window (duplicates
-# and PAD runs included), a linear compare over an unsorted one; PAD in a
-# never hits.  Held to the plain version on sorted and unsorted windows.
+# Per a block, as csrc/intersect.cu runs it: the tile spans of the block's
+# window (floor division of the offset; a negative first tile wraps to the
+# end, so the window may be two spans in index order); the CTA's vote on
+# whether every adjacent pair of the window is in order; a lower-bound
+# binary search of each value over a sorted window (duplicates and PAD runs
+# included), a linear compare over an unsorted one; PAD in a never hits.
+# Held to the plain version on sorted and unsorted windows and any offsets.
+
+
+def _window_spans(off, n_chunks, n_tiles, block_b):
+    """The kernel's tile spans ``[(lo1, hi1), (lo2, hi2)]``; the second is
+    empty (``hi2 < lo2``) unless a negative first tile wraps to the end."""
+    first, last = off // block_b, n_tiles - 1
+    end = first + n_chunks - 1
+    if first >= 0:
+        return [(min(first, last), min(end, last)), (0, -1)]
+    w_lo, w_hi = max(first + n_tiles, 0), max(min(end, -1) + n_tiles, 0)
+    if end < 0:
+        return [(w_lo, w_hi), (0, -1)]
+    if w_lo <= min(end, last) + 1:
+        return [(0, last), (0, -1)]
+    return [(0, min(end, last)), (w_lo, w_hi)]
 
 
 def _intersect_model(a, b, offsets, n_chunks, block_a=128, block_b=256):
     out = np.zeros(len(a), np.int32)
-    last = len(b) // block_b - 1
     unsorted_blocks = 0
     for blk, off in enumerate(offsets.tolist()):
-        first = off // block_b
-        lo, hi = (min(max(t, 0), last) for t in (first, first + n_chunks - 1))
-        w = b[lo * block_b : (hi + 1) * block_b].astype(np.int64)
+        spans = _window_spans(off, n_chunks, len(b) // block_b, block_b)
+        w = np.concatenate([b[lo * block_b : (hi + 1) * block_b] for lo, hi in spans]).astype(np.int64)
         v = a[blk * block_a : (blk + 1) * block_a].astype(np.int64)
         if (w[:-1] <= w[1:]).all():
             at, left = np.zeros(len(v), np.int64), np.full(len(v), len(w))
@@ -403,9 +417,11 @@ def _model_inputs(kind, na, nb, seed):
     return a, b.astype(np.int32), off
 
 
+_MODEL_SHAPES = [(512, 1024, 1), (1024, 2048, 2), (256, 2048, 3), (384, 256, 2), (1024, 4096, 16)]
+
+
 @pytest.mark.parametrize("kind", ["sorted", "duplicates", "unsorted", "any-offsets"])
-@pytest.mark.parametrize("na,nb,n_chunks", [(512, 1024, 1), (1024, 2048, 2), (256, 2048, 3),
-                                            (384, 256, 2), (1024, 4096, 16)])
+@pytest.mark.parametrize("na,nb,n_chunks", _MODEL_SHAPES)
 def test_intersect_kernel_model_equals_plain(kind, na, nb, n_chunks):
     a, b, off = _model_inputs(kind, na, nb, na + nb + n_chunks)
     got, unsorted_blocks = _intersect_model(a, b, off, n_chunks)
@@ -489,3 +505,24 @@ def test_gather_rejects_what_the_kernel_cannot_take():
         gather_blocks(arena, src, src[:1])
     with pytest.raises(ValueError, match="cuda device"):
         gather_blocks(arena.to("meta"), src.to("meta"), src.to("meta"))
+
+
+@pytest.mark.parametrize("na,nb,n_chunks", _MODEL_SHAPES)
+def test_intersect_plain_equals_pallas_kernel_on_any_offsets(na, nb, n_chunks):
+    """Offsets below 0 (-1 and -257 among them), past the end and unaligned:
+    the plain version reads the tiles the TPU kernel reads in interpret mode
+    (a negative tile counts once from the end, then clamps at 0), bit for
+    bit; the kernel's window spans cover exactly those tiles."""
+    a, b, off = _model_inputs("any-offsets", na, nb, na + nb + n_chunks)
+    want = np.asarray(
+        ref_intersect_sorted(jnp.asarray(a), jnp.asarray(b), jnp.asarray(off), n_chunks=n_chunks)
+    )
+    got = intersect_sorted_plain(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(off),
+                                 n_chunks=n_chunks)
+    np.testing.assert_array_equal(got.numpy(), want)
+    n_tiles = nb // 256
+    for o in off.tolist():
+        tiles = {min(max(t + n_tiles if t < 0 else t, 0), n_tiles - 1)
+                 for t in range(o // 256, o // 256 + n_chunks)}
+        spans = _window_spans(o, n_chunks, n_tiles, 256)
+        assert tiles == {t for lo, hi in spans for t in range(lo, hi + 1)}, o
