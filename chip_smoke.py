@@ -52,15 +52,33 @@ Phases, each printed with its seconds:
    size and longest Step-1 lists, and one index over the same documents
    served by the host route on the CPU.
    The slate through ``ServingFrontend(svc, use_kernel=True)`` (host route)
-   and over a 64 MiB arena — and, where that budget refuses the slate's
-   triples, over the smallest power-of-two budget that keeps them — each
-   with its launch counters set to 0 before and read after, 5 fresh-frontend
-   latencies and a profile; then ``svc.search_batch`` with ``fused`` and
+   and over an arena at the smallest power-of-two budget that keeps every
+   shard's triples (2,048 MiB, checked; the launcher's 64 MiB keeps none,
+   and phase 8 drives its host-pack fallback) — each with its launch
+   counters set to 0 before and read after, 5 fresh-frontend latencies and
+   a profile; then ``svc.search_batch`` with ``fused`` and
    with ``se2.4``, the host Combiner over the same shards.  Every route must
    equal ``se2.4`` over the shards and the single-index CPU route.
    The baselines SE1 and SE2.1-SE2.3 are timed on "to be or not to be" and
    each held to its own oracle, and ``device_topk_merge`` runs on the card
    over per-shard top-10 lists with a forced tie, against a stable host sort.
+
+8. the reference launcher's durable deployment (``--snapshot-dir``) on the
+   same 4,096 documents: ``ShardedSearchService(incremental=True)``, each
+   shard's view required equal to phase 7's static shard; ``enable_wal`` and
+   ``snapshot`` into a temporary directory (seconds, MiB on disk); the slate
+   through the host route and through a 64 MiB arena attached to the source,
+   before and after a mutation (512 documents added, 64 of the slate's
+   documents deleted, one ``commit``) — each with launch counters, 5
+   fresh-frontend latencies and a profile, the arena's cold acquire timed,
+   every route equal to ``se2.4`` over the live shards and to
+   ``svc.search_batch`` with ``fused``; the arena's evictions required to
+   lower ``torch.cuda.memory_allocated()`` by the bytes it evicted; shard 0
+   held to a scalar rebuild of its survivors; ``compact`` and the host route
+   again; then one more snapshot, acknowledged post-snapshot work (128
+   added, 16 deleted, a commit), and ``ServingFrontend.from_snapshot`` in a
+   fresh process (torch and the port only), which must replay WAL records
+   and serve the live service's fragments exactly.
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -70,10 +88,13 @@ one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,7 +120,37 @@ N_SHARDS = 4  # the reference launcher's default --n-shards
 # phase 7's corpus: every shard builds every key, so 8,192 documents would
 # take the run past its time budget (526 s of command time on an H100)
 SHARDED_DOCS = 4096
+# the smallest power-of-two arena budget that keeps every shard's triples at
+# that size (phase 7 checks it is the smallest)
+SHARDED_ARENA_BUDGET = 2048 << 20
 SCORE_RTOL = 1e-5  # float32 scores summed in another order on each path
+
+# phase 8's warm start, run in a fresh process as the launcher's next boot
+# would: torch and the port only (jax and the reference package blocked)
+WARM_START = """
+import hashlib, json, sys, time
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.kernels.proximity import proximity_window
+from repro_torch.search import SearchRequest, ServingFrontend
+t0 = time.perf_counter()
+fe = ServingFrontend.from_snapshot(sys.argv[2], use_kernel=True, device="cuda", max_batch=16)
+restore_s = time.perf_counter() - t0
+requests = [SearchRequest(q, top_k=int(sys.argv[4])) for q in json.loads(sys.argv[3])]
+proximity_window.launches = 0
+t0 = time.perf_counter()
+resps = fe.search_many(requests)
+torch.cuda.synchronize()
+slate_ms = (time.perf_counter() - t0) * 1e3
+digests = [hashlib.sha256(json.dumps(sorted((d.doc_id, f.start, f.end) for d in r.docs
+                                            for f in d.fragments)).encode()).hexdigest()[:16]
+           for r in resps]
+print(json.dumps({"restore_s": restore_s, "slate_ms": slate_ms, "digests": digests,
+                  "replayed": sum(ix.last_wal_replay["records"] for ix in fe._source.indexers),
+                  "cover_launches": proximity_window.launches}))
+"""
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
 # the tensor cores (an FMA counted as two operations).  The data sheet lists
@@ -173,7 +224,7 @@ def main() -> int:
 
     from repro_torch.core.keys import expand_subqueries, select_keys
     from repro_torch.core.lemma import FLList
-    from repro_torch.index import DocumentStore, build_indexes, synthesize_corpus
+    from repro_torch.index import DocumentStore, build_indexes, index_sets_equal, synthesize_corpus
     from repro_torch.kernels import _build
     from repro_torch.kernels.gather import ARENA_BLOCK, gather_blocks, gather_blocks_plain
     from repro_torch.kernels.intersect import (
@@ -912,30 +963,30 @@ def main() -> int:
         require(arena_.metrics()["arena_uploads"] == uploads, f"the {path} uploaded: the cold entries were missed")
         return triples
 
-    arena64, res64, fam_bytes = cold_arena(ARENA_BUDGET)
-    triples_resident = arena_route(ARENA_BUDGET, arena64, res64)
-    arena64.release()
-    if not triples_resident:
-        # the smallest power-of-two budget at which the acquire's admission
-        # (every shard's families in order, none evictable) keeps every
-        # shard's triples, from the sizes the cold acquire recorded
-        def admits(budget):
-            used, kept = 0, 0
-            for sizes in fam_bytes:
-                for fname in ("stop_single", "stop_pair", "pair", "triple"):
-                    if used + sizes[fname] <= budget:
-                        used += sizes[fname]
-                        kept += fname == "triple"
-            return kept == N_SHARDS
+    # the arena at the smallest power-of-two budget at which the acquire's
+    # admission (every shard's families in order, none evictable) keeps
+    # every shard's triples.  The launcher's 64 MiB keeps none of them, and
+    # phase 8 drives that budget's host-pack fallback over these documents
+    arena_big, res_big, fam_bytes = cold_arena(SHARDED_ARENA_BUDGET)
 
-        budget = ARENA_BUDGET
-        while not admits(budget):
-            budget *= 2
-        print(f"the slate's triples are refused at {ARENA_BUDGET >> 20} MiB; the smallest power-of-two "
-              f"budget that admits every shard's triple family: {budget >> 20} MiB")
-        arena_big, res_big, _ = cold_arena(budget)
-        require(arena_route(budget, arena_big, res_big), f"the triples are not resident at {budget >> 20} MiB")
-        arena_big.release()
+    def triples_kept(budget):
+        used, kept = 0, 0
+        for sizes in fam_bytes:
+            for fname in ("stop_single", "stop_pair", "pair", "triple"):
+                if used + sizes[fname] <= budget:
+                    used += sizes[fname]
+                    kept += fname == "triple"
+        return kept
+
+    require(triples_kept(SHARDED_ARENA_BUDGET) == N_SHARDS
+            and triples_kept(SHARDED_ARENA_BUDGET // 2) < N_SHARDS and triples_kept(ARENA_BUDGET) == 0,
+            f"{SHARDED_ARENA_BUDGET >> 20} MiB is not the smallest power-of-two budget that keeps "
+            f"every shard's triples")
+    print(f"the smallest power-of-two budget that admits every shard's triple family: "
+          f"{SHARDED_ARENA_BUDGET >> 20} MiB (none at {ARENA_BUDGET >> 20} MiB)")
+    require(arena_route(SHARDED_ARENA_BUDGET, arena_big, res_big),
+            f"the triples are not resident at {SHARDED_ARENA_BUDGET >> 20} MiB")
+    arena_big.release()
     t0 = phase("serving (sharded host and arena routes)", t0)
 
     svc.algorithm, svc.use_kernel = "fused", True
@@ -1031,7 +1082,194 @@ def main() -> int:
     require(top_d.device.type == "cuda" and np.array_equal(top_d.cpu().numpy(), dc.reshape(-1)[order])
             and np.array_equal(top_s.cpu().numpy(), sc.reshape(-1)[order]),
             "device_topk_merge != a stable host sort")
-    phase("baselines and device_topk_merge", t0)
+    t0 = phase("baselines and device_topk_merge", t0)
+
+    def agree(label, resps, ref_resps):
+        """Fragments, documents and (rtol) scores of every query equal."""
+        for q, got, ref in zip(SLATE, resps, ref_resps):
+            require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments}
+                    == {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments},
+                    f"{label} fragments differ for {q!r}")
+            require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
+                    f"{label} documents differ for {q!r}")
+            require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
+                    f"{label} scores differ for {q!r}")
+
+    def digests(resps):
+        return [hashlib.sha256(json.dumps(sorted((d.doc_id, f.start, f.end) for d in r.docs
+                                                 for f in d.fragments)).encode()).hexdigest()[:16]
+                for r in resps]
+
+    def durable_phase(snap_dir: Path) -> None:
+        t8 = time.perf_counter()
+        t_build = time.perf_counter()
+        isvc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
+                                    max_distance=MAX_DISTANCE, incremental=True, device="cuda")
+        print(f"incremental service: {len(shard_store)} docs in {N_SHARDS} shards, built in "
+              f"{time.perf_counter() - t_build:.1f} s")
+        for i, (ix, static) in enumerate(zip(isvc.indexers, svc.shards)):
+            eq, why = index_sets_equal(ix.index.to_index_set(), static)
+            require(eq, f"incremental shard {i} != phase 7's static shard: {why}")
+            print(f"  shard {i}: {len(ix.segments)} segment(s), "
+                  f"{sum(seg.live_bytes() for seg in ix.segments) / 2**20:.1f} MiB, == phase 7's shard")
+        t_dur = time.perf_counter()
+        isvc.enable_wal(snap_dir)
+        isvc.snapshot(snap_dir)
+        on_disk = sum(f.stat().st_size for f in snap_dir.rglob("*") if f.is_file())
+        print(f"enable_wal + snapshot: {time.perf_counter() - t_dur:.2f} s, {on_disk / 2**20:.1f} MiB on disk")
+        t8 = phase("durable service: incremental build, WAL and snapshot", t8)
+
+        host_fe = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16)
+        arena_fe = ServingFrontend(isvc, arena_budget_mb=ARENA_BUDGET >> 20, use_kernel=True,
+                                   device="cuda", max_batch=16)
+        arena8 = arena_fe.arena
+
+        def acquire(tag):
+            """The attached arena's cold acquire under the live tokens."""
+            tok = generation_token(isvc)
+            t_acq = time.perf_counter()
+            res = arena8.acquire_many([(v, tok[i], i) for i, v in enumerate(isvc.shards)])
+            torch.cuda.synchronize()
+            triples = all("triple" in r.families for r in res)
+            print(f"durable arena cold acquire ({tag}, {ARENA_BUDGET >> 20} MiB): "
+                  f"{time.perf_counter() - t_acq:.3f} s, {json.dumps(arena8.metrics())}; every shard's "
+                  f"triples resident: {triples}" + ("" if triples else
+                                                     " (the slate falls back to the host pack)"))
+            return triples
+
+        def routes(tag):
+            """The host route and the attached arena's route, each through
+            fresh frontends (launch counters at 0 before, read after)."""
+            _, rounds8 = step1_folds(isvc.shards)
+            n_rounds = len(rounds8)
+            out = {f"durable host route, {tag}": sharded_route(
+                f"durable host route, {tag}",
+                lambda: ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16),
+                {"proximity_window": True, "gather_blocks": False, "intersect_sorted": n_rounds})}
+            triples = acquire(tag)
+            uploads = arena8.uploads
+            path = f"durable arena route ({ARENA_BUDGET >> 20} MiB), {tag}"
+            out[path] = sharded_route(
+                path, lambda: ServingFrontend(isvc, arena=arena8, use_kernel=True, device="cuda", max_batch=16),
+                {"proximity_window": not triples, "gather_blocks": triples,
+                 "intersect_sorted": 0 if triples else n_rounds})
+            require(arena8.uploads == uploads, f"the {path} uploaded: the cold entries were missed")
+            return out
+
+        before = routes("before mutation")
+        for label, resps in before.items():
+            agree(f"{label} vs phase 7's se2.4", resps, combiner)
+        for fe in (host_fe, arena_fe):
+            require(all(r.stats.cache_hits == 0 for r in fe.search_many(requests)), "a cold slate hit the cache")
+            require(all(r.stats.cache_hits == 1 for r in fe.search_many(requests)), "a repeat missed the cache")
+        t8 = phase("durable service: slate before mutation (host and 64 MiB arena routes)", t8)
+
+        # mutate: 512 new documents, 64 of the slate's documents deleted
+        added = synthesize_corpus(n_docs=512, doc_len=DOC_LEN, vocab_size=VOCAB, seed=1)
+        seen, victims = set(), []
+        for r in before[f"durable host route, before mutation"]:
+            for d in r.docs[:16]:
+                if d.doc_id not in seen and len(victims) < 64:
+                    seen.add(d.doc_id)
+                    victims.append(d.doc_id)
+        require(len(victims) == 64, "the slate holds fewer than 64 documents")
+        evictions, resident = arena8.evictions, arena8.size_bytes
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        t_mut = time.perf_counter()
+        isvc.add_documents([d.text for d in added.documents])
+        for doc_id in victims:
+            isvc.delete_document(doc_id)
+        add_del_s = time.perf_counter() - t_mut
+        t_commit = time.perf_counter()
+        report = isvc.commit()
+        commit_s = time.perf_counter() - t_commit
+        torch.cuda.synchronize()
+        freed = mem_before - torch.cuda.memory_allocated()
+        evicted = resident - arena8.size_bytes
+        print(f"mutation: {len(added)} added and {len(victims)} deleted in {add_del_s:.2f} s; "
+              f"commit {commit_s:.2f} s, "
+              f"report {json.dumps(report)}")
+        print(f"attached arena: evictions {evictions} -> {arena8.evictions}, {evicted / 2**20:.3f} MiB "
+              f"evicted, torch.cuda.memory_allocated fell by {freed / 2**20:.3f} MiB")
+        require(arena8.evictions > evictions and evicted > 0, "the attached arena evicted nothing")
+        require(freed >= evicted, "the evicted buffers were not freed on the card")
+        require(all(r.stats.cache_hits == 0 for r in host_fe.search_many(requests)),
+                "a host-route slate hit the result cache after the token moved")
+        t8 = phase("durable service: add, delete, commit, eviction", t8)
+
+        after = routes("after mutation")  # the arena's re-acquire is cold here
+        require(all(r.stats.cache_hits == 0 for r in arena_fe.search_many(requests)),
+                "an arena-route slate hit the result cache after the token moved")
+        isvc.algorithm = "se2.4"
+        t_q = time.perf_counter()
+        live_se24 = isvc.search_batch(SLATE, top_k=len(store))
+        print(f"svc.search_batch (se2.4) over the live shards: {time.perf_counter() - t_q:.2f} s")
+        isvc.algorithm, isvc.use_kernel = "fused", True
+        zero_counts()
+        live_fused = isvc.search_batch(SLATE, top_k=len(store))
+        torch.cuda.synchronize()
+        require(read_counts("durable svc.search_batch fused")["proximity_window"] > 0,
+                "proximity_window was not launched by the durable svc.search_batch")
+        isvc.algorithm = "se2.4"
+        for label, resps in (*after.items(), ("durable svc.search_batch fused", live_fused)):
+            agree(f"{label} vs se2.4 over the live shards", resps, live_se24)
+        # the scalar rebuild of shard 0's survivors, under the service's
+        # corpus-global FL-list (the shard's own rebuild_index_set would
+        # rank its lemmas by the shard's frequencies alone)
+        ix0 = isvc.indexers[0]
+        t_rb = time.perf_counter()
+        rebuilt = build_indexes(ix0.surviving_store(), SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE,
+                                fl=isvc.fl)
+        eq, why = index_sets_equal(isvc.shards[0].to_index_set(), rebuilt)
+        require(eq, f"shard 0's live view != its rebuild: {why}")
+        print(f"shard 0: live view == the scalar rebuild of its {len(ix0.documents)} survivors "
+              f"({time.perf_counter() - t_rb:.1f} s)")
+        t8 = phase("durable service: slate after mutation, se2.4, fused, shard 0 rebuild", t8)
+
+        t_c = time.perf_counter()
+        creport = isvc.compact(memory_budget_bytes=64 << 20)
+        print(f"compact (64 MiB budget): {time.perf_counter() - t_c:.2f} s, report {json.dumps(creport)}")
+        compacted = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
+        compact_se24 = isvc.search_batch(SLATE, top_k=len(store))
+        agree("compacted host route vs se2.4", compacted, compact_se24)
+        agree("se2.4 after compact vs before", compact_se24, live_se24)
+        t8 = phase("durable service: compact and serve", t8)
+
+        # acknowledged post-snapshot work, then a warm start in a fresh process
+        isvc.snapshot(snap_dir)
+        more = synthesize_corpus(n_docs=128, doc_len=DOC_LEN, vocab_size=VOCAB, seed=2)
+        isvc.add_documents([d.text for d in more.documents])
+        for doc_id in sorted(isvc.indexers[0].documents)[:16]:
+            isvc.delete_document(doc_id)
+        isvc.commit()
+        live = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
+        agree("live host route vs se2.4", live, isvc.search_batch(SLATE, top_k=len(store)))
+        child = subprocess.run(
+            [sys.executable, "-c", WARM_START, str(src), str(snap_dir), json.dumps(SLATE), str(len(store))],
+            capture_output=True, text=True, timeout=600,
+        )
+        require(child.returncode == 0, f"the warm-start process failed: {child.stderr[-3000:]}")
+        warm = json.loads(child.stdout.strip().splitlines()[-1])
+        print(f"fresh-process from_snapshot: restore {warm['restore_s']:.2f} s, {warm['replayed']} WAL records "
+              f"replayed, slate {warm['slate_ms']:.1f} ms, cover launches {warm['cover_launches']}")
+        print(f"  digests live {digests(live)}")
+        print(f"  digests warm {warm['digests']}")
+        require(warm["replayed"] > 0, "the warm start replayed no WAL record")
+        require(warm["cover_launches"] > 0, "the warm-started host route launched no cover kernel")
+        require(warm["digests"] == digests(live), "the warm-started service serves other fragments")
+        phase("durable service: snapshot, acknowledged work, fresh-process warm start", t8)
+
+    # ---- 8. the durable deployment under mutation ----------------------------
+    # the launcher's --snapshot-dir deployment (incremental shards, the
+    # write-ahead log, snapshots, a 64 MiB arena attached to the source) over
+    # the same documents, mutated while it serves, then warm-started in a
+    # fresh process from what it wrote
+    snap_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_snapshot_"))
+    try:
+        durable_phase(snap_dir)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

@@ -33,9 +33,9 @@ path, to the reference package's arena program and to its scalar Combiner
 (``tests/test_torch_arena.py``).  Keys that are not resident fall back to
 the host-pack path, as do batches whose packed int32 composites would
 overflow (:class:`ArenaOverflow`).  This module ports
-``src/repro/search/arena.py`` for plain ``IndexSet`` sources, without the
-HLO lowering (``lower_arena_batch``), the incremental indexer's mutation
-hooks or fault injection.
+``src/repro/search/arena.py`` for plain and incremental sources, with the
+indexer's mutation hooks (``attach``), without the HLO lowering
+(``lower_arena_batch``) or fault injection.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ import torch
 
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import POSTING_WIDTH, IndexSet, family_rows
+from ..index.incremental import IncrementalIndexer
 from ..kernels.gather import ARENA_BLOCK, gather_blocks
 from .fused import _assemble_fragments, bucket_pow2 as _bucket
 
@@ -75,10 +76,6 @@ _I32_MAX = int(np.iinfo(np.int32).max)
 # counter could hand a second view the same number in another arena
 _SOURCE_IDS = itertools.count(1)
 
-INCREMENTAL_NOT_PORTED = (
-    "mutation hooks of incremental sources are not ported yet "
-    "(ROADMAP.md: incremental/store/wal/checkpoint)"
-)
 INJECTION_NOT_PORTED = (
     "fault injection is not ported yet (ROADMAP.md: resilience/service)"
 )
@@ -209,6 +206,7 @@ class PostingArena:
         # FIFO shared across callers
         self.refused: OrderedDict[tuple, int] = OrderedDict()
         self._refused_cap = 512
+        self._unsubscribers: list = []
         self.hits = 0  # warm family acquires
         self.misses = 0  # family uploads + budget refusals
         self.uploads = 0
@@ -342,15 +340,48 @@ class PostingArena:
     # ---- invalidation (generation hooks, DESIGN.md §13.2) ------------------
 
     def attach(self, source) -> None:
-        """Subscribe eager eviction to an index source's mutation hook.  A
-        plain ``IndexSet`` never mutates, so attaching one is a no-op, as in
-        the reference; sources with mutation hooks are not ported yet."""
-        if getattr(source, "indexers", None) is not None or hasattr(source, "subscribe"):
-            raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+        """Subscribe eager eviction to an index source's mutation hook: on
+        every commit/committed-delete/compact, entries whose token is no
+        longer live for the source are dropped at once instead of aging out
+        by LRU, and with them the arena's last reference to their device
+        buffers.  Token-keyed residency is already correct without this
+        (stale tokens are unreachable); attaching just returns the bytes
+        sooner.  A plain ``IndexSet`` never mutates, so attaching one is a
+        no-op.  ``detach()`` removes the subscriptions (an arena that
+        outlives its usefulness must detach, or the indexer's listener list
+        keeps it alive)."""
+        indexers = getattr(source, "indexers", None)
+        if indexers is None and isinstance(source, IncrementalIndexer):
+            indexers = [source]
+        if not indexers:
+            return
+
+        # evict ONLY tokens this source previously served (tracked across
+        # mutations), never unrelated sources' entries that happen to carry
+        # a colliding token value — entry keys are (sid, token, shard,
+        # family) and a shared arena may hold other sources' buffers
+        prev_tokens = {ix.generation_token for ix in indexers}
+
+        def _on_mutation(_ix) -> None:
+            nonlocal prev_tokens
+            live = {ix.generation_token for ix in indexers}
+            stale = prev_tokens - live
+            for key in [k for k in self._entries if k[1] in stale]:
+                fb = self._entries.pop(key)
+                self._bytes -= fb.nbytes
+                self.evictions += 1
+            prev_tokens = live
+
+        for ix in indexers:
+            self._unsubscribers.append(ix.subscribe(_on_mutation))
 
     def detach(self) -> None:
-        """Remove every mutation subscription made by ``attach`` — there
-        are none for the sources this port serves.  Idempotent."""
+        """Remove every mutation subscription made by ``attach`` (DESIGN.md
+        §13.2) — idempotent; the arena keeps working, invalidation reverts
+        to token-keyed LRU aging."""
+        for unsub in self._unsubscribers:
+            unsub()
+        self._unsubscribers = []
 
     def release(self) -> None:
         """Drop every resident buffer and refusal record (DESIGN.md §13.2)

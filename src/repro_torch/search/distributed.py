@@ -11,33 +11,35 @@ Exactness contract: shards hold disjoint documents indexed under ONE
 corpus-global FL-list, so the cross-shard fragment union is identical to a
 single-index build over the same documents.
 
-This port serves static shards.  The incremental index with its snapshots
-and write-ahead log, and the resilience layer, are not ported yet: the
-options that reach them raise ``NotImplementedError`` naming their item.
+With ``incremental=True`` every shard is an ``IncrementalIndexer`` and the
+service grows mutation endpoints, snapshots and a write-ahead log, in the
+reference's on-disk format.  Bulk ingest and the resilience layer are not
+ported yet: the options that reach them raise ``NotImplementedError``
+naming their item.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Sequence
 
 import torch
 
+from ..checkpoint import fsync_json, retain_latest
 from ..core.keys import Subquery, expand_subqueries
-from ..core.lemma import FLList
+from ..core.lemma import FLList, Lemmatizer
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import IndexSet, build_indexes
 from ..index.corpus import DocumentStore
+from ..index.incremental import BULK_INGEST_NOT_PORTED, IncrementalIndexer
+from ..index.store import FORMAT_VERSION, SNAPSHOT_PREFIX, _load_manifest
 from .engine import ALGORITHMS, QueryResponse, RankedDoc
 from .fused import serve_query_batch
 from .relevance import rank_documents
 
 __all__ = ["ShardedSearchService", "shard_documents", "device_topk_merge"]
 
-INCREMENTAL_NOT_PORTED = (
-    "incremental shards, snapshots, the write-ahead log and bulk ingest are "
-    "not ported yet (ROADMAP.md: incremental/store/wal/checkpoint)"
-)
 RESILIENCE_NOT_PORTED = (
     "dead shards, fault injection and shard supervision are not ported yet "
     "(ROADMAP.md: resilience/service)"
@@ -63,6 +65,14 @@ class ShardedSearchService:
     ``engine.ALGORITHMS`` or ``"fused"``, the device program on ``device``;
     ``arena`` (a ``search.arena.PostingArena``) serves resident keys of the
     fused path from the card.
+
+    With ``incremental=True`` every shard is an ``IncrementalIndexer``: the
+    serving loop reads each shard's live multi-segment view, and the service
+    grows mutation endpoints — ``add_documents`` routes new docs to shards,
+    ``delete_document`` tombstones, ``commit`` runs the corpus-level FL
+    reduce and broadcasts ONE new FL-list to every shard's generation commit
+    (canonical key order must agree across shards), ``compact`` merges
+    per-shard segments under a memory budget.
     """
 
     def __init__(
@@ -81,13 +91,12 @@ class ShardedSearchService:
         injector=None,
         device="cuda",
     ):
-        if incremental:
-            raise NotImplementedError(INCREMENTAL_NOT_PORTED)
         if resilience is not None or injector is not None:
             raise NotImplementedError(RESILIENCE_NOT_PORTED)
         self.algorithm = algorithm
         self.use_kernel = use_kernel
         self.doc_len = doc_len
+        # runtime accelerator state: never part of snapshots
         self.arena = arena
         self.device = device
         self.max_distance = max_distance
@@ -95,41 +104,232 @@ class ShardedSearchService:
         self.sw_count = sw_count
         self.fu_count = fu_count
         self.lemmatizer = store.lemmatizer
-        self.fl = FLList.from_frequencies(
-            store.lemma_frequencies(), sw_count=sw_count, fu_count=fu_count
-        )
-        # every shard indexes with the GLOBAL FL-list (lemma typing and
-        # canonical key order must agree across shards)
-        self._static_shards: list[IndexSet] = [
-            build_indexes(sub, sw_count=sw_count, fu_count=fu_count,
-                          max_distance=max_distance, fl=self.fl)
-            for sub in shard_documents(store, n_shards)
-        ]
+        self.indexers: list[IncrementalIndexer] | None = None
+        self._static_shards: list[IndexSet] = []
+        if incremental:
+            self.indexers = [
+                IncrementalIndexer(
+                    sw_count=sw_count,
+                    fu_count=fu_count,
+                    max_distance=max_distance,
+                    lemmatizer=store.lemmatizer,
+                )
+                for _ in range(n_shards)
+            ]
+            self._next_doc_id = 1 + max(
+                (doc.doc_id for doc in store.documents), default=-1
+            )
+            # the store's documents are already lemmatized: ingest the
+            # per-shard batches as-is, no re-lemmatization
+            for shard_id, sub in enumerate(shard_documents(store, n_shards)):
+                self.indexers[shard_id].add_prelemmatized(sub.documents)
+            self.commit()
+        else:
+            self.fl = FLList.from_frequencies(
+                store.lemma_frequencies(), sw_count=sw_count, fu_count=fu_count
+            )
+            # every shard indexes with the GLOBAL FL-list (lemma typing and
+            # canonical key order must agree across shards)
+            self._static_shards = [
+                build_indexes(sub, sw_count=sw_count, fu_count=fu_count,
+                              max_distance=max_distance, fl=self.fl)
+                for sub in shard_documents(store, n_shards)
+            ]
 
     @property
     def shards(self) -> list[IndexSet]:
-        """The per-shard index views."""
+        """Live per-shard index views (static builds or segment unions)."""
+        if self.indexers is not None:
+            return [ix.index for ix in self.indexers]
         return self._static_shards
 
     @property
     def generation_token(self) -> tuple:
         """Cache-invalidation token across every shard (DESIGN.md §11).
-        Static services are immutable and return a constant."""
-        return ("static",)
+
+        The tuple of per-shard mutation tokens: any shard's ``commit`` /
+        ``delete`` / ``compact`` changes it, so a ``ServingFrontend`` over
+        this service invalidates exactly when the corpus-visible state can
+        change.  Static services are immutable and return a constant.
+        """
+        if self.indexers is None:
+            return ("static",)
+        return tuple(ix.generation_token for ix in self.indexers)
+
+    # ---- incremental mutation endpoints -----------------------------------
+
+    def add_documents(self, texts: Sequence[str]) -> list[int]:
+        """Route new documents to shards (round-robin on global doc id);
+        they become searchable at the next ``commit``."""
+        self._require_incremental()
+        per_shard: dict[int, tuple[list[str], list[int]]] = {}
+        out = []
+        for text in texts:
+            doc_id = self._next_doc_id
+            self._next_doc_id += 1
+            batch = per_shard.setdefault(doc_id % self.n_shards, ([], []))
+            batch[0].append(text)
+            batch[1].append(doc_id)
+            out.append(doc_id)
+        for shard_id, (shard_texts, ids) in per_shard.items():
+            self.indexers[shard_id].add_documents(shard_texts, doc_ids=ids)
+        return out
+
+    def delete_document(self, doc_id: int) -> None:
+        """Tombstone on the owning shard — effective immediately."""
+        self._require_incremental()
+        self.indexers[doc_id % self.n_shards].delete_document(doc_id)
+
+    def commit(self) -> dict:
+        """Corpus-level FL reduce + broadcast generation commit.
+
+        The global FL-list is recomputed over every shard's surviving
+        frequencies and pinned into each shard's commit, so per-shard FL
+        drift re-keying happens against ONE shared lemma typing.
+        """
+        self._require_incremental()
+        global_freq: dict[str, int] = {}
+        for ix in self.indexers:
+            for l, n in ix.surviving_frequencies().items():
+                global_freq[l] = global_freq.get(l, 0) + n
+        self.fl = FLList.from_frequencies(
+            global_freq, sw_count=self.sw_count, fu_count=self.fu_count
+        )
+        reports = [ix.commit(fl=self.fl) for ix in self.indexers]
+        return {
+            "new_docs": sum(r["new_docs"] for r in reports),
+            "rekeyed_docs": sum(r["rekeyed_docs"] for r in reports),
+            "segments": sum(r["segments"] for r in reports),
+        }
+
+    def compact(self, memory_budget_bytes: int | None = None) -> dict:
+        self._require_incremental()
+        reports = [ix.compact(memory_budget_bytes) for ix in self.indexers]
+        return {
+            "segments": sum(r["segments"] for r in reports),
+            "collected": sum(r["collected"] for r in reports),
+        }
+
+    def _require_incremental(self) -> None:
+        if self.indexers is None:
+            raise RuntimeError(
+                "service was built with incremental=False; mutation endpoints "
+                "need ShardedSearchService(..., incremental=True)"
+            )
+
+    # ---- durability (DESIGN.md §12.2 / §18: one store and log per shard) --
 
     def enable_wal(self, directory, injector=None):
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+        """Attach a §18 write-ahead log to every shard under
+        ``<directory>/shard_<i>/wal`` — the same per-shard lineage dirs
+        ``snapshot``/``restore`` use.  From this point every routed
+        ``add``/``delete`` and every shard commit of the corpus-level FL
+        reduce is durably logged before it applies, and ``restore`` replays
+        the tails, so restored shards come back ``index_sets_equal`` to the
+        live ones *including post-snapshot commits*.  ``injector`` arms each
+        log's ``wal.append``/``wal.torn_tail`` fault points."""
+        self._require_incremental()
+        directory = Path(directory)
+        for i, ix in enumerate(self.indexers):
+            ix.enable_wal(directory / f"shard_{i:02d}", injector=injector, shard=i)
+        return [ix.wal for ix in self.indexers]
 
     def snapshot(self, directory, keep: int = 2):
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+        """Snapshot every shard's indexer into ``<directory>/shard_<i>/``
+        plus a fsync'd ``service.json`` naming the topology (DESIGN.md
+        §12.2).  Per-shard writes are individually atomic; the service
+        manifest is written last, so a reader that finds it finds complete
+        shard snapshots.  Returns the snapshot root directory."""
+        self._require_incremental()
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        # shards snapshot with retention OFF: GC only runs after the new
+        # manifest is durably published, so a crash-looping snapshotter can
+        # never collect a snapshot the live service.json still pins
+        shard_snapshots = []
+        for i, ix in enumerate(self.indexers):
+            path = ix.snapshot(directory / f"shard_{i:02d}", keep=0)
+            shard_snapshots.append(int(path.name.rsplit("_", 1)[1]))
+        # written LAST and published atomically (fsync tmp -> rename).  The
+        # keys and values are the reference's exactly (``device`` is not one
+        # of them), so the manifest is byte-identical across packages
+        manifest_tmp = directory / "service.json.tmp"
+        fsync_json(manifest_tmp, {
+            "format_version": FORMAT_VERSION,
+            "kind": "service",
+            "shard_snapshots": shard_snapshots,
+            "n_shards": self.n_shards,
+            "sw_count": self.sw_count,
+            "fu_count": self.fu_count,
+            "max_distance": self.max_distance,
+            "algorithm": self.algorithm,
+            "use_kernel": self.use_kernel,
+            "doc_len": self.doc_len,
+        })
+        manifest_tmp.replace(directory / "service.json")
+        for i, ix in enumerate(self.indexers):
+            retain_latest(directory / f"shard_{i:02d}", SNAPSHOT_PREFIX, keep)
+            if ix.wal is not None:
+                # snapshots are WAL checkpoints: sealed segments whose replay
+                # the retained snapshots no longer need go with them
+                ix.wal.prune(keep)
+        return directory
 
     @classmethod
-    def restore(cls, directory, use_mmap: bool = True, verify: bool = True, lemmatizer=None):
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+    def restore(
+        cls,
+        directory,
+        use_mmap: bool = True,
+        verify: bool = True,
+        lemmatizer: Lemmatizer | None = None,
+        device="cuda",
+    ) -> "ShardedSearchService":
+        """Warm-start a sharded service from a ``snapshot`` directory
+        (DESIGN.md §12.2): every shard restores its latest snapshot lazily
+        (``mmap``-backed segments), the shared FL-list and doc-id router
+        resume from the stored state, and shards with a §18 WAL replay the
+        operation tail logged after their snapshots — so the restored
+        service returns the fragments of the live one it was snapshotted
+        from, post-snapshot commits included.  ``device`` is where it
+        serves (it is not stored).  Raises ``StoreError`` on corruption."""
+        directory = Path(directory)
+        m = _load_manifest(directory / "service.json", expect_kind="service")
+
+        svc = cls.__new__(cls)
+        svc.algorithm = m["algorithm"]
+        svc.arena = None  # runtime accelerator state, not snapshotted
+        svc.device = device
+        svc.use_kernel = m["use_kernel"]
+        svc.doc_len = m["doc_len"]
+        svc.max_distance = m["max_distance"]
+        svc.n_shards = m["n_shards"]
+        svc.sw_count = m["sw_count"]
+        svc.fu_count = m["fu_count"]
+        svc.lemmatizer = lemmatizer or Lemmatizer()
+        svc._static_shards = []
+        shard_snapshots = m.get("shard_snapshots") or [None] * svc.n_shards
+        svc.indexers = [
+            IncrementalIndexer.restore(
+                directory / f"shard_{i:02d}",
+                snapshot_id=shard_snapshots[i],
+                use_mmap=use_mmap,
+                verify=verify,
+                lemmatizer=svc.lemmatizer,
+            )
+            for i in range(svc.n_shards)
+        ]
+        for i, ix in enumerate(svc.indexers):
+            if ix.wal is not None:
+                # re-tag re-attached WALs with their shard ids (the fault
+                # points key per-shard arrival counters by it)
+                ix.wal.shard = i
+        svc.fl = svc.indexers[0].fl
+        svc._next_doc_id = max(ix._next_id for ix in svc.indexers)
+        return svc
 
     @classmethod
     def bulk_ingest(cls, store, directory, n_shards, sw_count, fu_count, **kwargs):
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+        raise NotImplementedError(BULK_INGEST_NOT_PORTED)
 
     def enable_resilience(self, policy=None, injector=None, clock=None):
         raise NotImplementedError(RESILIENCE_NOT_PORTED)
@@ -209,7 +409,13 @@ class ShardedSearchService:
         if self.arena is not None:
             live_ids = {id(v) for v in live}
             specs = [
-                (idx, "static", shard_id)
+                (
+                    idx,
+                    self.indexers[shard_id].generation_token
+                    if self.indexers is not None
+                    else "static",
+                    shard_id,
+                )
                 for shard_id, idx in enumerate(self.shards)
                 if id(idx) in live_ids
             ]

@@ -31,6 +31,7 @@ from ..core.keys import Subquery, expand_subqueries
 from ..core.lemma import Lemmatizer
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import IndexSet
+from ..index.incremental import as_index_set, generation_token
 from .relevance import rank_documents
 from .vectorized import VectorizedEngine
 
@@ -70,10 +71,12 @@ class QueryResponse:
 
 class SearchEngine:
     """Front door over one index shard: the §5 pipeline end to end
-    (lemmatize -> subqueries -> §4 algorithm -> §14 rank).  ``fused`` runs on
-    ``device``; with ``arena`` (a ``search.arena.PostingArena``) its batches
-    acquire the index's residency first, and resident keys are served by the
-    arena program.  The host algorithms never touch the device."""
+    (lemmatize -> subqueries -> §4 algorithm -> §14 rank).  ``index`` is a
+    plain ``IndexSet`` or an ``IncrementalIndexer``, whose live view is
+    resolved on every call.  ``fused`` runs on ``device``; with ``arena`` (a
+    ``search.arena.PostingArena``) its batches acquire the index's residency
+    first, and resident keys are served by the arena program.  The host
+    algorithms never touch the device."""
 
     def __init__(
         self,
@@ -87,17 +90,24 @@ class SearchEngine:
     ):
         if algorithm != "fused" and algorithm not in ALGORITHMS:
             raise KeyError(algorithm)
-        self.index = index
+        # ``index`` may be a plain IndexSet or an IncrementalIndexer; the
+        # live multi-segment view is resolved per call, so commits, deletes
+        # and compactions are picked up without rebuilding the engine.
+        self._index_source = index
         self.lemmatizer = lemmatizer or Lemmatizer()
         self.algorithm = algorithm
         self.use_kernel = use_kernel
         self.doc_len = doc_len
         self.arena = arena
         self.device = device
-        # the fused path; it refuses sources this port does not serve
         self._vec = VectorizedEngine(
             index, use_kernel=use_kernel, doc_len=doc_len, arena=arena, device=device
         )
+
+    @property
+    def index(self) -> IndexSet:
+        """The live view of the source, resolved on every call."""
+        return as_index_set(self._index_source)
 
     def search(self, query: str, top_k: int = 10) -> QueryResponse:
         return self.search_batch([query], top_k=top_k)[0]
@@ -110,23 +120,26 @@ class SearchEngine:
         index-family bindings and live-view cost estimates."""
         from .planner import QueryPlanner
 
-        return QueryPlanner(self.index, lemmatizer=self.lemmatizer).plan(query)
+        return QueryPlanner(self._index_source, lemmatizer=self.lemmatizer).plan(
+            query
+        )
 
     def search_planned(self, plan, top_k: int = 10) -> QueryResponse:
         """Execute a pre-built plan through the fused pipeline (one device
         program); fragment-identical to ``search`` with
         ``algorithm="fused"``."""
-        from .planner import execute_plans, generation_token
+        from .planner import execute_plans
 
+        view = self.index
         residencies = None
         if self.arena is not None:
-            residencies = {
-                id(self.index): self.arena.acquire(self.index, generation_token(self.index))
-            }
+            # keyed by the SOURCE's token: a segmented view has none of its own
+            res = self.arena.acquire(view, generation_token(self._index_source))
+            residencies = {id(view): res}
         return execute_plans(
             [plan],
-            [self.index],
-            max_distance=self.index.max_distance,
+            [view],
+            max_distance=view.max_distance,
             top_k=top_k,
             doc_len=self.doc_len,
             use_kernel=self.use_kernel,
@@ -153,10 +166,11 @@ class SearchEngine:
         t0 = time.perf_counter()
         fn = ALGORITHMS[self.algorithm]
         subqueries = expand_subqueries(query, self.lemmatizer)
+        view = self.index
         total = QueryStats()
         all_results: set[SearchResult] = set()
         for sub in subqueries:
-            results, stats = fn(sub, self.index)
+            results, stats = fn(sub, view)
             total.merge(stats)
             all_results.update(results)
         ranked = [

@@ -35,10 +35,12 @@ Exactness contract: with no deadline pressure, frontend responses are
 fragment-identical to the reference package's frontend and to its scalar
 Combiner on the same index (``tests/test_torch_frontend.py``).
 
-This port serves a plain ``IndexSet`` or a static ``ShardedSearchService``
-on ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``); an arena
-the frontend builds lives on the same device.  Incremental sources raise
-``NotImplementedError`` (see ``planner.resolve_index_views``).
+This port serves a plain ``IndexSet``, an ``IncrementalIndexer`` or a
+``ShardedSearchService`` (static or incremental) on ``device`` (``"cuda"``
+unless the caller asks for ``"cpu"``); an arena the frontend builds lives on
+the same device and is attached to the source's mutation hook.
+``from_snapshot`` warm-starts a frontend from a snapshot written by either
+package.
 """
 
 from __future__ import annotations
@@ -243,6 +245,53 @@ class ServingFrontend:
         self._partials = 0
         self._served = 0
         self._sheds = 0
+
+    # ---- warm start (DESIGN.md §12.5) ------------------------------------
+
+    @classmethod
+    def from_snapshot(
+        cls,
+        directory,
+        *,
+        use_mmap: bool = True,
+        verify: bool = True,
+        lemmatizer: Lemmatizer | None = None,
+        warmup_shapes: Sequence[tuple] | None = None,
+        device="cuda",
+        **kwargs,
+    ) -> "ServingFrontend":
+        """Warm-start a frontend from a §12.2 snapshot directory: a sharded
+        service snapshot (``service.json`` present) restores a
+        ``ShardedSearchService``, anything else restores a single
+        ``IncrementalIndexer`` — in both cases segments serve lazily from
+        ``mmap`` pages, a lineage's write-ahead log tail replays on top, and
+        the restored source's generation token resumes under a bumped
+        restore epoch, so caches can never serve a pre-restart entry against
+        a post-restart index state (§12.5).  Snapshots store lemma
+        *streams*, not the lemmatizer's rule set: a stack built with a
+        customized ``Lemmatizer`` must pass the same one here.
+        ``warmup_shapes`` runs ``warmup(shapes=...)`` before returning;
+        ``kwargs`` are the normal frontend options."""
+        from pathlib import Path
+
+        from ..index.incremental import IncrementalIndexer
+
+        directory = Path(directory)
+        if (directory / "service.json").exists():
+            from .distributed import ShardedSearchService
+
+            source = ShardedSearchService.restore(
+                directory, use_mmap=use_mmap, verify=verify, lemmatizer=lemmatizer,
+                device=device,
+            )
+        else:
+            source = IncrementalIndexer.restore(
+                directory, use_mmap=use_mmap, verify=verify, lemmatizer=lemmatizer
+            )
+        frontend = cls(source, lemmatizer=lemmatizer, device=device, **kwargs)
+        if warmup_shapes is not None:
+            frontend.warmup(shapes=warmup_shapes)
+        return frontend
 
     # ---- public serving API ----------------------------------------------
 

@@ -47,13 +47,9 @@ from ..core.keys import (
 from ..core.lemma import FLList, Lemmatizer, LemmaType
 from ..core.postings import QueryStats
 from ..index.builder import IndexSet
+from ..index.incremental import IncrementalIndexer, generation_token
 from .fused import serve_query_batch
 from .relevance import rank_documents
-
-INCREMENTAL_NOT_PORTED = (
-    "incremental index sources are not ported yet (ROADMAP.md: "
-    "incremental/store/wal/checkpoint)"
-)
 
 __all__ = [
     "KeyBinding",
@@ -163,34 +159,18 @@ class QueryPlan:
         return "\n".join(lines)
 
 
-def generation_token(obj) -> object:
-    """The cache-invalidation token for any index source (DESIGN.md §11).
-
-    * anything exposing ``generation_token`` (an incremental indexer, a
-      sharded service) — its monotone mutation token;
-    * plain ``IndexSet`` — the constant 0 (immutable snapshot, caches never
-      go stale).
-
-    Frontend LRU caches key every entry by this token: a bump makes all old
-    entries unreachable (natural invalidation, eventual LRU eviction).
-    """
-    tok = getattr(obj, "generation_token", None)
-    if tok is None:
-        return 0
-    return tok
-
-
 def resolve_index_views(source) -> tuple[list[IndexSet], FLList, int, Lemmatizer | None]:
     """Resolve an index source into ``(live views, fl, max_distance, lemmatizer)``.
 
     Accepted sources:
 
-    * ``ShardedSearchService`` — every shard view, the corpus-global
+    * ``ShardedSearchService`` — every live shard view, the corpus-global
       FL-list, the service's lemmatizer;
-    * plain ``IndexSet`` — itself.
+    * ``IncrementalIndexer`` — its live multi-segment view;
+    * plain ``IndexSet`` (or ``SegmentedIndexSet``) — itself.
 
-    An incremental indexer (it has a ``generation_token`` but no ``shards``)
-    raises ``NotImplementedError`` naming the roadmap item that ports it.
+    Views are resolved *per call*: planning immediately after a commit or
+    compact sees the new generation.
     """
     shards = getattr(source, "shards", None)
     if shards is not None:  # ShardedSearchService
@@ -200,8 +180,9 @@ def resolve_index_views(source) -> tuple[list[IndexSet], FLList, int, Lemmatizer
             source.max_distance,
             getattr(source, "lemmatizer", None),
         )
-    if getattr(source, "generation_token", None) is not None:
-        raise NotImplementedError(INCREMENTAL_NOT_PORTED)
+    if isinstance(source, IncrementalIndexer):
+        view = source.index
+        return [view], view.fl, source.max_distance, source.lemmatizer
     return [source], source.fl, source.max_distance, None
 
 

@@ -7,9 +7,9 @@ pos, lemma) event transport, on-device scatter + window cover + §14 scoring +
 per-query top-k in ONE device program per query batch, and a single
 fragment readout.
 
-This port serves plain ``IndexSet`` sources on ``device`` (``"cuda"`` unless
-the caller asks for ``"cpu"``); incremental sources raise
-``NotImplementedError``.
+This port serves a plain ``IndexSet`` or an ``IncrementalIndexer`` (its live
+view resolved on every call) on ``device`` (``"cuda"`` unless the caller asks
+for ``"cpu"``).
 """
 
 from __future__ import annotations
@@ -22,13 +22,13 @@ import numpy as np
 from ..core.keys import SelectedKey, Subquery
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import IndexSet
+from ..index.incremental import as_index_set, generation_token
 from .fused import (
     FusedBatchResult,
     bucket_pow2,
     extract_segment_events,
     serve_query_batch,
 )
-from .planner import INCREMENTAL_NOT_PORTED, generation_token
 
 __all__ = ["VectorizedEngine", "PackedEvents", "pack_subquery_events"]
 
@@ -97,9 +97,8 @@ class VectorizedEngine:
         arena=None,
         device="cuda",
     ):
-        if generation_token(index) != 0:
-            raise NotImplementedError(INCREMENTAL_NOT_PORTED)
-        self.index = index
+        # plain IndexSet or IncrementalIndexer (live view resolved per call)
+        self._index_source = index
         self.use_kernel = use_kernel
         self.doc_len = doc_len
         self.compute_dtype = compute_dtype
@@ -107,6 +106,11 @@ class VectorizedEngine:
         # keys gather/pack on device, others fall back to the host path
         self.arena = arena
         self.device = device
+
+    @property
+    def index(self) -> IndexSet:
+        """The live view of the source, resolved on every call."""
+        return as_index_set(self._index_source)
 
     def search_query_batch(
         self,
@@ -127,7 +131,9 @@ class VectorizedEngine:
         work = [[(sub, view) for sub in subs] for subs in batch]
         residencies = None
         if self.arena is not None:
-            residencies = {id(view): self.arena.acquire(view, generation_token(view))}
+            # keyed by the SOURCE's token: a segmented view has none of its own
+            res = self.arena.acquire(view, generation_token(self._index_source))
+            residencies = {id(view): res}
         result = serve_query_batch(
             work,
             max_distance=view.max_distance,

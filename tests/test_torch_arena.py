@@ -388,12 +388,20 @@ def test_view_identities_are_unique_across_arenas(corpora):
 
 
 def test_unported_arena_hooks_raise(corpora):
+    """Fault injection is what stays unported; the mutation hooks are not:
+    attaching a plain ``IndexSet`` is a no-op, an incremental indexer is
+    subscribed to and unsubscribed from."""
+    from repro_torch.index import IncrementalIndexer
+
     _, idx = corpora["pack32"]
     pa = arena.PostingArena(device="cpu")
     pa.attach(idx)  # a plain IndexSet never mutates: a no-op
     pa.detach()
-    with pytest.raises(NotImplementedError, match="incremental"):
-        pa.attach(type("Ix", (), {"subscribe": lambda self, fn: None})())
+    ix = IncrementalIndexer(sw_count=5, fu_count=5)
+    pa.attach(ix)
+    assert len(ix._listeners) == 1
+    pa.detach()
+    assert not ix._listeners
     pa.injector = object()
     with pytest.raises(NotImplementedError, match="injection"):
         pa.acquire(idx, 0)

@@ -243,22 +243,26 @@ def test_device_topk_merge_equals_reference_with_ties(seed, k):
     assert docs[:3].tolist() == [doc_ids[1, 3], doc_ids[2, 0], doc_ids[3, 7]][: min(k, 3)]
 
 
-def test_unported_options_raise_naming_their_item(stores):
+def test_unported_options_raise_naming_their_item(stores, tmp_path):
+    """Bulk ingest and the resilience layer stay unported and name their
+    item; a static service's durability endpoints need ``incremental=True``,
+    as the reference's do."""
     _, store = stores
     small = dict(n_shards=2, sw_count=10, fu_count=10, device="cpu")
-    incremental = "incremental/store/wal/checkpoint"
-    for kw, item in (({"incremental": True}, incremental), ({"resilience": object()}, "resilience/service"),
-                     ({"injector": object()}, "resilience/service")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in ({"resilience": object()}, {"injector": object()}):
+        with pytest.raises(NotImplementedError, match="resilience/service"):
             ShardedSearchService(store, **small, **kw)
     svc = ShardedSearchService(store, **small)
-    for call, item in ((lambda: svc.enable_wal("wal"), incremental),
-                       (lambda: svc.snapshot("snap"), incremental),
-                       (lambda: ShardedSearchService.restore("snap"), incremental),
-                       (lambda: ShardedSearchService.bulk_ingest(store, "d", 2, 10, 10), incremental),
+    for call, item in ((lambda: ShardedSearchService.bulk_ingest(store, "d", 2, 10, 10), "bulk ingest"),
                        (lambda: svc.enable_resilience(), "resilience/service"),
                        (lambda: svc.search_batch(["who"], dead_shards=[0]), "resilience/service")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    for call in (lambda: svc.enable_wal(tmp_path), lambda: svc.snapshot(tmp_path),
+                 lambda: svc.commit(), lambda: svc.delete_document(0)):
+        with pytest.raises(RuntimeError, match="incremental=True"):
+            call()
+    incremental = ShardedSearchService(store, **small, incremental=True)
+    assert incremental.generation_token == (1, 1)
     with pytest.raises(ValueError, match="mesh"):
         device_topk_merge(torch.zeros(2, 2), torch.zeros(2, 2), 2, mesh=object())

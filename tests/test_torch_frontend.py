@@ -177,15 +177,15 @@ def test_warmup_runs_the_serving_programs(corpus):
     assert fe.metrics()["result_cache_misses"] == 0  # the result cache is untouched
 
 
-def test_sources_and_options_outside_the_slice_raise():
+def test_sources_and_options_outside_the_slice_raise(tmp_path):
+    """Incremental sources are served now (``tests/test_torch_incremental.py``);
+    what stays outside the slice is bulk ingest and the resilience layer."""
     _, _, _, store, idx, _ = _build(SEEDS[0])
-    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
-        ServingFrontend(type("Ix", (), {"generation_token": 3})(), device="cpu")
-    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
-        SearchEngine(type("Ix", (), {"generation_token": 3, "fl": idx.fl})(), device="cpu")
-    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
-        ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, incremental=True,
-                             device="cpu")
+    with pytest.raises(NotImplementedError, match="bulk ingest"):
+        ShardedSearchService.bulk_ingest(store, tmp_path, 2, 5, 5)
+    inc = ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, incremental=True,
+                               device="cpu")
+    assert ServingFrontend(inc, device="cpu").search("who are you who").query == "who are you who"
     svc = ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, device="cpu")
     with pytest.raises(NotImplementedError, match="resilience/service"):
         svc.search("who are you who", dead_shards=[1])

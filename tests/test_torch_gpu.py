@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the serving path's shapes, and the port's serving path on the card (the
-host route and the posting arena) against the host route on the CPU.
+host route and the posting arena, over a static index and over a mutated
+incremental service) against the host route on the CPU.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -27,7 +28,7 @@ from repro_torch.kernels import (
     proximity_window,
     proximity_window_plain,
 )
-from repro_torch.search import SearchRequest, ServingFrontend
+from repro_torch.search import SearchRequest, ServingFrontend, ShardedSearchService
 from repro_torch.search.arena import PostingArena
 from repro_torch.search import fused
 from repro_torch.search.fused import intersect_inputs
@@ -227,3 +228,54 @@ def test_frontend_on_card_equals_cpu(cuda):
             # float32 row sums never reach the ranking: rank_documents sums
             # the same fragments in the same order on both devices
             assert [s for _, s, _ in g] == [s for _, s, _ in w]
+
+
+def _incremental_service(device):
+    store = synthesize_corpus(n_docs=120, doc_len=150, vocab_size=600, seed=3)
+    svc = ShardedSearchService(store, n_shards=2, sw_count=60, fu_count=150,
+                               incremental=True, device=device)
+    extra = synthesize_corpus(n_docs=24, doc_len=150, vocab_size=600, seed=4)
+    svc.add_documents([d.text for d in extra.documents])
+    for doc_id in (1, 2, 7):
+        svc.delete_document(doc_id)
+    svc.commit()
+    return svc
+
+
+def test_incremental_service_on_card_equals_cpu(cuda):
+    requests = [SearchRequest(q, top_k=1000) for q in
+                ("who are you who", "to be or not to be", "time and time again")]
+
+    def run(svc, **kw):
+        resps = ServingFrontend(svc, **kw).search_many(requests)
+        return [[(d.doc_id, d.score, [(f.start, f.end) for f in d.fragments]) for d in r.docs]
+                for r in resps]
+
+    want = run(_incremental_service("cpu"), device="cpu")
+    svc = _incremental_service("cuda")
+    for use_kernel, budget in ((False, 0), (True, 0), (True, 64)):
+        launches = proximity_window.launches
+        got = run(svc, device="cuda", use_kernel=use_kernel, arena_budget_mb=budget)
+        if use_kernel and not budget:
+            assert proximity_window.launches > launches
+        assert got == want
+
+
+def test_attached_arena_eviction_frees_card_memory(cuda):
+    svc = _incremental_service("cuda")
+    fe = ServingFrontend(svc, arena_budget_mb=2048, device="cuda")
+    fe.search_many(["who are you who", "to be or not to be"])
+    torch.cuda.synchronize()
+    resident = fe.arena.size_bytes
+    assert resident > 0
+    before = torch.cuda.memory_allocated()
+    svc.add_documents(["who are you who"])
+    svc.commit()
+    torch.cuda.synchronize()
+    # eviction compares token values across shards, as the reference's
+    # does: a shard whose stale token equals another shard's live one keeps
+    # its buffers until LRU, so not every entry need go
+    evicted = resident - fe.arena.size_bytes
+    assert fe.arena.evictions > 0 and evicted > 0
+    assert before - torch.cuda.memory_allocated() >= evicted
+    fe.close()

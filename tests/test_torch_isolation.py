@@ -1,7 +1,8 @@
 """``repro_torch`` stands alone: it imports neither jax nor the reference
 package ``repro``, and serves a batch on the CPU with both blocked, over
-the host route, the posting arena and a sharded service, and runs the
-scalar Combiner."""
+the host route, the posting arena and a sharded service, runs the scalar
+Combiner, and builds, logs, snapshots, mutates and warm-starts an
+incremental sharded service."""
 
 import os
 import re
@@ -49,6 +50,21 @@ for shard in svc.shards:
 assert {(d.doc_id, f.start, f.end) for d in host[0].docs for f in d.fragments} <= frags
 import torch
 assert device_topk_merge(torch.ones(2, 3), torch.arange(6).reshape(2, 3), 4)[1].tolist() == [0, 1, 2, 3]
+import tempfile
+from repro_torch.index import index_sets_equal
+inc = ShardedSearchService(store, n_shards=2, sw_count=40, fu_count=80, incremental=True, device="cpu")
+lineage = tempfile.mkdtemp()
+inc.enable_wal(lineage)
+inc.snapshot(lineage)
+inc.add_documents(["who are you who said the caterpillar", "to be or not to be again"])
+inc.delete_document(3)
+inc.commit()
+warm = ServingFrontend.from_snapshot(lineage, device="cpu")
+assert sum(ix.last_wal_replay["records"] for ix in warm._source.indexers) > 0
+for a, b in zip(warm._source.shards, inc.shards):
+    assert index_sets_equal(a.to_index_set(), b.to_index_set())[0]
+live = ServingFrontend(inc, arena_budget_mb=64, device="cpu").search_many(queries)
+assert [[d.doc_id for d in r.docs] for r in warm.search_many(queries)] == [[d.doc_id for d in r.docs] for r in live]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
@@ -74,6 +90,9 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)", re.MULTIL
 def test_source_imports_neither_jax_nor_reference():
     sources = sorted(PACKAGE.rglob("*.py"))
     assert len(sources) > 15
+    names = {str(p.relative_to(PACKAGE)) for p in sources}
+    assert {"checkpoint/__init__.py", "checkpoint/checkpoint.py", "index/fastbuild.py",
+            "index/incremental.py", "index/store.py", "index/wal.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources

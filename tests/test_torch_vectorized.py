@@ -106,8 +106,22 @@ def test_pack_subquery_events_equals_reference(corpus):
 
 
 def test_vectorized_engine_refuses_incremental_sources():
-    with pytest.raises(NotImplementedError, match="incremental/store/wal/checkpoint"):
-        VectorizedEngine(type("Ix", (), {"generation_token": (0, 1)})(), device="cpu")
+    """The refusal is lifted: the engine now takes an incremental indexer
+    and resolves its live view on every call, so a commit made after the
+    engine was built is served (``tests/test_torch_incremental.py`` holds
+    every route to the reference)."""
+    from repro_torch.core.lemma import Lemmatizer
+    from repro_torch.index import IncrementalIndexer
+
+    ix = IncrementalIndexer(sw_count=10, fu_count=5, max_distance=5)
+    ix.add_documents(["who are you is the album by the who"])
+    ix.commit()
+    engine = VectorizedEngine(ix, device="cpu")
+    subs = expand_subqueries("who are you", Lemmatizer())
+    assert {r.doc_id for r in engine.search_query_batch([subs])[0].per_query[0]} == {0}
+    ix.add_documents(["who are you who said the caterpillar"])
+    ix.commit()
+    assert {r.doc_id for r in engine.search_query_batch([subs])[0].per_query[0]} == {0, 1}
 
 
 def _cover_inputs(seed):
