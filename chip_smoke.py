@@ -65,8 +65,9 @@ Phases, each printed with its seconds:
 
 8. the reference launcher's durable deployment (``--snapshot-dir``) on the
    same 4,096 documents: ``ShardedSearchService(incremental=True)``, each
-   shard's view required equal to phase 7's static shard; ``enable_wal`` and
-   ``snapshot`` into a temporary directory (seconds, MiB on disk); the slate
+   shard's view required equal to phase 7's static shard; a WAL-less
+   snapshot of it for phase 9a; ``enable_wal`` and ``snapshot`` into a
+   temporary directory (seconds, MiB on disk); the slate
    through the host route and through a 64 MiB arena attached to the source,
    before and after a mutation (512 documents added, 64 of the slate's
    documents deleted, one ``commit``) — each with launch counters, 5
@@ -80,6 +81,28 @@ Phases, each printed with its seconds:
    fresh process (torch and the port only), which must replay WAL records
    and serve the live service's fragments exactly.
 
+9. the reference launcher's other deployments, on the same 4,096 documents:
+   (a) ``ShardedSearchService.bulk_ingest`` with 4 spawn workers (seconds,
+   KiB spilled, docs/s), its tree required equal, file by file (sha256), to
+   a WAL-less snapshot phase 8 takes of its freshly built service, the
+   ``restore_epoch.*`` claims aside; the slate through the bulk-ingested
+   service's host route (cover launches counted) equal to phase 7's
+   ``se2.4``; (b) the WAL and a seeded fault schedule (``CHAOS_SEED``) on
+   it, the slate through a 64 MiB arena frontend for ``CHAOS_ROUNDS``
+   rounds — every response exact or flagged ``DEGRADED`` and exact over its
+   live shards, faults fired and a snapshot recovery required — then
+   ``search_batch(dead_shards=[1])`` fused with the cover kernel, flagged
+   and exact over shards 0, 2 and 3; (c) ``python -m
+   repro_torch.launch.serve`` in fresh processes (torch and the port only):
+   a warm start from the bulk tree (its cached second round and its top 10
+   equal to the live service's), the same under the fault schedule, a
+   2-replica daemon on TCP with a client that kills the primary (every
+   wire response equal to the warm start's, a failover reported, a clean
+   exit on ``SIGINT``) and the CLI's own bulk-ingested cold start and warm
+   start over a corpus of ``CLI_DOCS`` documents.  The launcher processes
+   run alongside the in-process phases 9a and 9b (their work is host-bound
+   and disjoint: the bulk tree is only read once 9b has armed its WAL).
+
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
@@ -87,14 +110,18 @@ one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -150,6 +177,25 @@ digests = [hashlib.sha256(json.dumps(sorted((d.doc_id, f.start, f.end) for d in 
 print(json.dumps({"restore_s": restore_s, "slate_ms": slate_ms, "digests": digests,
                   "replayed": sum(ix.last_wal_replay["records"] for ix in fe._source.indexers),
                   "cover_launches": proximity_window.launches}))
+"""
+
+# phase 9: the fault schedule's seed (the reference chaos harness's first;
+# at 4 shards its kill of shard 0 comes at the 9th probe and it corrupts no
+# snapshot, so recovery finds an intact one), the rounds served under it,
+# and the corpus of the launcher's own bulk-ingested cold start: at 4,096
+# documents its cold and warm starts outlast the rest of phase 9 (162 s of
+# phase 9 on an H100 80GB HBM3 at 700 W), so they run at half that
+CHAOS_SEED = 101
+CHAOS_ROUNDS = 10
+CLI_DOCS = 2048
+
+# phase 9c: ``python -m repro_torch.launch.serve`` in a fresh process, with
+# jax and the reference package blocked as in WARM_START
+LAUNCHER = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
 """
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
@@ -1100,7 +1146,7 @@ def main() -> int:
                                                  for f in d.fragments)).encode()).hexdigest()[:16]
                 for r in resps]
 
-    def durable_phase(snap_dir: Path) -> None:
+    def durable_phase(snap_dir: Path, ref_dir: Path) -> None:
         t8 = time.perf_counter()
         t_build = time.perf_counter()
         isvc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
@@ -1112,6 +1158,9 @@ def main() -> int:
             require(eq, f"incremental shard {i} != phase 7's static shard: {why}")
             print(f"  shard {i}: {len(ix.segments)} segment(s), "
                   f"{sum(seg.live_bytes() for seg in ix.segments) / 2**20:.1f} MiB, == phase 7's shard")
+        t_ref = time.perf_counter()
+        isvc.snapshot(ref_dir)  # WAL-less: phase 9a's bulk tree must equal it file for file
+        print(f"WAL-less snapshot for phase 9a: {time.perf_counter() - t_ref:.2f} s")
         t_dur = time.perf_counter()
         isvc.enable_wal(snap_dir)
         isvc.snapshot(snap_dir)
@@ -1260,16 +1309,256 @@ def main() -> int:
         require(warm["digests"] == digests(live), "the warm-started service serves other fragments")
         phase("durable service: snapshot, acknowledged work, fresh-process warm start", t8)
 
+    def printed(stdout: str) -> list[tuple[str, list[str], str]]:
+        """The launcher's (or its client's) printed responses: per response,
+        its ``query:`` line, its document lines without the score (document
+        and first four fragments) and its flags."""
+        out = []
+        for line in stdout.splitlines():
+            if line.startswith("query: "):
+                flags = line.rsplit("[", 1)[1].rstrip("]") if line.endswith("]") else ""
+                out.append((line.split("'")[1], [], flags))
+            elif line.startswith("  doc ") and out:
+                doc, _, frags = line.partition(" fragments: ")
+                out[-1][1].append(f"{doc.split(' score=')[0]} fragments: {frags}")
+        return out
+
+    def doc_lines(resps):
+        """The launcher's document lines for in-process responses."""
+        return [f"  doc {d.doc_id:5d} fragments: "
+                + ", ".join(f"[{f.start},{f.end}]" for f in d.fragments[:4]) for d in resps.docs]
+
+    def launcher_phase(work: Path) -> None:
+        t9 = time.perf_counter()
+        bulk_dir, cli_dir = work / "bulk", work / "cli"
+        env = {**os.environ, "PYTHONPATH": str(src)}
+        procs: list[subprocess.Popen] = []
+        stopping = threading.Event()
+        procs_lock = threading.Lock()  # no launch slips past the cleanup below
+
+        def launch(*args) -> subprocess.Popen:
+            with procs_lock:
+                require(not stopping.is_set(), "phase 9 is stopping: no more launcher processes")
+                proc = subprocess.Popen([sys.executable, "-u", "-c", LAUNCHER, *map(str, args)], env=env,
+                                        cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                procs.append(proc)
+            return proc
+
+        def finish(proc, label, timeout=600) -> str:
+            out, err = proc.communicate(timeout=timeout)
+            require(proc.returncode == 0, f"launcher {label} exited {proc.returncode}: {err[-3000:]}")
+            return out
+
+        slate_args = ["--queries", *SLATE, "--top-k", TOP_K]
+        try:
+            # 9c run 4 first, in the background: the CLI's own corpus and tree
+            cli_runs: dict[str, object] = {}
+
+            def cli_chain():
+                try:
+                    t_c = time.perf_counter()
+                    cli_runs["cold"] = finish(launch("--bulk-ingest", "--snapshot-dir", cli_dir,
+                                                     "--n-docs", CLI_DOCS, "--n-shards", N_SHARDS,
+                                                     "--sw-count", SW_COUNT, "--fu-count", FU_COUNT,
+                                                     *slate_args), "run 4 (bulk-ingest cold start)")
+                    cli_runs["cold_s"] = time.perf_counter() - t_c
+                    t_c = time.perf_counter()
+                    cli_runs["warm"] = finish(launch("--snapshot-dir", cli_dir, *slate_args),
+                                              "run 4 (warm start)")
+                    cli_runs["warm_s"] = time.perf_counter() - t_c
+                except BaseException as e:  # re-raised in the main thread
+                    cli_runs["error"] = e
+
+            cli_thread = threading.Thread(target=cli_chain, daemon=True)
+            cli_thread.start()
+
+            # ---- 9a. bulk ingest on the card's host, byte for byte ----------
+            t_b = time.perf_counter()
+            bsvc, bstats = ShardedSearchService.bulk_ingest(
+                shard_store, bulk_dir, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
+                max_distance=MAX_DISTANCE, workers=4, device="cuda")
+            bulk_s = time.perf_counter() - t_b
+            spill = sum(st.spill_bytes for st in bstats)
+            print(f"bulk ingest: {len(shard_store)} docs into {N_SHARDS} shards, 4 spawn workers, "
+                  f"{bulk_s:.2f} s, {spill / 1024:.0f} KiB spilled, {len(shard_store) / bulk_s:.0f} docs/s; "
+                  f"per shard (lemmatize, spill, merge s): "
+                  + json.dumps([[round(st.lemmatize_s, 2), round(st.spill_s, 2), round(st.merge_s, 2)]
+                                for st in bstats]))
+
+            def tree(root):
+                return {str(f.relative_to(root)): hashlib.sha256(f.read_bytes()).hexdigest()
+                        for f in sorted(root.rglob("*"))
+                        if f.is_file() and not f.name.startswith("restore_epoch")}
+
+            bulk_tree, ref_tree = tree(bulk_dir), tree(work / "reference")
+            require(set(bulk_tree) == set(ref_tree),
+                    f"bulk tree files != the snapshot's: {sorted(set(bulk_tree) ^ set(ref_tree))[:8]}")
+            differ = sorted(k for k in bulk_tree if bulk_tree[k] != ref_tree[k])
+            require(not differ, f"bulk tree differs from the snapshot in {differ[:8]}")
+            print(f"bulk tree == phase 8's WAL-less snapshot: {len(bulk_tree)} files, sha256 of each "
+                  f"equal ({sum(f.stat().st_size for f in bulk_dir.rglob('*') if f.is_file()) / 2**20:.1f} MiB)")
+            zero_counts()
+            t_serve = time.perf_counter()
+            bulk_resps = ServingFrontend(bsvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
+            torch.cuda.synchronize()
+            counts = read_counts("bulk-ingested host route")
+            print(f"bulk-ingested service, host route: {(time.perf_counter() - t_serve) * 1e3:.1f} ms for the "
+                  f"slate, all documents ranked, kernel launches {counts}")
+            require(counts["proximity_window"] > 0, "proximity_window was not launched on the bulk-ingested service")
+            agree("bulk-ingested host route vs phase 7's se2.4", bulk_resps, combiner)
+            t9 = phase("launcher deployments: bulk ingest, tree and slate (9a)", t9)
+
+            # ---- 9b. resilience on the card ----------------------------------
+            from repro_torch.search.resilience import FaultInjector, ResiliencePolicy
+
+            bsvc.enable_wal(bulk_dir)
+            injector = FaultInjector.from_seed(CHAOS_SEED, n_shards=N_SHARDS)
+            bsvc.enable_resilience(policy=ResiliencePolicy(snapshot_dir=bulk_dir), injector=injector)
+            print(f"fault schedule, seed {CHAOS_SEED}: " + json.dumps(
+                [[e.point, e.kind, e.shard, e.at_call, e.count] for e in injector.schedule]))
+            # the bulk tree now only gets read: start 9c's runs 1-3 alongside
+            runs = {"warm": launch("--snapshot-dir", bulk_dir, *slate_args, "--repeat", 2),
+                    "chaos": launch("--snapshot-dir", bulk_dir, *slate_args, "--repeat", 3,
+                                    "--chaos-seed", CHAOS_SEED),
+                    "daemon": launch("--daemon", "--port", 0, "--replicas", 2, "--snapshot-dir", bulk_dir)}
+            t_runs = time.perf_counter()
+            daemon_out: list[str] = []
+            listening = threading.Event()
+
+            def drain_daemon():
+                for line in runs["daemon"].stdout:
+                    daemon_out.append(line)
+                    if "listening on" in line:
+                        listening.set()
+
+            daemon_err: list[str] = []
+            drains = [threading.Thread(target=drain_daemon, daemon=True),
+                      threading.Thread(target=lambda: daemon_err.extend(runs["daemon"].stderr), daemon=True)]
+            for th in drains:
+                th.start()
+
+            fe9 = ServingFrontend(bsvc, arena_budget_mb=ARENA_BUDGET >> 20, use_kernel=True, device="cuda",
+                                  max_batch=16)
+            by_query = dict(zip(SLATE, combiner))
+            zero_counts()
+            flagged = 0
+            for rnd in range(CHAOS_ROUNDS):
+                t_r = time.perf_counter()
+                resps = fe9.search_many(full)
+                torch.cuda.synchronize()
+                for q, r in zip(SLATE, resps):
+                    ref = by_query[q]
+                    if r.stats.shards_degraded:
+                        # se2.4 over the live shards: the shards hold disjoint
+                        # documents, and a document's score is its own
+                        dead = bsvc.supervisor.last_excluded
+                        require(r.stats.partial, f"round {rnd}: a degraded response is not flagged partial")
+                        ref = copy.copy(ref)
+                        ref.docs = [d for d in ref.docs if d.doc_id % N_SHARDS not in dead]
+                        flagged += 1
+                    else:
+                        require(not r.stats.partial, f"round {rnd}: an exact response is flagged partial")
+                    agree(f"chaos round {rnd} {q!r}", [r], [ref])
+                st = resps[0].stats
+                print(f"  chaos round {rnd}: {(time.perf_counter() - t_r) * 1e3:.1f} ms, cache hits "
+                      f"{sum(r.stats.cache_hits for r in resps)}, degraded {st.shards_degraded}, retries "
+                      f"{st.retries}, recoveries {st.recoveries}, arena hits {sum(r.stats.arena_hits for r in resps)}")
+            counts = read_counts("chaos frontend (64 MiB arena)")
+            rm = bsvc.resilience_metrics()
+            am = fe9.metrics()
+            print(f"chaos frontend: {CHAOS_ROUNDS} rounds, {flagged} flagged responses, kernel launches {counts}; "
+                  f"resilience {json.dumps(rm)}; arena pressure events {am['arena_pressure_events']}, "
+                  f"uploads {am['arena_uploads']}")
+            print("  fired: " + json.dumps(injector.log, default=str))
+            require(counts["proximity_window"] > 0, "proximity_window was not launched under the fault schedule")
+            require(rm["fired"] >= 2 and rm["recoveries"] >= 1,
+                    f"the schedule fired {rm['fired']} faults and {rm['recoveries']} recoveries")
+            bsvc.algorithm, bsvc.use_kernel = "fused", True
+            zero_counts()
+            dead_resps = bsvc.search_batch(SLATE, top_k=len(store), dead_shards=[1])
+            torch.cuda.synchronize()
+            counts = read_counts("dead_shards=[1] fused")
+            bsvc.algorithm = "se2.4"
+            require(counts["proximity_window"] > 0, "proximity_window was not launched with a dead shard")
+            for q, r in zip(SLATE, dead_resps):
+                require(r.stats.shards_degraded == 1 and r.stats.partial, f"dead-shard response {q!r} not flagged")
+                ref = copy.copy(by_query[q])
+                ref.docs = [d for d in ref.docs if d.doc_id % N_SHARDS != 1]
+                agree(f"dead_shards=[1] {q!r}", [r], [ref])
+            print(f"search_batch(dead_shards=[1]) fused: every response flagged and == se2.4 over shards 0, 2, 3; "
+                  f"kernel launches {counts}")
+            t9 = phase("launcher deployments: fault schedule and dead shards (9b)", t9)
+
+            # ---- 9c. the launcher in fresh processes ---------------------------
+            live10 = ServingFrontend(bsvc, use_kernel=True, device="cuda", max_batch=16).search_many(requests)
+            warm_out = finish(runs["warm"], "run 1 (warm start)")
+            warm_printed = printed(warm_out)
+            print("  " + "\n  ".join(ln for ln in warm_out.splitlines() if not ln.startswith(("  doc", "query"))
+                                       and ln.strip()))
+            require(any(ln.startswith(f"warm start: restored {N_SHARDS} shards") for ln in warm_out.splitlines()),
+                    "run 1 printed no warm start")
+            require(len(warm_printed) == 2 * len(SLATE), f"run 1 printed {len(warm_printed)} responses")
+            require(all("CACHED" in flags for _, _, flags in warm_printed[len(SLATE):]),
+                    "run 1's second round is not all [CACHED]")
+            for (q, lines, _), r in zip(warm_printed, live10):
+                require(lines == doc_lines(r), f"run 1's top {TOP_K} for {q!r} != the live service's")
+            chaos_out = finish(runs["chaos"], "run 2 (fault schedule)")
+            res_line = [ln for ln in chaos_out.splitlines() if ln.startswith("resilience:")]
+            print(f"  run 2: {[ln for ln in chaos_out.splitlines() if ln.startswith('chaos:')]} {res_line}")
+            require(len(res_line) == 1 and not res_line[0].startswith("resilience: 0 fault"),
+                    "run 2 reported no fault fired")
+            require(listening.wait(timeout=600), f"the daemon never listened: {''.join(daemon_err)[-3000:]}")
+            line = next(ln for ln in daemon_out if "listening on" in ln)
+            address = line.split(" on ", 1)[1].split()[0]
+            print(f"  daemon ({time.perf_counter() - t_runs:.1f} s after start): {line.strip()}")
+            t_cl = time.perf_counter()
+            client_out = finish(launch("--connect", address, "--kill-primary", *slate_args), "client")
+            client_printed = printed(client_out)
+            print(f"  client ({time.perf_counter() - t_cl:.1f} s): " + " | ".join(
+                ln for ln in client_out.splitlines() if ln.startswith(("kill_primary", "daemon"))))
+            require(len(client_printed) == len(SLATE), f"the client printed {len(client_printed)} responses")
+            for (q, lines, _), (wq, wlines, _) in zip(client_printed, warm_printed):
+                require(q == wq and lines == wlines, f"the daemon's wire response for {q!r} != run 1's")
+            require(any("1 failover(s)" in ln for ln in client_out.splitlines() if ln.startswith("daemon:")),
+                    "the client's metrics report no failover")
+            runs["daemon"].send_signal(signal.SIGINT)
+            rc = runs["daemon"].wait(timeout=60)
+            for th in drains:
+                th.join(timeout=10)
+            require(rc == 0, f"the daemon exited {rc} on SIGINT: {''.join(daemon_err)[-3000:]}")
+            summary = [ln.strip() for ln in daemon_out if ln.startswith("daemon: primary=")]
+            print(f"  daemon after SIGINT: exit {rc}, {summary}")
+            require(len(summary) == 1, "the daemon printed no summary on SIGINT")
+            cli_thread.join(timeout=900)
+            require("error" not in cli_runs and "warm" in cli_runs, f"run 4 failed: {cli_runs.get('error')}")
+            cold_p, warm_p = printed(cli_runs["cold"]), printed(cli_runs["warm"])
+            print(f"  run 4: cold start {cli_runs['cold_s']:.1f} s, warm start {cli_runs['warm_s']:.1f} s (process "
+                  f"wall); " + " | ".join(ln for ln in (cli_runs["cold"] + cli_runs["warm"]).splitlines()
+                                        if ln.startswith(("bulk ingest:", "warm start:"))))
+            require(len(cold_p) == len(SLATE) and [x[:2] for x in cold_p] == [x[:2] for x in warm_p],
+                    "run 4's cold and warm starts printed other documents")
+            phase("launcher deployments: four launcher runs (9c)", t9)
+        finally:
+            with procs_lock:
+                stopping.set()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
     # ---- 8. the durable deployment under mutation ----------------------------
     # the launcher's --snapshot-dir deployment (incremental shards, the
     # write-ahead log, snapshots, a 64 MiB arena attached to the source) over
     # the same documents, mutated while it serves, then warm-started in a
     # fresh process from what it wrote
-    snap_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_snapshot_"))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
     try:
-        durable_phase(snap_dir)
+        durable_phase(work / "snapshot", work / "reference")
+        t0 = time.perf_counter()
+        launcher_phase(work)
+        t0 = phase("the launcher's deployments (phase 9, whole)", t0)
     finally:
-        shutil.rmtree(snap_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

@@ -25,7 +25,7 @@ Exactness is the whole point: ``build_segment_fast(...)`` is
 ``index_sets_equal``-identical (rows, NSW offsets and payload order
 included) to ``builder.build_segment(...)`` for every input — the §17
 property suite and the CI differential gate pin this, which is what lets
-the SPIMI bulk-ingest pipeline (``index/ingest.py``, not ported yet) and the incremental
+the SPIMI bulk-ingest pipeline (``index/ingest.py``) and the incremental
 committer use the fast path while ``build_segment`` stays the scalar
 oracle.
 """

@@ -6,7 +6,9 @@ go to ``build/torch_kernels/`` at the repository root, named by a hash of
 the source and flags, so an edited source is rebuilt and an unchanged one is
 reused.  Nothing is built at import time: the first launch of a kernel
 builds its library, and :func:`build_all` builds every library at once with
-one ``nvcc`` per source running in parallel.
+one ``nvcc`` per source running in parallel.  Serving threads may launch a
+kernel for the first time together: one module lock makes each library
+build and load once per process.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "build_all", "load", "check"]
@@ -29,6 +32,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# held while ``load`` builds and opens a library: callers on other threads
+# wait for it instead of compiling the same source again
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,7 +66,9 @@ def build_all(names=SOURCES) -> dict[str, str]:
         target = _target(name)
         if target.exists():
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        # another process or thread may build the same target: name the
+        # partial file by both, and publish it with an atomic rename
+        tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
@@ -84,9 +92,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all((name,))
+                lib = ctypes.CDLL(str(_target(name)))
+                _LIBS[name] = lib
     return lib
 
 

@@ -76,11 +76,6 @@ _I32_MAX = int(np.iinfo(np.int32).max)
 # counter could hand a second view the same number in another arena
 _SOURCE_IDS = itertools.count(1)
 
-INJECTION_NOT_PORTED = (
-    "fault injection is not ported yet (ROADMAP.md: resilience/service)"
-)
-
-
 class ArenaOverflow(RuntimeError):
     """A batch's packed composites would not fit the int32 bit budgets of
     the §13.4 device program (DESIGN.md §13.3).  Callers fall back to the
@@ -212,8 +207,9 @@ class PostingArena:
         self.uploads = 0
         self.upload_bytes = 0  # H2D bytes spent on arena uploads
         self.evictions = 0
-        # the reference's §14 fault-injection hook; setting it raises on the
-        # next acquire until resilience is ported
+        # §14 fault injection (``search/resilience.py``): an injected
+        # ``arena.acquire`` overflow refuses the round — its keys take the
+        # host pack (fragments identical), counted in ``pressure_events``
         self.injector = None
         self.pressure_events = 0
 
@@ -231,7 +227,19 @@ class PostingArena:
         the round's working set yields stable partial residency instead of
         views evicting one another's buffers every batch."""
         if self.injector is not None:
-            raise NotImplementedError(INJECTION_NOT_PORTED)
+            from .resilience import InjectedFault
+
+            try:
+                self.injector.fire("arena.acquire")
+            except InjectedFault:
+                # injected device-memory pressure (§14): refuse the round —
+                # empty residencies route every key through the host pack,
+                # so fragments are identical, only locality degrades
+                self.pressure_events += 1
+                return [
+                    ArenaResidency(token=token, shard=shard)
+                    for _view, token, shard in specs
+                ]
 
         # entry keys carry a per-VIEW identity stamped on first acquire:
         # generation tokens alone are not unique (every plain IndexSet has
@@ -1059,5 +1067,5 @@ def run_arena_batch(
         return result
 
     if defer:
-        return PendingBatch(finalize)
+        return PendingBatch(finalize, torch.cuda.current_stream(device) if device.type == "cuda" else None)
     return finalize()

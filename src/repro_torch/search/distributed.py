@@ -13,9 +13,11 @@ single-index build over the same documents.
 
 With ``incremental=True`` every shard is an ``IncrementalIndexer`` and the
 service grows mutation endpoints, snapshots and a write-ahead log, in the
-reference's on-disk format.  Bulk ingest and the resilience layer are not
-ported yet: the options that reach them raise ``NotImplementedError``
-naming their item.
+reference's on-disk format; ``bulk_ingest`` writes the same tree through
+the external-memory pipeline (``index/ingest.py``).  ``enable_resilience``
+puts the §14 probe barrier (``search/resilience.py``) in front of every
+batch: it decides which shards serve, and the survivors still pack into one
+device program.
 """
 
 from __future__ import annotations
@@ -32,19 +34,13 @@ from ..core.lemma import FLList, Lemmatizer
 from ..core.postings import QueryStats, SearchResult
 from ..index.builder import IndexSet, build_indexes
 from ..index.corpus import DocumentStore
-from ..index.incremental import BULK_INGEST_NOT_PORTED, IncrementalIndexer
+from ..index.incremental import IncrementalIndexer
 from ..index.store import FORMAT_VERSION, SNAPSHOT_PREFIX, _load_manifest
 from .engine import ALGORITHMS, QueryResponse, RankedDoc
 from .fused import serve_query_batch
 from .relevance import rank_documents
 
 __all__ = ["ShardedSearchService", "shard_documents", "device_topk_merge"]
-
-RESILIENCE_NOT_PORTED = (
-    "dead shards, fault injection and shard supervision are not ported yet "
-    "(ROADMAP.md: resilience/service)"
-)
-
 
 def shard_documents(store: DocumentStore, n_shards: int) -> list[DocumentStore]:
     """Round-robin document partitioning (doc ids stay global) — the §3
@@ -91,8 +87,6 @@ class ShardedSearchService:
         injector=None,
         device="cuda",
     ):
-        if resilience is not None or injector is not None:
-            raise NotImplementedError(RESILIENCE_NOT_PORTED)
         self.algorithm = algorithm
         self.use_kernel = use_kernel
         self.doc_len = doc_len
@@ -106,6 +100,12 @@ class ShardedSearchService:
         self.lemmatizer = store.lemmatizer
         self.indexers: list[IncrementalIndexer] | None = None
         self._static_shards: list[IndexSet] = []
+        # resilience layer (DESIGN.md §14): detection/recovery instead of a
+        # caller-supplied dead list; None until enable_resilience (the
+        # legacy dead_shards= argument enables it lazily)
+        self.supervisor = None
+        self.injector = injector
+        self.last_snapshot_dir = None
         if incremental:
             self.indexers = [
                 IncrementalIndexer(
@@ -135,6 +135,8 @@ class ShardedSearchService:
                               max_distance=max_distance, fl=self.fl)
                 for sub in shard_documents(store, n_shards)
             ]
+        if resilience is not None or injector is not None:
+            self.enable_resilience(policy=resilience, injector=injector)
 
     @property
     def shards(self) -> list[IndexSet]:
@@ -195,7 +197,15 @@ class ShardedSearchService:
         self.fl = FLList.from_frequencies(
             global_freq, sw_count=self.sw_count, fu_count=self.fu_count
         )
-        reports = [ix.commit(fl=self.fl) for ix in self.indexers]
+        reports = []
+        for i, ix in enumerate(self.indexers):
+            if self.supervisor is not None:
+                # §14 injection point: a crash here leaves a torn commit
+                # (some shards on the new generation, this one not) — the
+                # next batch's probe barrier recovers the crashed shard
+                # from its snapshot under a fresh §12.5 epoch
+                self.supervisor.guard_commit(i)
+            reports.append(ix.commit(fl=self.fl))
         return {
             "new_docs": sum(r["new_docs"] for r in reports),
             "rekeyed_docs": sum(r["rekeyed_docs"] for r in reports),
@@ -226,13 +236,48 @@ class ShardedSearchService:
         ``add``/``delete`` and every shard commit of the corpus-level FL
         reduce is durably logged before it applies, and ``restore`` replays
         the tails, so restored shards come back ``index_sets_equal`` to the
-        live ones *including post-snapshot commits*.  ``injector`` arms each
-        log's ``wal.append``/``wal.torn_tail`` fault points."""
+        live ones *including post-snapshot commits*.  ``injector`` (defaults
+        to the service's §14 injector) arms each log's
+        ``wal.append``/``wal.torn_tail`` fault points."""
         self._require_incremental()
         directory = Path(directory)
+        inj = injector if injector is not None else self.injector
         for i, ix in enumerate(self.indexers):
-            ix.enable_wal(directory / f"shard_{i:02d}", injector=injector, shard=i)
+            ix.enable_wal(directory / f"shard_{i:02d}", injector=inj, shard=i)
         return [ix.wal for ix in self.indexers]
+
+    def enable_resilience(self, policy=None, injector=None, clock=None):
+        """Switch the fan-out onto the §14 failure path (DESIGN.md §14).
+
+        Installs a :class:`~repro_torch.search.resilience.ShardSupervisor`:
+        every ``search_batch`` then runs the probe barrier (circuit
+        breakers, retries/hedges, snapshot recovery) before packing the
+        surviving shards into the usual single fused dispatch.  Calling
+        again replaces the supervisor but keeps an existing injector unless
+        a new one is passed; the arena shares the injector (its
+        ``arena.acquire`` point).  ``clock=`` (§16.4) threads an injectable
+        clock through the supervisor, its breakers and the injector's
+        straggler delays.  Returns the supervisor.  Fragments are
+        exact-or-flagged either way — the supervisor decides *which shards*
+        serve, never what a shard returns.
+        """
+        from .resilience import FaultInjector, ShardSupervisor
+
+        if injector is not None:
+            self.injector = injector
+        elif self.injector is None:
+            self.injector = FaultInjector()
+        self.supervisor = ShardSupervisor(self, policy=policy, injector=self.injector,
+                                          clock=clock)
+        if self.arena is not None:
+            self.arena.injector = self.injector
+        return self.supervisor
+
+    def resilience_metrics(self) -> dict:
+        """Supervisor/health/injector counters (DESIGN.md §14) or ``{}``
+        when the resilience layer is off — read by the frontend's
+        ``metrics()`` and the launcher's report."""
+        return {} if self.supervisor is None else self.supervisor.metrics()
 
     def snapshot(self, directory, keep: int = 2):
         """Snapshot every shard's indexer into ``<directory>/shard_<i>/``
@@ -273,6 +318,9 @@ class ShardedSearchService:
                 # snapshots are WAL checkpoints: sealed segments whose replay
                 # the retained snapshots no longer need go with them
                 ix.wal.prune(keep)
+        # the §14 supervisor recovers crashed shards from here unless its
+        # policy pins another root
+        self.last_snapshot_dir = directory
         return directory
 
     @classmethod
@@ -323,21 +371,95 @@ class ShardedSearchService:
                 # re-tag re-attached WALs with their shard ids (the fault
                 # points key per-shard arrival counters by it)
                 ix.wal.shard = i
+        svc.supervisor = None
+        svc.injector = None
+        svc.last_snapshot_dir = directory
         svc.fl = svc.indexers[0].fl
         svc._next_doc_id = max(ix._next_id for ix in svc.indexers)
         return svc
 
     @classmethod
-    def bulk_ingest(cls, store, directory, n_shards, sw_count, fu_count, **kwargs):
-        raise NotImplementedError(BULK_INGEST_NOT_PORTED)
+    def bulk_ingest(
+        cls,
+        store: DocumentStore,
+        directory,
+        n_shards: int,
+        sw_count: int,
+        fu_count: int,
+        max_distance: int = 5,
+        algorithm: str = "se2.4",
+        workers: int = 1,
+        docs_per_spill: int = 64,
+        resume: bool = False,
+        injector=None,
+        device="cuda",
+    ) -> tuple["ShardedSearchService", list]:
+        """External-memory cold start (DESIGN.md §17): SPIMI bulk-build every
+        shard straight to its ``shard_<i>/snap_<N>`` store, then publish
+        ``service.json`` and warm-start from disk on ``device``.
 
-    def enable_resilience(self, policy=None, injector=None, clock=None):
-        raise NotImplementedError(RESILIENCE_NOT_PORTED)
+        The FL-list is the same corpus-level reduce ``commit()`` broadcasts,
+        pinned into every shard's build, so the published tree is
+        byte-identical to ``ShardedSearchService(store, ...,
+        incremental=True).snapshot(directory)`` and to the reference
+        package's bulk tree (the §17.4 determinism contract).  The build is
+        host work; spill workers never touch the card.  Returns
+        ``(service, [BulkBuildStats per shard])``.
+        """
+        from ..index.ingest import bulk_build
+
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        fl = FLList.from_frequencies(
+            store.lemma_frequencies(), sw_count=sw_count, fu_count=fu_count
+        )
+        stats = []
+        shard_snapshots = []
+        for i, sub in enumerate(shard_documents(store, n_shards)):
+            st = bulk_build(
+                out_dir=directory / f"shard_{i:02d}",
+                sw_count=sw_count,
+                fu_count=fu_count,
+                max_distance=max_distance,
+                documents=sub.documents,
+                fl=fl,
+                docs_per_spill=docs_per_spill,
+                workers=workers,
+                resume=resume,
+                injector=injector,
+            )
+            stats.append(st)
+            shard_snapshots.append(
+                int(Path(st.snapshot_path).name.rsplit("_", 1)[1])
+            )
+        # same publish order as snapshot(): manifest LAST, atomically — a
+        # reader that finds service.json finds complete shard stores
+        manifest_tmp = directory / "service.json.tmp"
+        fsync_json(manifest_tmp, {
+            "format_version": FORMAT_VERSION,
+            "kind": "service",
+            "shard_snapshots": shard_snapshots,
+            "n_shards": n_shards,
+            "sw_count": sw_count,
+            "fu_count": fu_count,
+            "max_distance": max_distance,
+            "algorithm": algorithm,
+            "use_kernel": False,
+            "doc_len": 512,
+        })
+        manifest_tmp.replace(directory / "service.json")
+        return cls.restore(directory, lemmatizer=store.lemmatizer, device=device), stats
 
     def search(
         self, query: str, top_k: int = 10, dead_shards: Sequence[int] = ()
     ) -> QueryResponse:
-        """Fan out to every shard and merge ranked results."""
+        """Fan out to all live shards and merge ranked results.
+
+        ``dead_shards`` holds those shards down in the §14 fault injector
+        for this call (ONE failure path with the detected-failure case):
+        documents on dead shards are absent, the response is flagged
+        degraded, and what it does cover is exactly ranked.
+        """
         return self.search_batch([query], top_k=top_k, dead_shards=dead_shards)[0]
 
     def search_batch(
@@ -346,24 +468,65 @@ class ShardedSearchService:
         top_k: int = 10,
         dead_shards: Sequence[int] = (),
     ) -> list[QueryResponse]:
-        """Serve a query batch across every shard.
+        """Serve a query batch across all live shards.
 
-        With ``algorithm="fused"`` the full (query x subquery x shard) work
-        cross product packs into ONE device program (``search/fused.py``).
-        Host algorithms keep the per-subquery loop over the shards.
-        ``dead_shards`` must be empty until resilience/service is ported.
+        With ``algorithm="fused"`` the full (query x live subquery x shard)
+        work cross product packs into ONE device program
+        (``search/fused.py``).  Host algorithms keep the per-subquery loop
+        over the live shards.
+
+        Liveness comes from the §14 probe barrier when the resilience layer
+        is on (``enable_resilience``): the supervisor detects, retries,
+        hedges and recovers, and the surviving shards still pack into the
+        single fused dispatch.  ``dead_shards=`` routes through the same
+        path — it holds those shards down in the
+        :class:`~repro_torch.search.resilience.FaultInjector` for this call.
+        Degraded responses are flagged (``QueryStats.shards_degraded`` /
+        ``partial``) and exactly ranked over the shards they cover.
         """
-        if len(dead_shards):
-            raise NotImplementedError(RESILIENCE_NOT_PORTED)
         t0 = time.perf_counter()
         per_query_subs = [expand_subqueries(q, self.lemmatizer) for q in queries]
-        live = list(self.shards)
+        dead = frozenset(int(s) for s in dead_shards)
+        if dead and self.supervisor is None:
+            self.enable_resilience()
+        rstats = None
+        if self.supervisor is not None:
+            if dead:
+                self.injector.hold_down(dead)
+            try:
+                rstats = QueryStats()
+                live_ids = self.supervisor.probe_live_shards(rstats)
+            finally:
+                if dead:
+                    self.injector.release(dead)
+            # resolve AFTER the barrier: recovery may have replaced indexers
+            shards = self.shards
+            live = [shards[i] for i in live_ids]
+        else:
+            live = list(self.shards)
         if self.algorithm == "fused":
-            return self._search_batch_fused(queries, per_query_subs, live, top_k, t0)
-        return [
-            self._search_host(q, subs, live, top_k)
-            for q, subs in zip(queries, per_query_subs)
-        ]
+            responses = self._search_batch_fused(
+                queries, per_query_subs, live, top_k, t0
+            )
+        else:
+            responses = [
+                self._search_host(q, subs, live, top_k)
+                for q, subs in zip(queries, per_query_subs)
+            ]
+        if rstats is not None and (
+            rstats.shards_degraded or rstats.retries
+            or rstats.hedges or rstats.recoveries
+        ):
+            for resp in responses:
+                st = resp.stats
+                # batch-level, like device_dispatches: one probe barrier
+                st.retries = rstats.retries
+                st.hedges = rstats.hedges
+                st.recoveries = rstats.recoveries
+                st.shards_degraded = rstats.shards_degraded
+                if rstats.shards_degraded:
+                    st.partial = True
+        return responses
 
     def _search_host(
         self,

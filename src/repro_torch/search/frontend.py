@@ -21,6 +21,15 @@ three things heavy traffic needs (ROADMAP north star):
   generation token and batches then gather/pack on the device from
   descriptors (``search/arena.py``).  Fragments are identical with the
   arena on or off.
+* **Resilience** (DESIGN.md §14) — over a source with an enabled
+  ``ShardSupervisor`` (``search/resilience.py``) every slate first runs the
+  shard probe barrier: crashed shards are retried/hedged/recovered before
+  views resolve, and responses that could not cover every shard are flagged
+  (``QueryStats.shards_degraded`` / ``partial``) and exactly ranked over
+  the shards they did cover — never silently wrong.  Opt-in
+  ``max_inflight`` load shedding re-admits overflow misses under
+  ``shed_deadline_sec`` through the same partial machinery (flagged via
+  ``QueryStats.shed``) instead of erroring.
 * **Deadlines** — per-request response-time budgets enforced at *admission*
   (the 2009.03679 approach: bound the work before dispatch, don't abort
   mid-kernel).  Estimated cost is the plan's exact posting counts divided by
@@ -317,8 +326,8 @@ class ServingFrontend:
         """Submit a slate and return a zero-arg ``finalize`` callable.
 
         The continuous-batching hook (DESIGN.md §16.2): ALL pre-dispatch
-        work — cache lookups, planning, deadline admission, shedding —
-        runs now, and the
+        work — the §14 probe barrier, cache lookups, planning, deadline
+        admission, shedding, residency acquisition — runs now, and the
         first micro-batch chunk is SUBMITTED to the device without being
         awaited (``pipeline=True``; with ``pipeline=False`` it runs to
         completion, the serial reference).  Calling the returned finalize
@@ -334,7 +343,16 @@ class ServingFrontend:
             r if isinstance(r, SearchRequest) else SearchRequest(query=r)
             for r in requests
         ]
-        token, views, shard_ids, cached_views, max_distance = self._live_views()
+        # §14 probe barrier FIRST: recovery replaces shard indexers, so the
+        # generation token and views must resolve after it (a recovered
+        # shard's fresh restore epoch is what strands pre-crash cache keys)
+        supervisor = getattr(self._source, "supervisor", None)
+        rstats = None
+        live_shard_ids: list[int] | None = None
+        if supervisor is not None:
+            rstats = QueryStats()
+            live_shard_ids = supervisor.probe_live_shards(rstats)
+        token, views, shard_ids, cached_views, max_distance = self._live_views(live_shard_ids)
 
         responses: list = [None] * len(reqs)
         miss_idx: list[int] = []
@@ -451,6 +469,16 @@ class ServingFrontend:
                 resp.stats.deadline_sec = miss_budget[lo + j]
                 if miss_shed[lo + j]:
                     resp.stats.shed = 1
+                if rstats is not None:
+                    # batch-level §14 counters; a degraded fan-out flags the
+                    # response partial BEFORE the caching branch below, so a
+                    # response missing shards is never cached as complete
+                    resp.stats.retries = rstats.retries
+                    resp.stats.hedges = rstats.hedges
+                    resp.stats.recoveries = rstats.recoveries
+                    resp.stats.shards_degraded = rstats.shards_degraded
+                    if rstats.shards_degraded:
+                        resp.stats.partial = True
                 self._served += 1
                 if resp.stats.partial:
                     self._partials += 1
@@ -499,14 +527,20 @@ class ServingFrontend:
             self.arena.detach()
             self.arena.release()
 
-    def _live_views(self):
+    def _live_views(self, live_shard_ids=None):
         """``(token, views, shard_ids, cached_views, max_distance)`` of the
-        source as it stands.  Posting-cache keys carry each view's TRUE shard
-        id.  Every shard is live: there is no probe barrier until
-        resilience/service is ported."""
+        source as it stands, resolved after the probe barrier.
+        ``live_shard_ids`` (the barrier's survivors) drops the excluded
+        shards' views.  Posting-cache keys carry each view's TRUE shard id
+        (not its position in a degraded live list), so a degraded slate can
+        never reuse a slice cached for another shard under the same
+        token."""
         token = generation_token(self._source)
         views, _, max_distance, _ = resolve_index_views(self._source)
         shard_ids = list(range(len(views)))
+        if live_shard_ids is not None and len(live_shard_ids) < len(views):
+            shard_ids = list(live_shard_ids)
+            views = [views[i] for i in shard_ids]
         cached_views = [
             _CachedView(v, self.posting_cache, (token, shard))
             for shard, v in zip(shard_ids, views)
@@ -527,6 +561,9 @@ class ServingFrontend:
         """
         if self.arena is None:
             return None
+        if self.arena.injector is None:
+            # share the source's §14 fault injector (if resilience is on)
+            self.arena.injector = getattr(self._source, "injector", None)
         # the token is a per-shard tuple exactly when the source is a sharded
         # service with one token entry per shard
         n_shards = getattr(self._source, "n_shards", None)
@@ -685,4 +722,10 @@ class ServingFrontend:
             "partial_responses": self._partials,
             "postings_per_sec_estimate": self.postings_per_sec,
             "sheds": self._sheds,
+            # §14 resilience counters (empty dict when the layer is off)
+            "resilience": (
+                self._source.resilience_metrics()
+                if hasattr(self._source, "resilience_metrics")
+                else {}
+            ),
         }

@@ -193,7 +193,8 @@ def _intersect_stream(device: torch.device) -> torch.cuda.Stream:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     stream = _INTERSECT_STREAMS.get(idx)
     if stream is None:
-        stream = _INTERSECT_STREAMS[idx] = torch.cuda.Stream(device=idx)
+        # serving threads may race here: every one gets the stream stored first
+        stream = _INTERSECT_STREAMS.setdefault(idx, torch.cuda.Stream(device=idx))
     return stream
 
 
@@ -847,17 +848,22 @@ class PendingBatch:
     one of these right after enqueueing the device program: CUDA runs it
     asynchronously while the caller plans the next batch.  ``result()``
     performs the blocking readout (idempotent; the result is cached).
+    ``stream`` is the CUDA stream the program was queued on: the readout
+    runs on it, so a batch launched on one thread and read out on another
+    (whose current stream differs) still waits for its own program.
     """
 
-    __slots__ = ("_thunk", "_result")
+    __slots__ = ("_thunk", "_result", "_stream")
 
-    def __init__(self, thunk):
+    def __init__(self, thunk, stream=None):
         self._thunk = thunk
         self._result = None
+        self._stream = stream
 
     def result(self) -> FusedBatchResult:
         if self._thunk is not None:
-            self._result = self._thunk()
+            with torch.cuda.stream(self._stream):  # a no-op for None
+                self._result = self._thunk()
             self._thunk = None
         return self._result
 
@@ -1014,7 +1020,8 @@ def run_query_batch(
         return result
 
     if defer:
-        return PendingBatch(finalize)
+        dev = torch.device(device)
+        return PendingBatch(finalize, torch.cuda.current_stream(dev) if dev.type == "cuda" else None)
     return finalize()
 
 

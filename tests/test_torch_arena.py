@@ -388,9 +388,10 @@ def test_view_identities_are_unique_across_arenas(corpora):
 
 
 def test_unported_arena_hooks_raise(corpora):
-    """Fault injection is what stays unported; the mutation hooks are not:
-    attaching a plain ``IndexSet`` is a no-op, an incremental indexer is
-    subscribed to and unsubscribed from."""
+    """Every hook of the reference arena's is ported: attaching a plain
+    ``IndexSet`` is a no-op, an incremental indexer is subscribed to and
+    unsubscribed from, and an injected ``arena.acquire`` overflow refuses
+    one round (empty residencies, counted) as the reference's does."""
     from repro_torch.index import IncrementalIndexer
 
     _, idx = corpora["pack32"]
@@ -402,9 +403,12 @@ def test_unported_arena_hooks_raise(corpora):
     assert len(ix._listeners) == 1
     pa.detach()
     assert not ix._listeners
-    pa.injector = object()
-    with pytest.raises(NotImplementedError, match="injection"):
-        pa.acquire(idx, 0)
+    from repro_torch.search.resilience import FaultEvent, FaultInjector
+
+    pa.injector = FaultInjector([FaultEvent("arena.acquire", "overflow", at_call=0)])
+    refused, resident = pa.acquire(idx, 0), pa.acquire(idx, 0)
+    assert not refused.families and resident.families
+    assert pa.pressure_events == pa.metrics()["arena_pressure_events"] == 1
 
 
 # ---------------------------------------------------------------------------

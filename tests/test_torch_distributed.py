@@ -244,20 +244,34 @@ def test_device_topk_merge_equals_reference_with_ties(seed, k):
 
 
 def test_unported_options_raise_naming_their_item(stores, tmp_path):
-    """Bulk ingest and the resilience layer stay unported and name their
-    item; a static service's durability endpoints need ``incremental=True``,
-    as the reference's do."""
-    _, store = stores
-    small = dict(n_shards=2, sw_count=10, fu_count=10, device="cpu")
-    for kw in ({"resilience": object()}, {"injector": object()}):
-        with pytest.raises(NotImplementedError, match="resilience/service"):
-            ShardedSearchService(store, **small, **kw)
-    svc = ShardedSearchService(store, **small)
-    for call, item in ((lambda: ShardedSearchService.bulk_ingest(store, "d", 2, 10, 10), "bulk ingest"),
-                       (lambda: svc.enable_resilience(), "resilience/service"),
-                       (lambda: svc.search_batch(["who"], dead_shards=[0]), "resilience/service")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    """Bulk ingest and the resilience layer are ported: ``resilience=`` and
+    ``injector=`` switch the probe barrier on at construction, as the
+    reference's do, and ``dead_shards`` degrades a batch exactly as the
+    reference's.  A static service's durability endpoints still need
+    ``incremental=True``, as the reference's do."""
+    from repro.search.resilience import FaultInjector as RefInjector
+    from repro.search.resilience import ResiliencePolicy as RefPolicy
+    from repro_torch.search.resilience import FaultInjector, ResiliencePolicy
+
+    ref_store, store = stores
+    small = dict(n_shards=2, sw_count=10, fu_count=10)
+    for kw, ref_kw in (({"resilience": ResiliencePolicy()}, {"resilience": RefPolicy()}),
+                       ({"injector": FaultInjector()}, {"injector": RefInjector()})):
+        svc = ShardedSearchService(store, **small, **kw, device="cpu")
+        ref = RefShardedSearchService(ref_store, **small, **ref_kw)
+        assert svc.supervisor is not None and svc.injector is not None
+        assert svc.resilience_metrics() == ref.resilience_metrics()
+    svc = ShardedSearchService(store, **small, device="cpu")
+    ref = RefShardedSearchService(ref_store, **small)
+    assert svc.resilience_metrics() == {} and svc.supervisor is None
+    got = svc.search_batch(QUERIES, top_k=1000, dead_shards=[0])
+    want = ref.search_batch(QUERIES, top_k=1000, dead_shards=[0])
+    for g, w in zip(got, want):
+        assert _docs(g) == _docs(w) and g.stats.shards_degraded == w.stats.shards_degraded == 1
+        assert g.stats.partial and all(d.doc_id % 2 == 1 for d in g.docs)
+    assert svc.enable_resilience() is svc.supervisor
+    bulk, stats = ShardedSearchService.bulk_ingest(store, tmp_path / "bulk", 2, 10, 10, device="cpu")
+    assert bulk.device == "cpu" and sum(st.n_docs for st in stats) == len(store)
     for call in (lambda: svc.enable_wal(tmp_path), lambda: svc.snapshot(tmp_path),
                  lambda: svc.commit(), lambda: svc.delete_document(0)):
         with pytest.raises(RuntimeError, match="incremental=True"):

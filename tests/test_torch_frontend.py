@@ -178,16 +178,21 @@ def test_warmup_runs_the_serving_programs(corpus):
 
 
 def test_sources_and_options_outside_the_slice_raise(tmp_path):
-    """Incremental sources are served now (``tests/test_torch_incremental.py``);
-    what stays outside the slice is bulk ingest and the resilience layer."""
+    """Every source and option of the reference frontend's is served now:
+    incremental and bulk-ingested services, and a frontend over a service
+    with dead shards held down (flagged, exact over the live shard).  An
+    unknown algorithm still raises ``KeyError``, as the reference's does."""
     _, _, _, store, idx, _ = _build(SEEDS[0])
-    with pytest.raises(NotImplementedError, match="bulk ingest"):
-        ShardedSearchService.bulk_ingest(store, tmp_path, 2, 5, 5)
+    bulk, _ = ShardedSearchService.bulk_ingest(store, tmp_path, 2, 5, 5, device="cpu")
     inc = ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, incremental=True,
                                device="cpu")
-    assert ServingFrontend(inc, device="cpu").search("who are you who").query == "who are you who"
+    got = ServingFrontend(bulk, device="cpu").search("who are you who")
+    want = ServingFrontend(inc, device="cpu").search("who are you who")
+    assert got.query == "who are you who" and [d.doc_id for d in got.docs] == [d.doc_id for d in want.docs]
     svc = ShardedSearchService(store, n_shards=2, sw_count=5, fu_count=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="resilience/service"):
-        svc.search("who are you who", dead_shards=[1])
+    full = svc.search("who are you who", top_k=1000)
+    held = svc.search("who are you who", top_k=1000, dead_shards=[1])
+    assert held.stats.shards_degraded == 1 and held.stats.partial
+    assert [d.doc_id for d in held.docs] == [d.doc_id for d in full.docs if d.doc_id % 2 == 0]
     with pytest.raises(KeyError):
         SearchEngine(idx, algorithm="se3", device="cpu")

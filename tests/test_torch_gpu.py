@@ -279,3 +279,66 @@ def test_attached_arena_eviction_frees_card_memory(cuda):
     assert fe.arena.evictions > 0 and evicted > 0
     assert before - torch.cuda.memory_allocated() >= evicted
     fe.close()
+
+
+def _wire(resp):
+    return [(d.doc_id, d.score, [(f.start, f.end) for f in d.fragments]) for d in resp.docs]
+
+
+def test_two_replica_daemon_on_card_equals_serial_card_frontend(cuda):
+    """Two card frontends with slates in flight together (one arena both
+    share), read out on a daemon thread: every response equals a serial
+    card frontend's, batch for batch."""
+    from repro_torch.search.service import ServiceDaemon
+
+    svc = ShardedSearchService(synthesize_corpus(n_docs=120, doc_len=150, vocab_size=600, seed=3),
+                               n_shards=4, sw_count=60, fu_count=150, device="cuda")
+    arena = PostingArena(budget_bytes=256 << 20, device="cuda")
+    queries = ["who are you who", "to be or not to be", "time and time again", "one at a time",
+               "what do you do all day", "i need you", "the who are an english rock band"]
+
+    def frontend():
+        return ServingFrontend(svc, arena=arena, use_kernel=True, max_batch=3, device="cuda")
+
+    daemon = ServiceDaemon([frontend(), frontend()], max_queue=64)
+    tickets = [daemon.submit(SearchRequest(q, top_k=10)) for q in queries * 3]
+    assert daemon._launch_ready() and len(daemon._inflight) == 2
+    daemon.start()  # the rest is launched and read out on the daemon's thread
+    results = [t.result(timeout=300) for t in tickets]
+    daemon.stop()
+    serial = [frontend(), frontend()]
+    batches: dict[int, list] = {}
+    for t in tickets:
+        batches.setdefault(t.seq // 3, []).append(t)
+    for _, batch in sorted(batches.items()):
+        want = serial[batch[0].replica].search_many([t.request for t in batch])
+        for t, w in zip(batch, want):
+            assert _wire(results[t.seq]) == _wire(w), t.seq
+
+
+def test_chaos_through_a_card_frontend_is_exact_or_flagged(cuda, tmp_path):
+    """A seeded fault schedule through a card frontend with a 64 MiB arena:
+    every response is the CPU service's over every shard or, flagged
+    degraded, over the shards the barrier kept."""
+    from repro_torch.search.resilience import FaultInjector, ResiliencePolicy
+
+    store = synthesize_corpus(n_docs=120, doc_len=150, vocab_size=600, seed=3)
+    kw = dict(n_shards=3, sw_count=60, fu_count=150, incremental=True)
+    svc = ShardedSearchService(store, **kw, device="cuda")
+    svc.snapshot(tmp_path)
+    svc.enable_resilience(policy=ResiliencePolicy(snapshot_dir=tmp_path, breaker_cooldown_s=0.0),
+                          injector=FaultInjector.from_seed(101, n_shards=3))
+    cpu = ShardedSearchService(store, **kw, device="cpu")
+    queries = ["who are you who", "to be or not to be", "time and time again"]
+    full = {q: _wire(r) for q, r in zip(queries, cpu.search_batch(queries, top_k=1000))}
+    fe = ServingFrontend(svc, arena_budget_mb=64, use_kernel=True, device="cuda")
+    for _ in range(10):
+        for q, resp in zip(queries, fe.search_many([SearchRequest(q, top_k=1000) for q in queries])):
+            if not resp.stats.shards_degraded:
+                assert _wire(resp) == full[q] and not resp.stats.partial
+            else:
+                live = set(range(3)) - set(svc.supervisor.last_excluded)
+                degraded = cpu.search_batch([q], top_k=1000, dead_shards=sorted(set(range(3)) - live))
+                assert resp.stats.partial and _wire(resp) == _wire(degraded[0])
+    m = svc.resilience_metrics()
+    assert m["fired"] >= 2 and m["recoveries"] >= 1

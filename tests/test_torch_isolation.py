@@ -1,8 +1,10 @@
 """``repro_torch`` stands alone: it imports neither jax nor the reference
 package ``repro``, and serves a batch on the CPU with both blocked, over
 the host route, the posting arena and a sharded service, runs the scalar
-Combiner, and builds, logs, snapshots, mutates and warm-starts an
-incremental sharded service."""
+Combiner, builds, logs, snapshots, mutates and warm-starts an incremental
+sharded service, serves it under a seeded fault schedule, runs the daemon
+behind its TCP transport, bulk-builds with two spawn workers and runs the
+launcher."""
 
 import os
 import re
@@ -65,6 +67,28 @@ for a, b in zip(warm._source.shards, inc.shards):
     assert index_sets_equal(a.to_index_set(), b.to_index_set())[0]
 live = ServingFrontend(inc, arena_budget_mb=64, device="cpu").search_many(queries)
 assert [[d.doc_id for d in r.docs] for r in warm.search_many(queries)] == [[d.doc_id for d in r.docs] for r in live]
+from repro_torch.search.resilience import FaultInjector, ResiliencePolicy
+inc.enable_resilience(policy=ResiliencePolicy(snapshot_dir=lineage),
+                      injector=FaultInjector.from_seed(101, n_shards=2))
+for _ in range(10):
+    chaos = ServingFrontend(inc, device="cpu").search_many(queries)
+assert inc.injector.log and inc.resilience_metrics()["recoveries"] >= 1
+from repro_torch.search import ServiceDaemon, request_over_tcp, serve_tcp
+server = serve_tcp(ServiceDaemon(ServingFrontend(index, lemmatizer=store.lemmatizer, device="cpu")))
+reply = request_over_tcp(server.address, {"query": queries[0], "top_k": 10})
+assert [d["doc_id"] for d in reply["docs"]] == [d.doc_id for d in resps[0].docs]
+server.shutdown()
+server.server_close()
+server.search_daemon.stop()
+from pathlib import Path
+from repro_torch.index.ingest import bulk_build
+bulk = Path(tempfile.mkdtemp())
+stats = bulk_build([d.text for d in store.documents], out_dir=bulk, sw_count=40, fu_count=80,
+                   docs_per_spill=5, workers=2)
+assert stats.workers == 2 and stats.n_chunks == -(-len(store) // 5) > 2
+assert (bulk / "snap_0" / "manifest.json").exists()
+from repro_torch.launch.serve import main
+main(["--device", "cpu", "--n-docs", "30", "--arena-budget-mb", "0", "--queries", "who are you who"])
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
@@ -81,7 +105,8 @@ def test_serves_with_jax_and_reference_blocked():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert proc.stdout.startswith("served ")
+    assert "frontend: served 1 requests" in proc.stdout
+    assert proc.stdout.splitlines()[-1].startswith("served ")
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)", re.MULTILINE)
@@ -92,7 +117,9 @@ def test_source_imports_neither_jax_nor_reference():
     assert len(sources) > 15
     names = {str(p.relative_to(PACKAGE)) for p in sources}
     assert {"checkpoint/__init__.py", "checkpoint/checkpoint.py", "index/fastbuild.py",
-            "index/incremental.py", "index/store.py", "index/wal.py"} <= names
+            "index/incremental.py", "index/store.py", "index/wal.py", "index/ingest.py",
+            "runtime/fault_tolerance.py", "search/resilience.py", "search/service.py",
+            "launch/__init__.py", "launch/serve.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources

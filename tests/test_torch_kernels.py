@@ -526,3 +526,46 @@ def test_intersect_plain_equals_pallas_kernel_on_any_offsets(na, nb, n_chunks):
                  for t in range(o // 256, o // 256 + n_chunks)}
         spans = _window_spans(o, n_chunks, n_tiles, 256)
         assert tiles == {t for lo, hi in spans for t in range(lo, hi + 1)}, o
+
+
+def test_kernel_library_loads_once_under_threads(monkeypatch):
+    """Serving threads that launch a kernel for the first time together
+    (a daemon thread, a successor replica's, the caller's) build and load
+    each library once: ``load`` holds a module lock around the check, the
+    build and the ``dlopen``."""
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    builds, loads = [], []
+
+    def build_all(names):
+        builds.extend(names)
+        time.sleep(0.05)  # a slow nvcc: every other thread arrives meanwhile
+        return {}
+
+    def cdll(path):
+        loads.append(path)
+        return object()
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "build_all", build_all)
+    monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+    barrier = threading.Barrier(8)
+    got: list = []
+
+    def worker(name):
+        barrier.wait()
+        got.append((name, _build.load(name)))
+
+    threads = [threading.Thread(target=worker, args=(_build.SOURCES[i % 2],)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert sorted(builds) == sorted(_build.SOURCES[:2])
+    assert len(loads) == 2
+    assert len(got) == 8 and len({id(lib) for _, lib in got}) == 2
+    for name, lib in got:
+        assert lib is _build._LIBS[name]

@@ -27,7 +27,6 @@ from repro_torch.index import (
     read_frames,
     synthesize_corpus,
 )
-from repro_torch.index.incremental import BULK_INGEST_NOT_PORTED
 from repro_torch.index.wal import (
     docs_to_payload,
     encode_frame,
@@ -381,8 +380,12 @@ def test_service_wal_tags_shards_and_bulk_paths_name_bulk_ingest(tmp_path):
     assert [w.shard for w in logs] == [0, 1] and all(w.injector is inj for w in logs)
     svc.add_documents(["one more"])
     assert ("wal.append", {"shard": 1}) in inj.calls  # doc 3 routes to shard 1
-    with pytest.raises(NotImplementedError, match="bulk ingest"):
-        IncrementalIndexer.bulk_build(["x"], out_dir=tmp_path / "b", sw_count=5, fu_count=5)
-    with pytest.raises(NotImplementedError, match="bulk ingest"):
-        ShardedSearchService.bulk_ingest(store, tmp_path / "c", 2, 5, 5)
-    assert "bulk ingest" in BULK_INGEST_NOT_PORTED
+    # the bulk paths build now: a bulk-built indexer's log is anchored by a
+    # ``bulk_build`` record and armed with the injector it was given, and a
+    # bulk-ingested service's logs tag their shards like a live one's
+    ix, _ = IncrementalIndexer.bulk_build(["x y z", "who are you"], out_dir=tmp_path / "b",
+                                          sw_count=5, fu_count=5, wal=True, injector=inj)
+    assert [r.rtype for r in ix.wal.records()] == ["bulk_build"] and ix.wal.injector is inj
+    bulk, _ = ShardedSearchService.bulk_ingest(store, tmp_path / "c", 2, 5, 5, device="cpu")
+    logs = bulk.enable_wal(tmp_path / "c", injector=inj)
+    assert [w.shard for w in logs] == [0, 1] and all(w.injector is inj for w in logs)
