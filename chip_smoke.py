@@ -103,6 +103,26 @@ Phases, each printed with its seconds:
    run alongside the in-process phases 9a and 9b (their work is host-bound
    and disjoint: the bulk tree is only read once 9b has armed its WAL).
 
+10. the ``paper_search`` device steps: every cell of the reference's
+   dry-run (``serve_online``, ``serve_bulk``, ``score_1m``, ``build_chunk``)
+   at its single-pod layout (256 cluster shards folded into one program)
+   through ``repro_torch.launch.dryrun.run_cell`` on seeded inputs (3-5
+   active lemmas a query, bursts narrower than the window, a tenth of the
+   clusters padded, a few postings out of range), each with its launch
+   counters set to 0 before and read after (one cover launch a serve call);
+   each serve cell's kernel path against its plain path on the card
+   (``n_fragments`` and ``top_docs`` identical, scores within rtol 1e-5,
+   fragments found), ``serve_online`` also against the CPU, and the cover
+   kernel against its plain version at N = 128 with the three stages' times,
+   the cover's byte bound and the cell's peak memory; ``build_step`` over
+   ``synthesize_corpus(n_docs=4096, doc_len=1024)``'s FL-numbers, bit-equal
+   on the card, on the CPU and in a numpy count; the slate's subqueries over
+   phase 3's index in one ``serve_step`` (clusters == documents), equal to
+   ``se2.4`` and ``rank_documents``; and ``python -m
+   repro_torch.launch.dryrun --arch paper_search --all`` in a fresh process
+   (jax and the reference package blocked), which must exit 0 with four
+   ``ok`` records under ``artifacts/``.
+
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
@@ -189,13 +209,13 @@ CHAOS_SEED = 101
 CHAOS_ROUNDS = 10
 CLI_DOCS = 2048
 
-# phase 9c: ``python -m repro_torch.launch.serve`` in a fresh process, with
+# phases 9c and 10: ``python -m <module> <args>`` in a fresh process, with
 # jax and the reference package blocked as in WARM_START
-LAUNCHER = """
+RUN_MODULE = """
 import runpy, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
-runpy.run_module("repro_torch.launch.serve", run_name="__main__", alter_sys=True)
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
 """
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
@@ -253,6 +273,260 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# phase 10: the paper_search dry-run cells (``repro_torch.launch.dryrun``)
+# at the reference's single-pod layout (256 cluster shards folded into one
+# program), the build step over a corpus of the build_chunk cell's shape,
+# and one check on real postings (the slate's subqueries over phase 3's
+# index, clusters == documents).  The real-data window is the packer's
+# 256-position hint, raised to a multiple of 128 that holds every position
+# (phase 3's documents run past 256 positions).
+BUILD_DOCS, BUILD_DOC_LEN = 4096, 1024
+REAL_DATA_WINDOW = 256
+REAL_DATA_TOP_K = 16
+DRYRUN_OUT = ROOT / "artifacts" / "chip_smoke_dryrun"
+
+
+def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
+    """A top-k list against a longer reference ranking: scores within rtol
+    of the reference's first k; documents equal, as sets inside runs of
+    scores equal within that tolerance (sums taken in another order may swap
+    them), and a run cut by k drawn from the reference's whole run."""
+    import numpy as np
+
+    docs, scores = [int(x) for x in docs], np.asarray(scores, np.float64)
+    want_docs, want_scores = [int(x) for x in want_docs], np.asarray(want_scores, np.float64)
+    k = len(docs)
+    require(len(want_docs) >= k and np.allclose(scores, want_scores[:k], rtol=SCORE_RTOL, atol=0),
+            f"{label}: scores {scores.tolist()} != {want_scores[:k].tolist()}")
+    i = 0
+    while i < k:
+        j = i + 1
+        while j < len(want_scores) and np.isclose(want_scores[j], want_scores[i], rtol=SCORE_RTOL, atol=0):
+            j += 1
+        got, want = set(docs[i:min(j, k)]), set(want_docs[i:j])
+        require(got == want if j <= k else got <= want, f"{label}: documents {docs} != {want_docs[:k]}")
+        i = j
+
+
+def numpy_build_count(toks, stop, d: int, n_buckets: int):
+    """The build step's histogram and total in numpy's own uint32
+    arithmetic: an independent count of every (f,s,t) triple posting."""
+    import numpy as np
+
+    b, n = toks.shape
+    t = np.zeros((b, n + 2 * d), np.uint32)
+    s = np.zeros((b, n + 2 * d), bool)
+    t[:, d:d + n], s[:, d:d + n] = toks.astype(np.uint32), stop
+    hist, total = np.zeros(n_buckets, np.int64), 0
+    for d1 in range(-d, d + 1):
+        for d2 in range(d1 + 1, d + 1):
+            if d1 == 0 or d2 == 0:
+                continue
+            valid = stop & s[:, d + d1:d + d1 + n] & s[:, d + d2:d + d2 + n]
+            h = (t[:, d:d + n] * np.uint32(2654435761) ^ t[:, d + d1:d + d1 + n] * np.uint32(40503)
+                 ^ t[:, d + d2:d + d2 + n]) % np.uint32(n_buckets)
+            hist += np.bincount(h[valid], minlength=n_buckets)
+            total += int(valid.sum())
+    return hist, total
+
+
+def paper_search_phase(torch, dev, index, subqueries, kernels, zero_counts, read_counts) -> None:
+    """Phase 10 (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.configs import get_spec
+    from repro_torch.core.combiner import se24_combiner
+    from repro_torch.core.lemma import FLList
+    from repro_torch.index import synthesize_corpus
+    from repro_torch.kernels.proximity import proximity_window
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.search import pack_subquery_events, rank_documents
+    from repro_torch.search import serving_step as ss
+
+    t10 = time.perf_counter()
+    spec = get_spec("paper_search")
+    cfg = spec.model_cfg
+    layout = make_production_mesh()
+    d, n, l = cfg.max_distance, cfg.window_len, cfg.n_lemmas
+    cells, serve_online = {}, None
+    for shape in spec.shapes:
+        cell = build_cell(spec, shape, layout)
+        zero_counts()
+        rec = dryrun.run_cell("paper_search", shape, False, device=dev)
+        counts = read_counts(f"dry-run {shape}")
+        require(rec["status"] == "ok", f"dry-run {shape}: {rec.get('error')}\n{rec.get('traceback')}")
+        # one cover launch per serve call (a run's first call and its timed repeats)
+        want = {"proximity_window": rec["calls"] if cell.step == "serve" else 0,
+                "intersect_sorted": 0, "gather_blocks": 0}
+        require(counts == want, f"dry-run {shape} launched {counts}, not {want}")
+        print(f"dry-run {shape} ({rec['mesh']}, NS {rec['n_devices']}, {rec['device_name']}): inputs "
+              f"{rec['input_shapes']}, wall {[round(x, 4) for x in rec['wall_ms']]} ms, peak "
+              f"{rec['peak_bytes'] / 2**20:.1f} MiB, first call {rec['first_call_s']:.3f} s, {rec['result']}, "
+              f"launches {counts}")
+        if cell.step != "serve":
+            cells[shape] = {"wall_ms": rec["wall_ms"], "peak_mib": rec["peak_bytes"] / 2**20}
+            continue
+        post, cd, mult = dryrun.cell_inputs(cell, cfg, device=dev)  # run_cell's inputs
+        ns, b, p_loc, _ = post.shape
+        c_loc = cd.shape[2]
+        kw = dict(max_distance=d, n_clusters=c_loc, window_len=n, top_k=cfg.top_k)
+        before = proximity_window.launches
+        got = ss.serve_step_sharded(post, cd, mult, **kw)
+        torch.cuda.synchronize()
+        require(proximity_window.launches == before + 1, f"{shape}: not one cover launch per call")
+        plain = ss.serve_step_sharded_plain(post, cd, mult, **kw)
+        torch.cuda.synchronize()
+        require(proximity_window.launches == before + 1, f"{shape}: the plain path launched the kernel")
+        n_frag = int(got["n_fragments"].sum())
+        require(torch.equal(got["n_fragments"], plain["n_fragments"]) and n_frag > 0,
+                f"{shape}: n_fragments of the kernel path != the plain path's (or 0)")
+        require(torch.equal(got["top_docs"], plain["top_docs"]), f"{shape}: top_docs != the plain path's")
+        require(torch.allclose(got["top_scores"], plain["top_scores"], rtol=SCORE_RTOL, atol=0),
+                f"{shape}: top_scores != the plain path's")
+        if shape == "serve_online":  # held to the CPU below, beside the dry-run process
+            serve_online = ((post, cd, mult), kw, {k: v.cpu() for k, v in got.items()})
+        # the three stages on the folded batch, each timed alone
+        rows = ns * b * c_loc
+        post2, cd2 = post.reshape(ns * b, p_loc, 3), cd.reshape(ns * b, c_loc)
+        t_s1 = cuda_ms(torch, lambda: ss._stage_scatter(post2, l, c_loc, n, torch.uint8), 5)
+        occ = ss._stage_scatter(post2, l, c_loc, n, torch.uint8).view(rows, l, n)
+        m2 = mult.repeat(ns, 1).repeat_interleave(c_loc, dim=0).to(torch.uint8)
+        t_s2 = cuda_ms(torch, lambda: proximity_window(occ, m2, d, compute_dtype="uint8"), 20)
+        emit, start = proximity_window(occ, m2, d, compute_dtype="uint8")
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        p_emit, p_start = ss._cover_plain(occ, m2, d, "uint8")
+        ev1.record()
+        ev1.synchronize()
+        plain_ms = ev0.elapsed_time(ev1)
+        require(torch.equal(emit, p_emit) and torch.equal(start, p_start),
+                f"{shape}: the cover kernel != its plain version at N = {n}")
+        t_s3 = cuda_ms(torch, lambda: ss._stage_score(emit, start, cd2, min(cfg.top_k, c_loc)), 5)
+        # the active occupancy rows read once, mult read, emit and start written
+        n_active = int((m2 > 0).sum())
+        b_ms, b_by = bound_ms(n_active * n + rows * l + rows * n * 5, n_active * n)
+        empty_rows = int((occ.amax(dim=(1, 2)) == 0).sum())
+        padded = int((cd2 < 0).sum()) * 1.0 / cd2.numel()
+        stages = [t_s1[0], t_s2[0], t_s3[0]]
+        print(f"  {shape}: R = {rows} rows x {l} x {n}, {n_active} active (row, lemma) pairs, {empty_rows} rows "
+              f"all zero, {100 * padded:.1f}% clusters padded, {n_frag} fragments; kernel == plain path and "
+              f"cover == plain bit for bit")
+        print(f"  {shape} stages: {timing('scatter', t_s1)}, {timing('cover kernel', t_s2)}, "
+              f"{timing('score + top-k', t_s3)}; sum {sum(stages):.4f} ms of wall {min(rec['wall_ms']):.4f} ms; "
+              f"cover bound {b_ms:.4f} ms ({b_by}), kernel/bound {t_s2[0] / b_ms:.2f}x, plain cover "
+              f"{plain_ms:.2f} ms (one call)")
+        cells[shape] = {"rows": rows, "ms": t_s2[0], "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "launches": counts["proximity_window"], "stages_ms": stages,
+                        "wall_ms": rec["wall_ms"], "peak_mib": rec["peak_bytes"] / 2**20}
+        del post, cd, mult, got, plain, occ, m2, emit, start, p_emit, p_start
+    t10 = phase("paper_search dry-run cells on the card (10a)", t10)
+
+    # the same four cells through the CLI, in a fresh process with jax and
+    # the reference package blocked, beside the host work below
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    cli = subprocess.Popen(
+        [sys.executable, "-c", RUN_MODULE, "repro_torch.launch.dryrun", "--arch", "paper_search", "--all", "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        (post, cd, mult), kw, got = serve_online
+        # the CPU's whole ranking (its first top_k are its top-k list)
+        cpu = ss.serve_step_sharded(post.cpu(), cd.cpu(), mult.cpu(),
+                                    **{**kw, "top_k": post.shape[0] * cd.shape[2]})
+        require(torch.equal(got["n_fragments"], cpu["n_fragments"]), "serve_online: n_fragments card != cpu")
+        require(got["top_docs"].shape[1] == min(kw["top_k"], cpu["top_docs"].shape[1]), "serve_online: top-k width")
+        for q in range(got["top_docs"].shape[0]):
+            topk_agree(f"serve_online query {q} card vs cpu", got["top_docs"][q], got["top_scores"][q],
+                       cpu["top_docs"][q], cpu["top_scores"][q])
+        print(f"serve_online on the card == the port's CPU run ({got['top_docs'].shape[0]} queries)")
+
+        # build_chunk's shape over a corpus: each position's most frequent
+        # lemma's FL-number, stop lemmas at the smoke's sw_count
+        t_c = time.perf_counter()
+        bstore = synthesize_corpus(n_docs=BUILD_DOCS, doc_len=BUILD_DOC_LEN, seed=SEED)
+        bfl = FLList.from_frequencies(bstore.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
+        docs = bstore.documents[-BUILD_DOCS:]
+        require(min(len(x) for x in docs) >= BUILD_DOC_LEN, "a build document is shorter than the cell")
+        toks = np.array([[min(bfl.fl_number[x] for x in lemmas) for lemmas in doc.lemma_stream[:BUILD_DOC_LEN]]
+                         for doc in docs], np.int32)
+        stop = toks < SW_COUNT
+        print(f"build corpus: {toks.shape}, {100 * stop.mean():.1f}% stop positions, "
+              f"{time.perf_counter() - t_c:.1f} s")
+        tok_d, stop_d = torch.from_numpy(toks).to(dev), torch.from_numpy(stop).to(dev)
+        bkw = dict(max_distance=d, n_buckets=cfg.build_buckets)
+        card = ss.build_step(tok_d, stop_d, **bkw)
+        host = ss.build_step(torch.from_numpy(toks), torch.from_numpy(stop), **bkw)
+        ref_hist, ref_total = numpy_build_count(toks, stop, d, cfg.build_buckets)
+        require(torch.equal(card["bucket_histogram"].cpu(), host["bucket_histogram"])
+                and int(card["n_postings"]) == int(host["n_postings"]), "build_step card != cpu")
+        require(np.array_equal(host["bucket_histogram"].numpy(), ref_hist) and int(host["n_postings"]) == ref_total,
+                "build_step != the numpy count")
+        t_b = cuda_ms(torch, lambda: ss.build_step(tok_d, stop_d, **bkw), 5)
+        print(f"build_step over the corpus: {ref_total} triple postings in {int((ref_hist > 0).sum())} buckets; "
+              f"card == cpu == numpy bit for bit; {timing('card', t_b)}")
+        cells["build_chunk"]["corpus_ms"] = t_b[0]
+
+        # real postings: the slate's subqueries over phase 3's index
+        packs = []
+        for q in SLATE:
+            for sub in subqueries[q]:
+                pk = pack_subquery_events(sub, index, doc_len=REAL_DATA_WINDOW, device="cpu")
+                if pk is not None:
+                    packs.append((q, sub, pk))
+        s_n = len(packs)
+        p_max = max(len(pk.events) for _, _, pk in packs)
+        c_max = max(len(pk.doc_ids) for _, _, pk in packs)
+        l_max = max(len(pk.mult) for _, _, pk in packs)
+        window = max(REAL_DATA_WINDOW, -(-(int(max(pk.events[:, 1].max() for _, _, pk in packs)) + 1) // 128) * 128)
+        post_np = np.full((s_n, p_max, 3), -1, np.int32)
+        cd_np = np.full((s_n, c_max), -1, np.int32)
+        mult_np = np.zeros((s_n, l_max), np.int32)
+        for i, (_, _, pk) in enumerate(packs):
+            post_np[i, :len(pk.events)] = pk.events
+            cd_np[i, :len(pk.doc_ids)] = pk.doc_ids
+            mult_np[i, :len(pk.mult)] = pk.mult
+        before = proximity_window.launches
+        out = ss.serve_step(*(torch.from_numpy(x).to(dev) for x in (post_np, cd_np, mult_np)),
+                            max_distance=index.max_distance, n_clusters=c_max, window_len=window,
+                            top_k=REAL_DATA_TOP_K)
+        out = {k: v.cpu() for k, v in out.items()}
+        require(proximity_window.launches == before + 1, "real data: not one cover launch")
+        n_total = 0
+        for i, (q, sub, _) in enumerate(packs):
+            results, _ = se24_combiner(sub, index)
+            require(int(out["n_fragments"][i]) == len(results),
+                    f"real data {q!r}: n_fragments {int(out['n_fragments'][i])} != se2.4's {len(results)}")
+            ranked = rank_documents(results, top_k=len(results))  # every document with a fragment
+            k = min(REAL_DATA_TOP_K, len(ranked))
+            topk_agree(f"real data {q!r}", out["top_docs"][i][:k], out["top_scores"][i][:k],
+                       [x for x, _, _ in ranked], [s for _, s, _ in ranked])
+            require(bool((out["top_scores"][i][k:] <= 0).all()), f"real data {q!r}: a document past se2.4's")
+            n_total += len(results)
+        print(f"real data: {s_n} subqueries of the slate over phase 3's index in one serve_step "
+              f"({s_n} x {c_max} clusters x {l_max} x {window}, {p_max} postings): n_fragments == se2.4 "
+              f"({n_total} fragments) and the top {REAL_DATA_TOP_K} == rank_documents")
+
+        out_s, err_s = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    print("  " + "\n  ".join(ln for ln in out_s.splitlines() if ln.strip()))
+    require(cli.returncode == 0, f"the dry-run CLI exited {cli.returncode}: {err_s[-3000:]}")
+    records = [json.loads(p.read_text()) for p in sorted(DRYRUN_OUT.glob("paper_search__*__singlepod.json"))]
+    require(sorted(r["shape"] for r in records) == sorted(spec.shapes) and all(r["status"] == "ok" for r in records),
+            f"the dry-run CLI wrote {[(r['shape'], r['status']) for r in records]}")
+    print(f"python -m repro_torch.launch.dryrun --arch paper_search --all: exit 0, {len(records)} ok records "
+          f"in {DRYRUN_OUT.relative_to(ROOT)}")
+    for entry in kernels:
+        if entry["name"] == "proximity_window":
+            entry["dryrun_cells_n128"] = {k: v for k, v in cells.items() if "ms" in v}
+    phase("paper_search build corpus, card == cpu, real data, dry-run CLI (10b)", t10)
 
 
 def main() -> int:
@@ -1339,7 +1613,7 @@ def main() -> int:
         def launch(*args) -> subprocess.Popen:
             with procs_lock:
                 require(not stopping.is_set(), "phase 9 is stopping: no more launcher processes")
-                proc = subprocess.Popen([sys.executable, "-u", "-c", LAUNCHER, *map(str, args)], env=env,
+                proc = subprocess.Popen([sys.executable, "-u", "-c", RUN_MODULE, "repro_torch.launch.serve", *map(str, args)], env=env,
                                         cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 procs.append(proc)
             return proc
@@ -1559,6 +1833,9 @@ def main() -> int:
         t0 = phase("the launcher's deployments (phase 9, whole)", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 10. the paper_search device steps ------------------------------------
+    paper_search_phase(torch, dev, index, subs, kernels, zero_counts, read_counts)
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

@@ -1,0 +1,248 @@
+"""Dry-run on one card: run every (architecture x input shape) cell at its
+full shape, and record its time and peak device memory.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch paper_search --shape serve_online
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch paper_search --all \\
+      [--multi-pod] [--both-meshes] [--out artifacts/dryrun] [--device cuda]
+
+The reference lowers and compiles each cell for a 256- or 512-chip TPU mesh
+and records XLA's memory and cost analyses.  The port has no compiler to
+ask, so ``run_cell`` allocates seeded inputs at the cell's shapes on the
+device (an explicit ``torch.Generator``), runs the cell's function, checks
+the outputs' shapes, and records the card's own numbers: wall ms of a few
+runs by CUDA events (host clock on the CPU), the peak bytes allocated above
+what the device held before the cell, and the device's name.  The mesh's
+shard count (NS) shapes the serve cells as in the reference; their shards
+are folded into one program.  Records of cells that ran are cached in
+``--out`` and skipped on the next run; the exit code is 1 when any cell
+failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from ..configs import PORTED_ARCH_IDS, get_spec
+from .mesh import make_production_mesh
+from .steps import Cell, build_cell
+
+__all__ = ["cell_inputs", "run_cell", "main"]
+
+# build cells: FL-numbers over a vocabulary of this many lemmas, the most
+# frequent STOP_LEMMAS of them stop lemmas (the serving smoke's sw_count)
+VOCAB = 5000
+STOP_LEMMAS = 80
+# serve cells: shares of padded clusters and of out-of-range postings
+PAD_CLUSTER_SHARE = 0.1
+WILD_POSTING_SHARE = 1 / 512
+# timed calls a cell, after one untimed call
+REPEATS = 3
+
+
+def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda") -> tuple[torch.Tensor, ...]:
+    """Seeded inputs at the cell's shapes on ``device``, dense enough that
+    covers fire.
+
+    Serve cells: each query has 3-5 active lemmas of multiplicity 1-2; its
+    postings come in bursts, one posting per lemma occurrence, narrower than
+    the cover's window and placed in a random cluster of the shard; about a
+    tenth of the clusters are padded (-1) and a few postings lie out of
+    range.  Build cells: log-uniform FL-numbers (frequent lemmas dominate, as
+    in text), the smallest ``STOP_LEMMAS`` of them stop lemmas.  The same
+    seed on the same device gives the same inputs.
+    """
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randint(lo: int, hi: int, shape) -> torch.Tensor:
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def rand(shape) -> torch.Tensor:
+        return torch.rand(shape, generator=gen, device=dev)
+
+    if cell.step == "build":
+        docs, doc_len = cell.abstract_args[0].shape
+        tokens = (torch.exp(rand((docs, doc_len)) * math.log(VOCAB)) - 1).to(torch.int32)
+        return tokens.clamp_(0, VOCAB - 1), tokens < STOP_LEMMAS
+
+    ns, b, p_loc, _ = cell.abstract_args[0].shape
+    c_loc = cell.abstract_args[1].shape[2]
+    l = cell.abstract_args[2].shape[1]
+    n, d = cfg.window_len, cfg.max_distance
+    width = min(2 * d, n)  # a burst's positions: narrower than the window 2D+1
+    n_active = randint(3, 6, (b, 1))
+    mult = torch.where(torch.arange(l, device=dev) < n_active, randint(1, 3, (b, l)), 0)
+    # the k-th posting of a burst carries the k-th lemma of the query's
+    # multiset (lemma l repeated mult[l] times); past its end, padding
+    burst = max(1, 2 * d)
+    k = torch.arange(burst, device=dev).expand(b, burst).contiguous()
+    lemma_of = torch.searchsorted(mult.cumsum(dim=1), k, right=True)
+    lemma_of = torch.where(lemma_of < l, lemma_of, -1)
+    n_bursts = -(-p_loc // burst)
+    cl = randint(0, c_loc, (ns, b, n_bursts)).repeat_interleave(burst, dim=2)[..., :p_loc]
+    centre = randint(0, n - width + 1, (ns, b, n_bursts)).repeat_interleave(burst, dim=2)[..., :p_loc]
+    pos = centre + randint(0, width, (ns, b, p_loc))
+    lem = lemma_of[:, torch.arange(p_loc, device=dev) % burst].expand(ns, b, p_loc)
+    postings = torch.where((lem >= 0)[..., None], torch.stack([cl, pos, lem], dim=-1), -1)
+    wild = torch.stack([randint(-1, c_loc + 2, (ns, b, p_loc)), randint(-2, n + 3, (ns, b, p_loc)),
+                        randint(-1, l + 2, (ns, b, p_loc))], dim=-1)
+    postings = torch.where((rand((ns, b, p_loc)) < WILD_POSTING_SHARE)[..., None], wild, postings)
+    cluster_doc = (torch.arange(ns, device=dev)[:, None, None] * c_loc
+                   + torch.arange(c_loc, device=dev)).expand(ns, b, c_loc)
+    cluster_doc = torch.where(rand((ns, b, c_loc)) < PAD_CLUSTER_SHARE, -1, cluster_doc)
+    return postings.to(torch.int32), cluster_doc.to(torch.int32), mult.to(torch.int32)
+
+
+def _check_outputs(cell: Cell, cfg, out: dict) -> dict:
+    """The outputs' shapes and invariants; a summary for the record."""
+    if cell.step == "build":
+        hist, total = out["bucket_histogram"], out["n_postings"]
+        if hist.shape != (cfg.build_buckets,) or int(hist.sum()) != int(total):
+            raise AssertionError(f"build outputs: histogram {tuple(hist.shape)} summing to "
+                                 f"{int(hist.sum())}, n_postings {int(total)}")
+        return {"n_postings": int(total)}
+    ns, b = cell.abstract_args[0].shape[:2]
+    c_loc = cell.abstract_args[1].shape[2]
+    k = min(cfg.top_k, ns * min(cfg.top_k, c_loc))
+    docs, scores, nfrag = out["top_docs"], out["top_scores"], out["n_fragments"]
+    if docs.shape != (b, k) or scores.shape != (b, k) or nfrag.shape != (b,):
+        raise AssertionError(f"serve outputs: top_docs {tuple(docs.shape)}, top_scores "
+                             f"{tuple(scores.shape)}, n_fragments {tuple(nfrag.shape)}; want ({b}, {k})")
+    if not bool(torch.isfinite(scores).all()) or bool((scores[:, 1:] > scores[:, :-1]).any()):
+        raise AssertionError("serve outputs: top_scores not finite and descending")
+    return {"n_fragments": int(nfrag.sum()), "queries_with_fragments": int((nfrag > 0).sum())}
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = True, *, device="cuda") -> dict:
+    """Run one cell on ``device`` at the layout's shard count: one call,
+    then ``REPEATS`` timed calls on inputs from seed 0."""
+    spec = get_spec(arch)
+    cell_meta = spec.shapes[shape]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    rec: dict = {
+        "arch": arch, "shape": shape, "step": cell_meta.step,
+        "mesh": "x".join(str(s) for s in mesh.shape),
+        "n_devices": mesh.size,
+        "kind": cell_meta.kind,
+        "device": str(dev),
+        "device_name": torch.cuda.get_device_name(dev) if on_card else "cpu",
+    }
+    if cell_meta.skip_reason is not None:
+        rec["status"] = "skipped"
+        rec["skip_reason"] = cell_meta.skip_reason
+        return rec
+    t0 = time.perf_counter()
+    try:
+        cell = build_cell(spec, shape, mesh)
+        cfg = spec.model_cfg
+        base_bytes = 0
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_bytes = torch.cuda.memory_allocated(dev)
+        args = cell_inputs(cell, cfg, device=dev)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t_inputs = time.perf_counter() - t0
+        t_first = time.perf_counter()
+        summary = _check_outputs(cell, cfg, cell.fn(*args))
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t_first = time.perf_counter() - t_first
+        wall_ms = []
+        for _ in range(REPEATS):
+            if on_card:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                cell.fn(*args)
+                end.record()
+                end.synchronize()
+                wall_ms.append(start.elapsed_time(end))
+            else:
+                t = time.perf_counter()
+                cell.fn(*args)
+                wall_ms.append((time.perf_counter() - t) * 1e3)
+        rec.update(
+            status="ok",
+            inputs_s=round(t_inputs, 3),
+            first_call_s=round(t_first, 3),
+            wall_ms=wall_ms,
+            # the cell's own: above what the device held before its inputs
+            peak_bytes=int(torch.cuda.max_memory_allocated(dev)) - base_bytes if on_card else None,
+            calls=1 + REPEATS,
+            input_shapes=[list(a.shape) for a in args],
+            model_flops_global=float(cell.model_flops_fn()),
+            result=summary,
+            notes=cell.notes,
+        )
+        del args
+        if verbose:
+            peak = f"{rec['peak_bytes'] / 2**20:.1f} MiB" if on_card else "not measured"
+            print(f"[dryrun] {arch} x {shape} ({rec['mesh']}, {rec['device_name']}): OK "
+                  f"wall={min(wall_ms):.3f} ms (of {REPEATS}) peak={peak} "
+                  f"first={t_first:.2f}s {summary}")
+    except Exception as e:  # a dry-run failure is a bug in the system
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+        if verbose:
+            print(f"[dryrun] {arch} x {shape}: FAIL {rec['error'][:200]}")
+    return rec
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true",
+                    help="every shape of --arch, or of every ported architecture")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    outdir = Path(args.out)
+    outdir.mkdir(parents=True, exist_ok=True)
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    targets: list[tuple[str, str]] = []
+    if args.all:
+        for arch in (args.arch,) if args.arch else PORTED_ARCH_IDS:
+            targets.extend((arch, name) for name in get_spec(arch).shapes)
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all")
+        targets.append((args.arch, args.shape))
+
+    n_fail = 0
+    for multi_pod in meshes:
+        for arch, shape in targets:
+            tag = "multipod" if multi_pod else "singlepod"
+            safe_shape = shape.replace("[", "_").replace("]", "")
+            path = outdir / f"{arch}__{safe_shape}__{tag}.json"
+            if path.exists():
+                prev = json.loads(path.read_text())
+                if prev.get("status") in ("ok", "skipped"):
+                    print(f"[dryrun] {arch} x {shape} ({tag}): cached")
+                    continue
+            rec = run_cell(arch, shape, multi_pod, device=args.device)
+            path.write_text(json.dumps(rec, indent=2))
+            if rec["status"] == "error":
+                n_fail += 1
+    print(f"[dryrun] done; {n_fail} failures")
+    raise SystemExit(1 if n_fail else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -342,3 +342,79 @@ def test_chaos_through_a_card_frontend_is_exact_or_flagged(cuda, tmp_path):
                 assert resp.stats.partial and _wire(resp) == _wire(degraded[0])
     m = svc.resilience_metrics()
     assert m["fired"] >= 2 and m["recoveries"] >= 1
+
+
+def _serve_cell(shape, device, seed=1):
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.dryrun import cell_inputs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+
+    spec = get_spec("paper_search")
+    cfg = spec.model_cfg
+    cell = build_cell(spec, shape, make_production_mesh())
+    args = cell_inputs(cell, cfg, seed=seed, device=device)
+    kw = dict(max_distance=cfg.max_distance, n_clusters=args[1].shape[2], window_len=cfg.window_len,
+              top_k=cfg.top_k)
+    return args, kw
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32"])
+def test_serve_step_kernel_path_equals_plain_at_n128(cuda, dtype):
+    """serve_online at the single-pod layout (256 shards folded: 65,536 rows
+    of 8 x 128, some all zero, a tenth of the clusters padded, postings out
+    of range): one cover launch a call, every output equal to the plain
+    path's."""
+    from repro_torch.search.serving_step import serve_step_sharded, serve_step_sharded_plain
+
+    args, kw = _serve_cell("serve_online", cuda)
+    launches = proximity_window.launches
+    got = serve_step_sharded(*args, **kw, compute_dtype=dtype)
+    assert proximity_window.launches == launches + 1
+    plain = serve_step_sharded_plain(*args, **kw, compute_dtype=dtype)
+    assert proximity_window.launches == launches + 1
+    assert torch.equal(got["n_fragments"], plain["n_fragments"]) and int(got["n_fragments"].sum()) > 0
+    assert torch.equal(got["top_docs"], plain["top_docs"])
+    assert torch.allclose(got["top_scores"], plain["top_scores"], rtol=1e-5, atol=0)
+
+
+def test_serve_step_tie_order_on_card(cuda):
+    """All-padded queries (-1.0) and queries without postings (0.0): the
+    lower cluster first on the card, as on the CPU."""
+    from repro_torch.search.serving_step import serve_step
+
+    rng = np.random.default_rng(2)
+    b, c, l, n = 6, 64, 8, 128
+    post = np.full((b, 32, 3), -1, np.int32)
+    post[3:, :, 0] = rng.integers(0, c, (3, 32))
+    post[3:, :, 1] = rng.integers(0, n, (3, 32))
+    post[3:, :, 2] = rng.integers(0, 2, (3, 32))
+    cd = rng.integers(0, 1000, (b, c)).astype(np.int32)
+    cd[0] = -1
+    cd[2, ::3] = -1
+    mult = np.zeros((b, l), np.int32)
+    mult[:, :2] = 1
+    kw = dict(max_distance=5, n_clusters=c, window_len=n, top_k=16)
+    card = serve_step(*(torch.from_numpy(x).to(cuda) for x in (post, cd, mult)), **kw)
+    cpu = serve_step(*(torch.from_numpy(x) for x in (post, cd, mult)), **kw)
+    assert torch.equal(card["top_docs"].cpu(), cpu["top_docs"])
+    assert torch.equal(card["n_fragments"].cpu(), cpu["n_fragments"])
+    assert torch.allclose(card["top_scores"].cpu(), cpu["top_scores"], rtol=1e-5, atol=0)
+    assert (card["top_scores"][0] == -1.0).all() and (card["top_scores"][1] == 0.0).all()
+
+
+@pytest.mark.parametrize("n_buckets", [65536, 1000])
+def test_build_step_on_card_equals_cpu(cuda, n_buckets):
+    """The uint32 hash and the int32 histogram bit for bit, negative tokens
+    included."""
+    from repro_torch.search.serving_step import build_step
+
+    rng = np.random.default_rng(n_buckets)
+    toks = rng.integers(0, 200, (256, 1024)).astype(np.int32)
+    toks[::7] = rng.integers(-(2**31), 2**31 - 1, (len(toks[::7]), 1024))
+    stop = toks < 80
+    card = build_step(torch.from_numpy(toks).to(cuda), torch.from_numpy(stop).to(cuda),
+                      max_distance=5, n_buckets=n_buckets)
+    cpu = build_step(torch.from_numpy(toks), torch.from_numpy(stop), max_distance=5, n_buckets=n_buckets)
+    assert torch.equal(card["bucket_histogram"].cpu(), cpu["bucket_histogram"])
+    assert int(card["n_postings"]) == int(cpu["n_postings"]) == int(cpu["bucket_histogram"].sum()) > 0

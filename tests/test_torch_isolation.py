@@ -3,8 +3,8 @@ package ``repro``, and serves a batch on the CPU with both blocked, over
 the host route, the posting arena and a sharded service, runs the scalar
 Combiner, builds, logs, snapshots, mutates and warm-starts an incremental
 sharded service, serves it under a seeded fault schedule, runs the daemon
-behind its TCP transport, bulk-builds with two spawn workers and runs the
-launcher."""
+behind its TCP transport, bulk-builds with two spawn workers, runs the
+launcher and runs reduced ``paper_search`` dry-run cells."""
 
 import os
 import re
@@ -89,6 +89,15 @@ assert stats.workers == 2 and stats.n_chunks == -(-len(store) // 5) > 2
 assert (bulk / "snap_0" / "manifest.json").exists()
 from repro_torch.launch.serve import main
 main(["--device", "cpu", "--n-docs", "30", "--arena-budget-mb", "0", "--queries", "who are you who"])
+from repro_torch.configs import get_reduced_spec
+from repro_torch.search.serving_step import build_step, serve_step, serve_step_sharded
+from repro_torch.launch.steps import build_cell, input_specs
+from repro_torch.launch import dryrun
+assert input_specs("paper_search", "serve_bulk")[0].shape == (256, 4096, 32, 3)
+dryrun.get_spec = get_reduced_spec
+for shape in ("serve_online", "build_chunk"):
+    rec = dryrun.run_cell("paper_search", shape, verbose=False, device="cpu")
+    assert rec["status"] == "ok", rec
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
@@ -119,7 +128,9 @@ def test_source_imports_neither_jax_nor_reference():
     assert {"checkpoint/__init__.py", "checkpoint/checkpoint.py", "index/fastbuild.py",
             "index/incremental.py", "index/store.py", "index/wal.py", "index/ingest.py",
             "runtime/fault_tolerance.py", "search/resilience.py", "search/service.py",
-            "launch/__init__.py", "launch/serve.py"} <= names
+            "launch/__init__.py", "launch/serve.py", "configs/__init__.py", "configs/common.py",
+            "configs/paper_search.py", "search/serving_step.py", "launch/mesh.py",
+            "launch/steps.py", "launch/dryrun.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources
