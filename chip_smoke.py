@@ -123,6 +123,31 @@ Phases, each printed with its seconds:
    (jax and the reference package blocked), which must exit 0 with four
    ``ok`` records under ``artifacts/``.
 
+11. the dense LM training path (``tinyllama-1.1b`` at its full width and
+   depth): (a) ``repro_torch.launch.dryrun.run_cell`` on the four runnable
+   cells at one data rank's share of the global batch (train_4k 16 x 4,096
+   in 2 microbatches, prefill_32k 2 x 32,768, decode_32k 8 sequences on a
+   32,768-token cache, long_500k[swa] 1 x 524,288 with a 4,096 window;
+   long_500k stays skipped), each with its wall ms, peak MiB and the model
+   TFLOP/s of the share, and a ``torch.profiler`` breakdown of one train_4k
+   step; the launch counters are set to 0 before and read after (this path
+   runs none of the three kernels); (b) ``flash_attention`` against
+   ``attention_plain`` at one layer's shapes (16 x 4,096, 32 heads, kv 4) in
+   bfloat16, within 2e-2 relative; (c) a prefill of 1,024 tokens and one
+   ``decode_step`` against a prefill of 1,025, all 22 layers, in float32
+   within 1e-4 relative and in bfloat16 within 5e-2; (d) one float32 train
+   step at full width with depth cut to 2 layers (seq 256, batch 2) on the
+   card against the port on this machine's CPU (metrics within rtol 1e-4,
+   params within atol 1e-5); (e) ``python -m repro_torch.launch.train
+   --arch tinyllama-1.1b --full-scale --steps 6`` in a fresh process, every
+   loss and grad norm finite, run beside phase 3's host-side index build
+   (the card otherwise idle); (f) beside phase 7's host-side builds,
+   checkpoint resume at full width with depth cut to 2 layers, under
+   ``torch.use_deterministic_algorithms(True)``: 4 steps straight against 2
+   steps, ``CheckpointManager.save_async`` and, in a fresh process,
+   ``restore_checkpoint`` and 2 more steps on the restored pipeline state —
+   params equal bit for bit; the checkpoint files are deleted after.
+
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
@@ -204,10 +229,12 @@ print(json.dumps({"restore_s": restore_s, "slate_ms": slate_ms, "digests": diges
 # snapshot, so recovery finds an intact one), the rounds served under it,
 # and the corpus of the launcher's own bulk-ingested cold start: at 4,096
 # documents its cold and warm starts outlast the rest of phase 9 (162 s of
-# phase 9 on an H100 80GB HBM3 at 700 W), so they run at half that
+# phase 9 on an H100 80GB HBM3 at 700 W), so they ran at half that; since
+# phase 11 joined the run (893.5 s of command time on the same card), at a
+# quarter
 CHAOS_SEED = 101
 CHAOS_ROUNDS = 10
-CLI_DOCS = 2048
+CLI_DOCS = 1024
 
 # phases 9c and 10: ``python -m <module> <args>`` in a fresh process, with
 # jax and the reference package blocked as in WARM_START
@@ -286,6 +313,81 @@ BUILD_DOCS, BUILD_DOC_LEN = 4096, 1024
 REAL_DATA_WINDOW = 256
 REAL_DATA_TOP_K = 16
 DRYRUN_OUT = ROOT / "artifacts" / "chip_smoke_dryrun"
+
+# phase 11: the dense LM path at tinyllama-1.1b's full width and depth; the
+# cells at one data rank's share (256 / 16 sequences for train_4k), train and
+# prefill timed once after their first call (each takes seconds)
+LM_ARCH = "tinyllama-1.1b"
+LM_CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k[swa]", "long_500k")
+LM_BF16_REL = 2e-2  # bfloat16 products rounded before the float32 softmax
+# (c) over all 22 layers: float32 (TF32 off) is the exact check; in bfloat16
+# the two paths round each layer's products apart (a decode's one-row
+# matmuls against the prefill's rows), and the residual stream carries the
+# difference through 22 layers: 1.70e-2 and 1.75e-2 in two runs (NVIDIA H100
+# 80GB HBM3), where the 2-layer CPU tests hold 2e-2
+LM_F32_REL = 1e-4
+LM_DECODE_BF16_REL = 5e-2
+LM_PREFILL = 1024  # (c): prefill S tokens, decode one, against a prefill of S + 1
+LM_CLI_STEPS = 6
+# (d) and (f): depth cut to 2 layers; (d) at seq 256, batch 2 (the CPU runs
+# it too), (f) on train_4k's sequence at batch 2 in 2 microbatches
+LM_CUT_LAYERS = 2
+LM_CKPT_BATCH = 2
+
+# (f): one trainer process: ``first`` runs 2 steps, saves them with
+# CheckpointManager.save_async and runs 2 more; ``resume`` restores the
+# step-2 checkpoint and its pipeline state and runs 2 steps.  Each prints
+# the sha256 of its final params and optimizer state, leaf by leaf in tree
+# order.  Deterministic algorithms in both.
+LM_RESUME = """
+import dataclasses, hashlib, os, sys, time
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+from repro_torch.configs import get_spec
+from repro_torch.tree import tree_leaves
+from repro_torch.data.pipeline import LMTokenPipeline, PipelineState
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import transformer
+from repro_torch.optim import adamw_init
+mode, arch, n_layers, batch, ckpt = sys.argv[2], sys.argv[3], int(sys.argv[4]), int(sys.argv[5]), sys.argv[6]
+spec = get_spec(arch)
+spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, n_layers=n_layers))
+cell = build_cell(spec, "train_4k", make_production_mesh())
+cfg = spec.model_cfg
+params = transformer.init_params(0, cfg, device="cuda")
+opt = adamw_init(params)
+pipe = LMTokenPipeline(cfg.vocab, spec.shapes["train_4k"].kwargs["seq_len"], batch, seed=0)
+if mode == "resume":
+    t = time.perf_counter()
+    state, step = restore_checkpoint(ckpt, {"params": params, "opt": opt, "pipe": pipe.state.as_tree()}, device="cuda")
+    torch.cuda.synchronize()
+    print(f"restore_checkpoint {time.perf_counter() - t:.2f} s", flush=True)
+    assert step == 2, step
+    params, opt = state["params"], state["opt"]
+    pipe.state = PipelineState.from_tree(state["pipe"])
+mgr = CheckpointManager(ckpt)
+for i in range(2 if mode == "resume" else 4):
+    batch_t = {k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()}
+    params, opt, m = cell.fn(params, opt, batch_t)
+    print(mode, "step", int(opt["step"]), {k: float(v) for k, v in m.items()}, flush=True)
+    if mode == "first" and i == 1:
+        t = time.perf_counter()
+        mgr.save_async(2, {"params": params, "opt": opt, "pipe": pipe.state.as_tree()})
+        print(f"save_async returned in {time.perf_counter() - t:.2f} s (the host copy)", flush=True)
+t = time.perf_counter()
+mgr.wait()
+if mode == "first":
+    print(f"wait for the write {time.perf_counter() - t:.2f} s after the last step", flush=True)
+digest = hashlib.sha256()
+for leaf in tree_leaves({"params": params, "opt": opt}):
+    digest.update(leaf.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+print("digest", int(opt["step"]), len(tree_leaves({"params": params, "opt": opt})), digest.hexdigest())
+"""
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -529,7 +631,291 @@ def paper_search_phase(torch, dev, index, subqueries, kernels, zero_counts, read
     phase("paper_search build corpus, card == cpu, real data, dry-run CLI (10b)", t10)
 
 
+def lm_phase(torch, dev, zero_counts, read_counts, cli: dict, ckpt: dict) -> dict:
+    """Phase 11 (see the module docstring) with the results of (e) and (f),
+    which ran beside phases 3 and 7; returns its summary."""
+    import dataclasses
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_spec
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import layers, transformer
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    t11 = time.perf_counter()
+    spec = get_spec(LM_ARCH)
+    cfg = spec.model_cfg
+    layout = make_production_mesh()
+    summary: dict = {"arch": LM_ARCH, "params": cfg.param_count(), "cells": {}}
+    print(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}), "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_count():,} params, {cfg.dtype}")
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the float32 checks need them off")
+
+    # ---- (a) the cells at one data rank's share ----
+    zero_counts()
+    for shape in LM_CELLS:
+        repeats = 1 if shape in ("train_4k", "prefill_32k") else dryrun.REPEATS
+        rec = dryrun.run_cell(LM_ARCH, shape, False, verbose=False, device=dev, repeats=repeats)
+        if spec.shapes[shape].skip_reason is not None:
+            require(rec["status"] == "skipped", f"{shape}: {rec['status']}, not skipped as in the reference")
+            print(f"cell {shape}: skipped ({rec['skip_reason'][:60]}...)")
+            summary["cells"][shape] = {"status": "skipped"}
+            continue
+        require(rec["status"] == "ok", f"{shape}: {rec.get('error')}\n{rec.get('traceback')}")
+        wall = min(rec["wall_ms"])
+        tflops = rec["model_flops_share"] / wall / 1e9
+        peak = rec["peak_bytes"] / 2**20
+        inputs = rec["input_shapes"][2] if shape == "train_4k" else rec["input_shapes"][1:]
+        print(f"cell {shape}: {rec['notes']}; inputs {json.dumps(inputs)}; "
+              f"wall {[round(x, 3) for x in rec['wall_ms']]} ms (first call {rec['first_call_s']:.2f} s), "
+              f"peak {peak:.1f} MiB, {tflops:.2f} model TFLOP/s of the share, {rec['result']}")
+        summary["cells"][shape] = {"wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"],
+                                   "peak_mib": peak, "model_tflops": tflops, "result": rec["result"]}
+        torch.cuda.empty_cache()
+    counts = read_counts("LM cells (phase 11a)")
+    require(all(v == 0 for v in counts.values()), f"the LM path launched a search kernel: {counts}")
+    t11 = phase("LM dry-run cells at the data-rank share (11a)", t11)
+
+    # one train_4k step under the profiler: device busy share, top kernels
+    cell = build_cell(spec, "train_4k", layout)
+    share, _ = dryrun.data_share(spec.shapes["train_4k"].kwargs["global_batch"], layout)
+    args = dryrun.cell_inputs(cell, cfg, device=dev, batch=share)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_step = time.perf_counter()
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_step) * 1e3
+    del out
+    # the optimizer alone at the same shapes (the params stand in for the
+    # gradients: the update's work does not depend on their values)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    adamw_update(args[0], args[1], AdamWConfig())
+    ev0.record()
+    adamw_update(args[0], args[1], AdamWConfig())
+    ev1.record()
+    ev1.synchronize()
+    adamw_ms = ev0.elapsed_time(ev1)
+    del args
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in dev_events
+                  if any(w in e.key.lower() for w in ("gemm", "cutlass", "nvjet", "xmma", "sm90"))) / 1e3
+    print(f"profiled train_4k step: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), of which matmul kernels {gemm_ms:.1f} ms "
+          f"({100 * gemm_ms / busy_ms:.1f}%), {sum(e.count for e in dev_events)} kernel launches; "
+          f"adamw_update alone {adamw_ms:.1f} ms")
+    for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.1f} ms x{e.count:<6d} {e.key[:100]}")
+    summary["train_4k_profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "matmul_ms": gemm_ms,
+                                   "adamw_ms": adamw_ms}
+    del prof, dev_events
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = phase("train_4k step under torch.profiler", t11)
+
+    # ---- (b) flash_attention against one masked softmax, one layer ----
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s, dh = share, spec.shapes["train_4k"].kwargs["seq_len"], cfg.d_head
+    q = torch.randn((b, s, cfg.n_heads, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((b, s, cfg.n_kv_heads, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn((b, s, cfg.n_kv_heads, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        flash = layers.flash_attention(q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        t_flash = cuda_ms(torch, lambda: layers.flash_attention(q, k, v, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk), 3)
+        # the plain softmax materializes [rows, heads, S, S] in float32: two rows at a time
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        plain = torch.cat([layers.attention_plain(q[i:i + 2], k[i:i + 2], v[i:i + 2]) for i in range(0, b, 2)])
+        ev1.record()
+        ev1.synchronize()
+    err_b = rel(flash, plain)
+    max_b = float((flash.float() - plain.float()).abs().max())
+    require(flash.dtype == torch.bfloat16 and err_b < LM_BF16_REL,
+            f"flash_attention vs attention_plain: relative error {err_b:.3e} (limit {LM_BF16_REL})")
+    print(f"flash_attention vs attention_plain at {tuple(q.shape)} q, {tuple(k.shape)} kv, bf16: relative error "
+          f"{err_b:.3e} (limit {LM_BF16_REL}), max abs {max_b:.3e}; {timing('flash', t_flash)}, plain "
+          f"{ev0.elapsed_time(ev1):.1f} ms (one call)")
+    summary["flash_vs_plain"] = {"rel_err": err_b, "max_abs": max_b, "flash_ms": t_flash[0],
+                                 "plain_ms": ev0.elapsed_time(ev1)}
+    del q, k, v, flash, plain
+    torch.cuda.empty_cache()
+    t11 = phase("flash_attention vs plain softmax, one layer (11b)", t11)
+
+    # ---- (c) prefill S then decode one token vs prefill of S + 1 ----
+    tokens = torch.randint(0, cfg.vocab, (2, LM_PREFILL + 1), generator=gen, device=dev)
+    summary["decode_vs_prefill"] = {}
+    for dtype, limit in (("float32", LM_F32_REL), ("bfloat16", LM_DECODE_BF16_REL)):
+        dcfg = dataclasses.replace(cfg, dtype=dtype)
+        params = transformer.init_params(SEED, dcfg, device=dev)
+        # both prefills as one attention tile (S = 1,024 is the config's
+        # chunk; S + 1 = 1,025 gets a chunk of its own, where the gcd fallback
+        # of 1,024 would be 1)
+        cfg_long = dataclasses.replace(dcfg, q_chunk=LM_PREFILL + 1, kv_chunk=LM_PREFILL + 1)
+        with torch.no_grad():
+            _, cache = transformer.prefill_step(params, tokens[:, :LM_PREFILL], dcfg)
+            cache = {n: torch.cat([c, torch.zeros_like(c[:, :, :1])], dim=2) for n, c in cache.items()}
+            logits, new_cache = transformer.decode_step(params, cache, tokens[:, LM_PREFILL:], LM_PREFILL, dcfg)
+            want, want_cache = transformer.prefill_step(params, tokens, cfg_long)
+        err_c = rel(logits, want)
+        err_kv = max(rel(new_cache[n][:, :, LM_PREFILL], want_cache[n][:, :, LM_PREFILL]) for n in ("k", "v"))
+        require(err_c < limit and err_kv < limit,
+                f"decode vs prefill, {dtype}: logits relative error {err_c:.3e}, written cache row {err_kv:.3e}")
+        print(f"prefill {LM_PREFILL} + decode_step vs prefill {LM_PREFILL + 1}, {cfg.n_layers} layers, {dtype}: "
+              f"logits relative error {err_c:.3e}, written cache row {err_kv:.3e} (limit {limit}); top-1 tokens "
+              f"{logits.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
+        summary["decode_vs_prefill"][dtype] = {"logits_rel_err": err_c, "cache_rel_err": err_kv}
+        del params, cache, new_cache, want_cache, logits, want
+        torch.cuda.empty_cache()
+    t11 = phase("prefill + decode vs prefill, all layers (11c)", t11)
+
+    # ---- (d) a float32 train step, depth cut, card vs this machine's CPU ----
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS, dtype="float32")
+    short = ShapeCell(name="train_4k", step="train", kind="training", kwargs={"seq_len": 256, "global_batch": 2})
+    cut_spec = dataclasses.replace(spec, model_cfg=cut, shapes={"train_4k": short})
+    cell = build_cell(cut_spec, "train_4k", layout)
+    cpu_args = dryrun.cell_inputs(cell, cut, device="cpu", batch=2)
+    card_args = tree_map(lambda t: t.to(dev), cpu_args)
+    t_cpu = time.perf_counter()
+    cpu_p, cpu_o, cpu_m = cell.fn(*cpu_args)
+    t_cpu = time.perf_counter() - t_cpu
+    card_p, card_o, card_m = cell.fn(*card_args)
+    torch.cuda.synchronize()
+    m_err = {k: abs(float(card_m[k]) - float(cpu_m[k])) / max(abs(float(cpu_m[k])), 1e-30) for k in cpu_m}
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    o_err = max(float((a.cpu().float() - b.float()).abs().max())
+                for a, b in zip(tree_leaves(card_o["master"]), tree_leaves(cpu_o["master"])))
+    require(all(e < 1e-4 for e in m_err.values()) and p_err < 1e-5 and o_err < 1e-5,
+            f"float32 train step card vs cpu: metrics {m_err}, params max abs {p_err:.3e}, master {o_err:.3e}")
+    print(f"float32 train step, {LM_CUT_LAYERS} layers at full width, 2 x 256 tokens: card == cpu (metrics "
+          f"relative {max(m_err.values()):.2e} < 1e-4, params max abs {p_err:.2e} and master {o_err:.2e} < 1e-5; "
+          f"loss {float(card_m['loss']):.6f}); cpu step {t_cpu:.1f} s")
+    summary["float32_step_card_vs_cpu"] = {"metrics_rel": max(m_err.values()), "params_abs": p_err}
+    del cpu_args, card_args, cpu_p, cpu_o, card_p, card_o
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = phase("float32 train step card vs cpu, 2 layers (11d)", t11)
+
+    # ---- (e) and (f), run beside phases 3 and 7: their results ----
+    for line in cli["lines"]:
+        print(f"  {line}")
+    print(f"python -m repro_torch.launch.train --full-scale --steps {LM_CLI_STEPS} (beside phase 3's host-side "
+          f"index build): exit 0, every loss and grad norm finite; process {cli['process_s']:.1f} s")
+    summary["cli"] = {k: cli[k] for k in ("steps", "done", "process_s")}
+    for line in ckpt["lines"]:
+        print(f"  {line}")
+    print(f"checkpoint resume, {LM_CUT_LAYERS} layers at full width, {LM_CKPT_BATCH} x 4,096 tokens, "
+          f"deterministic (beside phase 7's host-side builds): 4 steps straight == 2 steps + save_async "
+          f"({ckpt['ckpt_mib']:.0f} MiB on disk) + fresh-process restore + 2 steps, all {ckpt['leaves']} leaves "
+          f"(params, m, v, master, step) bit for bit (sha256 {ckpt['sha256'][:16]}); processes "
+          f"{ckpt['process_s'][0]:.1f} s and {ckpt['process_s'][1]:.1f} s")
+    summary["checkpoint_resume"] = {k: ckpt[k] for k in ("ckpt_mib", "leaves", "sha256", "process_s")}
+    return summary
+
+
+def lm_cli_start(procs: list):
+    """Phase 11e: ``python -m repro_torch.launch.train --full-scale`` in a
+    fresh process (jax and the reference package blocked), started beside
+    phase 3's host-side index build, when the card is otherwise idle."""
+    argv = ["--arch", LM_ARCH, "--full-scale", "--steps", str(LM_CLI_STEPS), "--device", "cuda"]
+    proc = subprocess.Popen([sys.executable, "-c", RUN_MODULE, "repro_torch.launch.train", *argv],
+                            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs.append(proc)
+    return proc, time.perf_counter()
+
+
+def lm_cli_finish(proc, t_start: float) -> dict:
+    """Wait for the trainer of ``lm_cli_start`` and check what it printed:
+    steps 0 and 5 and the ``done:`` line, every loss and grad norm finite."""
+    out, err = proc.communicate(timeout=600)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    require(proc.returncode == 0, f"the trainer exited {proc.returncode}: {err[-3000:]}\n{out[-2000:]}")
+    steps = [dict(kv.split("=") for kv in ln.split()[2:]) for ln in lines if ln.startswith("step ")]
+    require([int(ln.split()[1]) for ln in lines if ln.startswith("step ")] == [0, 5] and lines[-1].startswith(
+        f"done: {LM_CLI_STEPS} steps"), f"the trainer printed {lines}")
+    require(all(math.isfinite(float(st[k])) for st in steps for k in ("loss", "grad_norm")),
+            f"a loss or grad norm is not finite: {steps}")
+    return {"lines": lines, "steps": steps, "done": lines[-1], "process_s": time.perf_counter() - t_start}
+
+
+def lm_resume_check(procs: list) -> dict:
+    """Phase 11f: the checkpoint-resume check of ``LM_RESUME`` in two fresh
+    processes, one after the other (on a thread beside phase 7's host-side
+    builds); the checkpoint files are deleted after."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    lines, seconds, digests = [], [], {}
+    try:
+        for mode in ("first", "resume"):
+            t_run = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-c", LM_RESUME, str(ROOT / "src"), mode, LM_ARCH,
+                                     str(LM_CUT_LAYERS), str(LM_CKPT_BATCH), str(work)],
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(proc)
+            out, err = proc.communicate(timeout=600)
+            require(proc.returncode == 0, f"checkpoint {mode} run exited {proc.returncode}: {err[-3000:]}")
+            lines += [ln for ln in out.splitlines() if ln.strip()]
+            seconds.append(time.perf_counter() - t_run)
+            digests[mode] = [ln.split()[1:] for ln in out.splitlines() if ln.startswith("digest ")]
+            if mode == "first":
+                ckpt_mib = sum(p.stat().st_size for p in work.rglob("*") if p.is_file()) / 2**20
+        require(digests["first"] == digests["resume"] and len(digests["first"]) == 1
+                and digests["first"][0][0] == "4",
+                f"resumed params and state != straight ones: {digests}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(not work.exists(), f"{work} was not deleted")
+    return {"lines": lines, "ckpt_mib": ckpt_mib, "leaves": int(digests["first"][0][1]),
+            "sha256": digests["first"][0][2], "process_s": seconds}
+
+
+class Background:
+    """``fn()`` on a thread; ``result()`` joins it and re-raises its error."""
+
+    def __init__(self, fn):
+        self._out: dict = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as e:  # re-raised by result()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self, timeout: float = 900):
+        self._thread.join(timeout)
+        require(not self._thread.is_alive(), "a background check did not finish")
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+
 def main() -> int:
+    procs: list = []  # every process the run starts beside its phases
+    try:
+        return _main(procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _main(procs: list) -> int:
     import numpy as np
     import torch
 
@@ -605,7 +991,7 @@ def main() -> int:
         # device busy share of one fresh slate, from the profiler's kernel
         # and copy events (one stream: they do not overlap)
         fe = make_fe()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t_serve = time.perf_counter()
             fe.search_many(requests)
             torch.cuda.synchronize()
@@ -637,6 +1023,10 @@ def main() -> int:
         print(f"built {src_name}.cu: " + " | ".join(ln.strip() for ln in ptxas))
     t0 = phase("kernel build (nvcc, parallel)", t0)
 
+    # phase 11e beside phase 3: the trainer at full scale while the host
+    # builds the index and the card is otherwise idle
+    lm_cli = lm_cli_start(procs)
+
     # ---- 3. index ------------------------------------------------------------
     store = synthesize_corpus(n_docs=N_DOCS, doc_len=DOC_LEN, vocab_size=VOCAB, seed=SEED)
     fl = FLList.from_frequencies(store.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
@@ -653,6 +1043,8 @@ def main() -> int:
     print(f"index: {len(store)} docs, {store.total_positions()} positions, "
           f"{index.size_bytes()['total'] / 2**20:.1f} MiB of postings, {len(triples)} triple keys")
     t0 = phase("corpus + index build (host)", t0)
+    lm_cli = lm_cli_finish(*lm_cli)
+    t0 = phase("the rest of the trainer CLI (11e) after phase 3", t0)
 
     # ---- 4. main path, host route ------------------------------------------
     def step1_folds(views):
@@ -1193,6 +1585,8 @@ def main() -> int:
     # the first SHARDED_DOCS documents of phase 3's store: every key of every
     # shard is built, and two cold acquires build and copy every family
     shard_store = DocumentStore(documents=store.documents[:SHARDED_DOCS], lemmatizer=lem)
+    # phase 11f beside the host-side builds below
+    lm_ckpt = Background(lambda: lm_resume_check(procs))
     t_build = time.perf_counter()
     svc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
                                max_distance=MAX_DISTANCE, device="cuda")
@@ -1215,6 +1609,8 @@ def main() -> int:
                                            for k in select_keys(sub, fl_one) if k.arity == 3})
     single_cpu = ServingFrontend(one, lemmatizer=lem, max_batch=16, device="cpu").search_many(full)
     t0 = phase("sharded service and single-index build (host), single-index cpu host route", t0)
+    lm_ckpt = lm_ckpt.result()
+    t0 = phase("the rest of the checkpoint resume check (11f) after the builds", t0)
 
     def sharded_route(path, make_fe, expect):
         """The slate once through a fresh frontend with the launch counters
@@ -1836,6 +2232,10 @@ def main() -> int:
 
     # ---- 10. the paper_search device steps ------------------------------------
     paper_search_phase(torch, dev, index, subs, kernels, zero_counts, read_counts)
+
+    # ---- 11. the dense LM training path -----------------------------------------
+    lm = lm_phase(torch, dev, zero_counts, read_counts, lm_cli, lm_ckpt)
+    print("lm phase: " + json.dumps(lm))
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

@@ -1,14 +1,20 @@
-"""Durable-write primitives (DESIGN.md §12.4), shared by the index store
-(``index/store.py``) and the write-ahead log (``index/wal.py``).
+"""Train-state checkpoints and durable-write primitives (DESIGN.md §12.4).
 
+The durable-write helpers are shared by the index store (``index/store.py``),
+the write-ahead log (``index/wal.py``) and the train-state checkpoints.
 Writes go to a temporary name and are published by a rename only after the
 manifest fsyncs, so a crash mid-write never corrupts the latest artifact;
-retention deletes old entries only after a newer one is durable.  The bytes
-these helpers write are the reference package's, byte for byte: a snapshot
-or log written by either package reads in the other.
+retention deletes old entries only after a newer one is durable.
 
-The reference module's train-state half (``save_checkpoint``,
-``restore_checkpoint``, ``CheckpointManager``) is not ported yet.
+A train-state checkpoint is the reference's on-disk format: ``step_<n>/``
+holds ``arrays.npz`` (leaves ``a0``, ``a1``, ... in ``jax.tree.flatten``
+order: dict keys sorted) and ``manifest.json`` (``step``, ``n_leaves``, the
+``PyTreeDef(...)`` string, ``time``, ``leaf_shapes``, ``leaf_dtypes``).  A
+bfloat16 leaf is stored as raw 2-byte words under the reference's header
+(``'<V2'``) and named ``bfloat16`` in the manifest, so every ``.npy`` entry
+is the reference's byte for byte and no ml_dtypes is needed to read it back.
+Unlike the reference, whose restore returns such leaves as raw ``V2`` arrays,
+``restore_checkpoint`` reads ``leaf_dtypes`` and returns ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -16,10 +22,23 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
+import time
+import zipfile
 from pathlib import Path
 from typing import Any
 
+import numpy as np
+import torch
+
+from ..models.convert import leaf_from_numpy, leaf_to_numpy
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten, treedef_str
+
 __all__ = [
+    "save_checkpoint",
+    "restore_checkpoint",
+    "latest_step",
+    "CheckpointManager",
     "fsync_json",
     "append_durable",
     "replace_dir",
@@ -114,3 +133,120 @@ def _numbered(directory: Path, prefix: str) -> list[tuple[int, Path]]:
         except ValueError:
             continue
     return out
+
+
+def _savez(path: Path, leaves: list[np.ndarray], bf16: list[bool]) -> None:
+    """``np.savez(path, a0=..., a1=...)``, with each bfloat16 leaf (raw
+    2-byte words) under the header ml_dtypes' bfloat16 gives (``'<V2'``)."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for i, (leaf, is_bf16) in enumerate(zip(leaves, bf16)):
+            with zf.open(f"a{i}.npy", "w", force_zip64=True) as fid:
+                if not is_bf16:
+                    np.lib.format.write_array(fid, leaf, allow_pickle=False)
+                    continue
+                header = np.lib.format.header_data_from_array_1_0(leaf)
+                header["descr"] = "<V2"
+                np.lib.format.write_array_header_1_0(fid, header)
+                fid.write(leaf.tobytes(order="C"))
+
+
+def save_checkpoint(directory: str | Path, step: int, payload: Any, keep: int = 3) -> Path:
+    """Atomic synchronous save of a tree ``payload`` of tensors and numpy
+    arrays (DESIGN.md §12.4 write protocol: tmp dir -> manifest fsync ->
+    rename)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / f"step_{step}.tmp"
+    final = directory / f"step_{step}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+    raw = tree_leaves(payload)
+    bf16 = [isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16 for x in raw]
+    leaves = [leaf_to_numpy(x) for x in raw]
+    _savez(tmp / "arrays.npz", leaves, bf16)
+    meta = {
+        "step": step,
+        "n_leaves": len(leaves),
+        "treedef": treedef_str(payload),
+        "time": time.time(),
+        "leaf_shapes": [list(x.shape) for x in leaves],
+        "leaf_dtypes": ["bfloat16" if b else str(x.dtype) for x, b in zip(leaves, bf16)],
+    }
+    fsync_json(tmp / _MANIFEST, meta)
+    replace_dir(tmp, final)
+    retain_latest(directory, "step", keep)
+    return final
+
+
+def latest_step(directory: str | Path) -> int | None:
+    """Highest durable checkpoint step in ``directory`` (DESIGN.md §12.4)."""
+    return latest_numbered(directory, "step")
+
+
+def restore_checkpoint(
+    directory: str | Path,
+    template: Any,
+    step: int | None = None,
+    *,
+    device="cuda",
+) -> tuple[Any, int] | None:
+    """Restore the checkpoint at ``step`` (default the latest) into the
+    structure of ``template``, every leaf a tensor on ``device`` (bfloat16
+    where the manifest says so); ``None`` when there is none."""
+    directory = Path(directory)
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        return None
+    path = directory / f"step_{step}"
+    meta = json.loads((path / _MANIFEST).read_text())
+    with np.load(path / "arrays.npz") as z:
+        arrays = [z[f"a{i}"] for i in range(len(z.files))]
+    _, treedef = tree_flatten(template)
+    if len(arrays) != meta["n_leaves"] or len(arrays) != len(tree_leaves(template)):
+        raise ValueError(f"{path}: {len(arrays)} leaves, the manifest says {meta['n_leaves']}, "
+                         f"the template has {len(tree_leaves(template))}")
+    leaves = []
+    for a, dtype in zip(arrays, meta["leaf_dtypes"]):
+        if (dtype == "bfloat16") != (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+            raise ValueError(f"{path}: a leaf of dtype {a.dtype} named {dtype} in the manifest")
+        leaves.append(leaf_from_numpy(a, device))
+    return tree_unflatten(treedef, leaves), step
+
+
+class CheckpointManager:
+    """Async double-buffered manager (DESIGN.md §12.4: one write in flight,
+    errors surfaced on ``wait``)."""
+
+    def __init__(self, directory: str | Path, keep: int = 3):
+        self.directory = Path(directory)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save_async(self, step: int, payload: Any) -> None:
+        """Copy ``payload`` to host memory on the calling thread, then write
+        it on a background thread."""
+        self.wait()  # one in flight at a time (double buffering)
+        host = tree_map(
+            lambda x: x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else np.array(x), payload)
+
+        def _write():
+            try:
+                save_checkpoint(self.directory, step, host, keep=self.keep)
+            except BaseException as e:  # surfaced on next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore_latest(self, template: Any, *, device="cuda"):
+        return restore_checkpoint(self.directory, template, device=device)

@@ -3,6 +3,7 @@ full shape, and record its time and peak device memory.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch paper_search --shape serve_online
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch paper_search --all \\
       [--multi-pod] [--both-meshes] [--out artifacts/dryrun] [--device cuda]
 
@@ -14,7 +15,11 @@ the outputs' shapes, and records the card's own numbers: wall ms of a few
 runs by CUDA events (host clock on the CPU), the peak bytes allocated above
 what the device held before the cell, and the device's name.  The mesh's
 shard count (NS) shapes the serve cells as in the reference; their shards
-are folded into one program.  Records of cells that ran are cached in
+are folded into one program.  An LM cell runs one data rank's share of its
+global batch (``global_batch // data``, ``data`` 16 on one pod and 32 on
+two, at least 1) at the cell's full sequence length and the config's full
+width and depth; its record keeps the global batch's ``model_flops_global``
+and adds the share's.  Records of cells that ran are cached in
 ``--out`` and skipped on the next run; the exit code is 1 when any cell
 failed.
 """
@@ -31,7 +36,11 @@ from pathlib import Path
 import torch
 
 from ..configs import PORTED_ARCH_IDS, get_spec
-from .mesh import make_production_mesh
+from ..data.pipeline import LMTokenPipeline
+from ..models import transformer
+from ..optim import adamw_init
+from ..tree import tree_leaves
+from .mesh import MeshLayout, make_production_mesh
 from .steps import Cell, build_cell
 
 __all__ = ["cell_inputs", "run_cell", "main"]
@@ -47,7 +56,34 @@ WILD_POSTING_SHARE = 1 / 512
 REPEATS = 3
 
 
-def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda") -> tuple[torch.Tensor, ...]:
+def data_share(global_batch: int, mesh: MeshLayout) -> tuple[int, int]:
+    """(one data rank's share of ``global_batch``, the number of data
+    ranks): the product of the layout's ``pod`` and ``data`` axes."""
+    data = math.prod(n for n, a in zip(mesh.shape, mesh.axis_names) if a in ("pod", "data"))
+    return max(1, global_batch // data), data
+
+
+def _lm_inputs(cell: Cell, cfg, batch: int, seed: int, dev: torch.device) -> tuple:
+    """Params from the seed, and the step's other inputs at ``batch`` rows:
+    Zipf tokens from ``LMTokenPipeline`` (train and prefill), or a cache of
+    N(0, 1) values filled to its last row with one new token (decode)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = transformer.init_params(gen, cfg, device=dev)
+    if cell.step == "decode":
+        _, _, seq, hkv, dh = cell.abstract_args[1]["k"].shape
+        shape = (cfg.n_layers, batch, seq, hkv, dh)
+        cache = {k: torch.randn(shape, generator=gen, dtype=cfg.torch_dtype, device=dev) for k in ("k", "v")}
+        tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev, dtype=torch.int32)
+        return params, cache, tokens, torch.tensor(seq - 1, dtype=torch.int32, device=dev)
+    seq = cell.abstract_args[-1]["tokens"].shape[1]
+    host = LMTokenPipeline(cfg.vocab, seq, batch, seed=seed).next_batch()
+    bat = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    if cell.step == "prefill":
+        return params, {"tokens": bat["tokens"]}
+    return params, adamw_init(params), bat
+
+
+def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda", batch: int | None = None) -> tuple:
     """Seeded inputs at the cell's shapes on ``device``, dense enough that
     covers fire.
 
@@ -56,10 +92,16 @@ def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda") -> tuple[torch
     the cover's window and placed in a random cluster of the shard; about a
     tenth of the clusters are padded (-1) and a few postings lie out of
     range.  Build cells: log-uniform FL-numbers (frequent lemmas dominate, as
-    in text), the smallest ``STOP_LEMMAS`` of them stop lemmas.  The same
-    seed on the same device gives the same inputs.
+    in text), the smallest ``STOP_LEMMAS`` of them stop lemmas.  LM cells:
+    see ``_lm_inputs``, at ``batch`` rows (default the cell's global batch).
+    The same seed on the same device gives the same inputs.
     """
     dev = torch.device(device)
+    if cell.step in ("train", "prefill", "decode"):
+        if batch is None:  # the global batch: the tokens' leading extent
+            tokens = cell.abstract_args[2] if cell.step == "decode" else cell.abstract_args[-1]["tokens"]
+            batch = tokens.shape[0]
+        return _lm_inputs(cell, cfg, batch, seed, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randint(lo: int, hi: int, shape) -> torch.Tensor:
@@ -101,8 +143,32 @@ def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda") -> tuple[torch
     return postings.to(torch.int32), cluster_doc.to(torch.int32), mult.to(torch.int32)
 
 
-def _check_outputs(cell: Cell, cfg, out: dict) -> dict:
+def _check_lm_outputs(cell: Cell, cfg, args: tuple, out) -> dict:
+    if cell.step == "train":
+        new_params, new_state, metrics = out
+        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+        if bad or int(new_state["step"]) != int(args[1]["step"]) + 1:
+            raise AssertionError(f"train outputs: metrics {bad} not finite, or step {int(new_state['step'])}")
+        for old, new in zip(tree_leaves(args[0]), tree_leaves(new_params)):
+            if new.shape != old.shape or new.dtype != old.dtype:
+                raise AssertionError(f"train outputs: a param {tuple(old.shape)} {old.dtype} became "
+                                     f"{tuple(new.shape)} {new.dtype}")
+        return {k: float(v) for k, v in metrics.items()}
+    logits, cache = out
+    b = args[1]["tokens"].shape[0] if cell.step == "prefill" else args[2].shape[0]
+    if logits.shape != (b, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cell.step} outputs: logits {tuple(logits.shape)} (want ({b}, {cfg.vocab})), finite")
+    want = args[1]["k"].shape if cell.step == "decode" else (
+        cfg.n_layers, b, args[1]["tokens"].shape[1], cfg.n_kv_heads, cfg.d_head)
+    if cache["k"].shape != want or cache["v"].shape != want:
+        raise AssertionError(f"{cell.step} outputs: cache {tuple(cache['k'].shape)}, want {tuple(want)}")
+    return {"logits_absmax": float(logits.abs().max())}
+
+
+def _check_outputs(cell: Cell, cfg, out, args: tuple) -> dict:
     """The outputs' shapes and invariants; a summary for the record."""
+    if cell.step in ("train", "prefill", "decode"):
+        return _check_lm_outputs(cell, cfg, args, out)
     if cell.step == "build":
         hist, total = out["bucket_histogram"], out["n_postings"]
         if hist.shape != (cfg.build_buckets,) or int(hist.sum()) != int(total):
@@ -121,9 +187,16 @@ def _check_outputs(cell: Cell, cfg, out: dict) -> dict:
     return {"n_fragments": int(nfrag.sum()), "queries_with_fragments": int((nfrag > 0).sum())}
 
 
-def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = True, *, device="cuda") -> dict:
+def _shapes(x):
+    if isinstance(x, dict):
+        return {k: _shapes(v) for k, v in x.items()}
+    return list(x.shape)
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = True, *, device="cuda",
+             repeats: int = REPEATS) -> dict:
     """Run one cell on ``device`` at the layout's shard count: one call,
-    then ``REPEATS`` timed calls on inputs from seed 0."""
+    then ``repeats`` timed calls on inputs from seed 0."""
     spec = get_spec(arch)
     cell_meta = spec.shapes[shape]
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -144,23 +217,28 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
     t0 = time.perf_counter()
     try:
         cell = build_cell(spec, shape, mesh)
-        cfg = spec.model_cfg
+        cfg = spec.cfg_for(shape)
+        lm = spec.family == "lm"
+        share = None
+        if lm:
+            global_batch = cell_meta.kwargs["global_batch"]
+            share, data = data_share(global_batch, mesh)
         base_bytes = 0
         if on_card:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             base_bytes = torch.cuda.memory_allocated(dev)
-        args = cell_inputs(cell, cfg, device=dev)
+        args = cell_inputs(cell, cfg, device=dev, batch=share)
         if on_card:
             torch.cuda.synchronize(dev)
         t_inputs = time.perf_counter() - t0
         t_first = time.perf_counter()
-        summary = _check_outputs(cell, cfg, cell.fn(*args))
+        summary = _check_outputs(cell, cfg, cell.fn(*args), args)
         if on_card:
             torch.cuda.synchronize(dev)
         t_first = time.perf_counter() - t_first
         wall_ms = []
-        for _ in range(REPEATS):
+        for _ in range(repeats):
             if on_card:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
@@ -179,17 +257,25 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
             wall_ms=wall_ms,
             # the cell's own: above what the device held before its inputs
             peak_bytes=int(torch.cuda.max_memory_allocated(dev)) - base_bytes if on_card else None,
-            calls=1 + REPEATS,
-            input_shapes=[list(a.shape) for a in args],
+            calls=1 + repeats,
+            input_shapes=[_shapes(a) for a in args],
             model_flops_global=float(cell.model_flops_fn()),
             result=summary,
             notes=cell.notes,
         )
+        if lm:
+            # every LM useful-work model is linear in the batch
+            rec["model_flops_share"] = rec["model_flops_global"] * share / global_batch
+            rec["notes"] = "; ".join(x for x in (
+                f"data-rank share: batch {share} of global batch {global_batch} ({data} data ranks)",
+                cell.notes) if x)
         del args
         if verbose:
             peak = f"{rec['peak_bytes'] / 2**20:.1f} MiB" if on_card else "not measured"
+            rate = (f" share {rec['model_flops_share'] / min(wall_ms) / 1e9:.1f} model TFLOP/s"
+                    if lm and on_card else "")
             print(f"[dryrun] {arch} x {shape} ({rec['mesh']}, {rec['device_name']}): OK "
-                  f"wall={min(wall_ms):.3f} ms (of {REPEATS}) peak={peak} "
+                  f"wall={min(wall_ms):.3f} ms (of {repeats}) peak={peak}{rate} "
                   f"first={t_first:.2f}s {summary}")
     except Exception as e:  # a dry-run failure is a bug in the system
         rec["status"] = "error"

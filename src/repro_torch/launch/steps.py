@@ -1,14 +1,15 @@
 """Cell builder: (architecture, shape) -> step function + abstract inputs.
 
-The search half of the reference's ``launch/steps.py``: the ``paper_search``
-cells.  The abstract inputs are ``device="meta"`` tensors, which carry the
+The reference's ``launch/steps.py`` for the dense LM cells (train, prefill,
+decode) and the ``paper_search`` cells; the dry-run and the trainer share
+it.  The abstract inputs are ``device="meta"`` tensors, which carry the
 reference's shapes and dtypes and allocate nothing (the counterpart of
-``jax.ShapeDtypeStruct``).  The reference also gives each cell partition
-specs over its device mesh; on one card there is no mesh, and the layout's
-size only sets the number of cluster shards a serve cell folds into one
-program (``search/serving_step.serve_step_sharded``).  The lm, gnn and recsys
-families are seed scaffolding off the search path and raise
-``NotImplementedError``.
+``jax.ShapeDtypeStruct``); an LM cell's are at its global batch.  The
+reference also gives each cell partition specs over its device mesh; on one
+card there is no mesh, and the layout's size only sets the number of cluster
+shards a serve cell folds into one program
+(``search/serving_step.serve_step_sharded``).  The gnn and recsys families
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ from typing import Any, Callable
 import torch
 
 from ..configs.common import ArchSpec, ShapeCell
+from ..models import transformer
+from ..optim import AdamWConfig, adamw_init, adamw_update, cast_like, global_norm
 from ..search.serving_step import build_step, serve_step_sharded
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .mesh import MeshLayout
 
 __all__ = ["Cell", "build_cell", "input_specs"]
@@ -38,6 +42,104 @@ class Cell:
     abstract_args: tuple
     model_flops_fn: Callable[[], float]  # useful-work model
     notes: str = ""
+
+
+def _value_and_grad(params, batch, cfg):
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: (loss, metrics), and
+    the gradients as a tree like ``params``; ``params`` is not modified."""
+    leaves, treedef = tree_flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    loss, metrics = transformer.loss_fn(tree_unflatten(treedef, live), batch, cfg)
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(treedef, list(grads))
+
+
+def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+    cfg: transformer.TransformerConfig = spec.cfg_for(cell.name)
+    if "sliding_window" in cell.kwargs:
+        cfg = dataclasses.replace(cfg, sliding_window=cell.kwargs["sliding_window"])
+    seq = cell.kwargs["seq_len"]
+    batch = cell.kwargs["global_batch"]
+    p_shapes = transformer.param_shapes(cfg)
+    n_tok = batch * seq
+    n_active = cfg.active_param_count()
+
+    if cell.step == "train":
+        opt_cfg = AdamWConfig()
+        o_shapes = adamw_init(p_shapes)
+        b_shapes = {k: _meta((batch, seq), torch.int32) for k in ("tokens", "targets", "mask")}
+        n_micro = max(1, cfg.microbatches)
+
+        def train_fn(params, opt_state, bat):
+            if n_micro > 1:
+                # gradient accumulation over contiguous row blocks: peak
+                # activation memory scales with B/n_micro instead of B
+                mbs = [{k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i] for k, v in bat.items()}
+                       for i in range(n_micro)]
+                gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+                dev = next(iter(bat.values())).device
+                nll = torch.zeros((), dtype=torch.float32, device=dev)
+                aux = torch.zeros((), dtype=torch.float32, device=dev)
+                for mb in mbs:
+                    _, metrics, grads = _value_and_grad(params, mb, cfg)
+                    for a, g in zip(tree_leaves(gacc), tree_leaves(grads)):
+                        a.add_(g)  # in float32: the accumulator is this step's own
+                    del grads
+                    nll = nll + metrics["nll"]
+                    aux = aux + metrics["aux"]
+                grads = tree_map(lambda g: g / n_micro, gacc)
+                nll, aux = nll / n_micro, aux / n_micro
+                loss = nll + cfg.aux_loss_weight * aux
+            else:
+                loss, metrics, grads = _value_and_grad(params, bat, cfg)
+                nll, aux = metrics["nll"], metrics["aux"]
+            master, new_state = adamw_update(grads, opt_state, opt_cfg)
+            out_metrics = {"loss": loss, "nll": nll, "aux": aux, "grad_norm": global_norm(grads)}
+            return cast_like(master, params), new_state, out_metrics
+
+        return Cell(
+            arch_id=spec.arch_id, shape_name=cell.name, step="train",
+            fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
+            model_flops_fn=lambda: 6.0 * n_active * n_tok,
+        )
+
+    if cell.step == "prefill":
+        tok = {"tokens": _meta((batch, seq), torch.int32)}
+
+        @torch.no_grad()
+        def prefill_fn(params, bat):
+            return transformer.prefill_step(params, bat["tokens"], cfg)
+
+        return Cell(
+            arch_id=spec.arch_id, shape_name=cell.name, step="prefill",
+            fn=prefill_fn, abstract_args=(p_shapes, tok),
+            model_flops_fn=lambda: 2.0 * n_active * n_tok,
+        )
+
+    # decode (decode_32k / long_500k)
+    dh = cfg.d_head
+    cache_shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, dh)
+    args = (
+        p_shapes,
+        {"k": _meta(cache_shape, cfg.torch_dtype), "v": _meta(cache_shape, cfg.torch_dtype)},
+        _meta((batch, 1), torch.int32),
+        _meta((), torch.int32),
+    )
+
+    @torch.no_grad()
+    def decode_fn(params, cache, tokens, cache_len):
+        return transformer.decode_step(params, cache, tokens, cache_len, cfg)
+
+    # useful work for one decoded token: active params + KV reads
+    attended = min(seq, cfg.sliding_window or seq)
+    flops = 2.0 * n_active * batch + 4.0 * batch * attended * cfg.n_heads * dh * cfg.n_layers
+
+    return Cell(
+        arch_id=spec.arch_id, shape_name=cell.name, step="decode",
+        fn=decode_fn, abstract_args=args,
+        model_flops_fn=lambda: flops,
+        notes=f"sliding_window={cfg.sliding_window}",
+    )
 
 
 def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
@@ -86,14 +188,17 @@ def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
     )
 
 
+_NOT_PORTED = {"gnn": "GNN models", "recsys": "recsys models"}
+
+
 def build_cell(spec: ArchSpec, shape_name: str, mesh: MeshLayout) -> Cell:
     cell = spec.shapes[shape_name]
+    if spec.family == "lm":
+        return _lm_cell(spec, cell, mesh)
     if spec.family == "search":
         return _search_cell(spec, cell, mesh)
-    if spec.family in ("lm", "gnn", "recsys"):
-        raise NotImplementedError(
-            f"{spec.family} cells are seed scaffolding off the search path: not ported to repro_torch"
-        )
+    if spec.family in _NOT_PORTED:
+        raise NotImplementedError(f"{spec.family} cells need {_NOT_PORTED[spec.family]}: not ported to repro_torch")
     raise ValueError(spec.family)
 
 

@@ -1,7 +1,8 @@
 """The port's dry-run (``repro_torch.configs``, ``launch/{mesh,steps,dryrun}``)
 against the reference's, on the CPU: the same cells, shapes, dtypes, shard
-counts and useful-work models; ``run_cell`` and ``main`` on the reduced
-spec; the families off the search path refuse.
+counts and useful-work models for ``paper_search`` and the dense LMs (whose
+cells run one data rank's share); ``run_cell`` and ``main`` on the reduced
+spec; the architectures and families not ported refuse, naming their item.
 """
 
 import dataclasses
@@ -52,13 +53,14 @@ def _assert_same_args(port_args, ref_args):
 
 def test_configs_are_the_reference_configs():
     assert ARCH_IDS == REF_ARCH_IDS and ASSIGNED_ARCH_IDS == REF_ASSIGNED_ARCH_IDS
-    assert PORTED_ARCH_IDS == ("paper_search",)
-    for get, ref_get in ((get_spec, ref_get_spec), (get_reduced_spec, ref_get_reduced_spec)):
-        spec, ref = get("paper_search"), ref_get("paper_search")
-        assert (spec.arch_id, spec.family, spec.source) == (ref.arch_id, ref.family, ref.source)
-        assert dataclasses.asdict(spec.model_cfg) == dataclasses.asdict(ref.model_cfg)
-        assert {k: dataclasses.asdict(v) for k, v in spec.shapes.items()} == {
-            k: dataclasses.asdict(v) for k, v in ref.shapes.items()}
+    assert PORTED_ARCH_IDS == ("stablelm-3b", "mistral-large-123b", "tinyllama-1.1b", "paper_search")
+    for arch in PORTED_ARCH_IDS:
+        for get, ref_get in ((get_spec, ref_get_spec), (get_reduced_spec, ref_get_reduced_spec)):
+            spec, ref = get(arch), ref_get(arch)
+            assert (spec.arch_id, spec.family, spec.source) == (ref.arch_id, ref.family, ref.source)
+            assert dataclasses.asdict(spec.model_cfg) == dataclasses.asdict(ref.model_cfg)
+            assert {k: dataclasses.asdict(v) for k, v in spec.shapes.items()} == {
+                k: dataclasses.asdict(v) for k, v in ref.shapes.items()}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -157,17 +159,35 @@ def test_main_exits_one_when_a_cell_fails(tmp_path, monkeypatch):
     assert rec["status"] == "error" and "broken step" in rec["error"]
 
 
+# what each architecture the port does not hold needs; the dense LMs build
+_NEEDS = {"llama4-maverick-400b-a17b": "MoE layers", "olmoe-1b-7b": "MoE layers", "gat-cora": "GNN models",
+          "autoint": "recsys models", "mind": "recsys models", "dcn-v2": "recsys models", "fm": "recsys models"}
+
+
 @pytest.mark.parametrize("arch_id", REF_ASSIGNED_ARCH_IDS)
 def test_scaffolding_architectures_refuse(arch_id):
     for get in (get_spec, get_reduced_spec):
-        with pytest.raises(NotImplementedError, match="seed scaffolding off the search path"):
+        if arch_id not in _NEEDS:
+            assert get(arch_id).family == "lm"
+            continue
+        with pytest.raises(NotImplementedError, match=_NEEDS[arch_id]):
             get(arch_id)
 
 
 @pytest.mark.parametrize("family", ["lm", "gnn", "recsys"])
 def test_scaffolding_families_refuse_to_build_cells(family):
+    """gnn and recsys cells refuse; an lm cell of a config with MoE layers
+    refuses as it runs."""
+    if family == "lm":
+        spec = get_reduced_spec("tinyllama-1.1b")
+        moe = types.SimpleNamespace(d_ff=32, n_experts=4, n_shared_experts=0, top_k=1)
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, moe=moe))
+        with pytest.raises(NotImplementedError, match="MoE layers"):
+            cell = build_cell(spec, "prefill_32k", make_smoke_mesh())
+            cell.fn({}, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+        return
     spec = dataclasses.replace(get_spec("paper_search"), family=family)
-    with pytest.raises(NotImplementedError, match="seed scaffolding off the search path"):
+    with pytest.raises(NotImplementedError, match={"gnn": "GNN models", "recsys": "recsys models"}[family]):
         build_cell(spec, "serve_online", make_smoke_mesh())
 
 
@@ -177,3 +197,78 @@ def test_unknown_architecture_is_a_key_error():
             get("no-such-arch")
     with pytest.raises(KeyError):
         ref_get_spec("no-such-arch")
+
+
+# ---------------------------------------------------------------------------
+# dense LM cells
+# ---------------------------------------------------------------------------
+
+LM_SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k[swa]"]
+
+
+def _lm_args_equal(port, ref):
+    """Trees of meta tensors against ShapeDtypeStructs: the same structure
+    (the reference's sorted leaf order), shapes and dtypes."""
+    import jax
+
+    from repro_torch.tree import tree_leaves
+
+    got, want = tree_leaves(port), jax.tree.leaves(ref)
+    assert len(got) == len(want)
+    dtypes = {**_DTYPES, jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+    for g, w in zip(got, want):
+        assert g.device.type == "meta" and tuple(g.shape) == tuple(w.shape) and g.dtype == dtypes[w.dtype.type]
+
+
+@pytest.mark.parametrize("shape", LM_SHAPES)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "stablelm-3b", "mistral-large-123b"])
+def test_lm_cells_equal_the_reference_cells(arch, shape):
+    """Full-scale abstract args (params, AdamW state, batch, cache) and
+    useful-work models against the reference's ``_lm_cell``."""
+    ref = ref_build_cell(ref_get_spec(arch), shape, ref_make_smoke_mesh())
+    cell = build_cell(get_spec(arch), shape, make_smoke_mesh())
+    assert (cell.step, cell.shape_name, cell.arch_id, cell.notes) == (ref.step, ref.shape_name, ref.arch_id,
+                                                                      ref.notes)
+    _lm_args_equal(cell.abstract_args, ref.abstract_args)
+    assert cell.model_flops_fn() == ref.model_flops_fn()
+
+
+@pytest.mark.parametrize("multi_pod,shares", [(False, (16, 2, 8, 1)), (True, (8, 1, 4, 1))])
+def test_lm_data_rank_shares(multi_pod, shares):
+    spec = get_spec("tinyllama-1.1b")
+    layout = make_production_mesh(multi_pod=multi_pod)
+    got = tuple(dryrun.data_share(spec.shapes[s].kwargs["global_batch"], layout)[0] for s in LM_SHAPES)
+    assert got == shares
+    assert dryrun.data_share(256, layout)[1] == (32 if multi_pod else 16)
+    assert dryrun.data_share(4, make_smoke_mesh()) == (4, 1)
+
+
+@pytest.mark.parametrize("shape", LM_SHAPES)
+def test_run_cell_lm_on_the_cpu_reduced_spec(shape, monkeypatch):
+    monkeypatch.setattr(dryrun, "get_spec", get_reduced_spec)
+    rec = dryrun.run_cell("tinyllama-1.1b", shape, False, verbose=False, device="cpu")
+    assert rec["status"] == "ok", rec.get("traceback")
+    kw = get_reduced_spec("tinyllama-1.1b").shapes[shape].kwargs
+    share = max(1, kw["global_batch"] // 16)
+    assert rec["model_flops_share"] == rec["model_flops_global"] * share / kw["global_batch"]
+    assert rec["notes"].startswith(f"data-rank share: batch {share} of global batch {kw['global_batch']}")
+    if shape == "train_4k":
+        assert set(rec["result"]) == {"loss", "nll", "aux", "grad_norm"} and rec["input_shapes"][2]["tokens"] == [
+            share, kw["seq_len"]]
+    else:
+        assert np.isfinite(rec["result"]["logits_absmax"])
+    json.dumps(rec)
+
+
+def test_lm_cell_inputs_are_seeded():
+    spec = get_reduced_spec("stablelm-3b")
+    cell = build_cell(spec, "decode_32k", make_smoke_mesh())
+    a = dryrun.cell_inputs(cell, spec.model_cfg, seed=2, device="cpu", batch=3)
+    b = dryrun.cell_inputs(cell, spec.model_cfg, seed=2, device="cpu", batch=3)
+    from repro_torch.tree import tree_leaves
+
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    params, cache, tokens, cache_len = a
+    assert cache["k"].shape == (2, 3, 256, 4, 16) and tokens.shape == (3, 1) and int(cache_len) == 255
+    train = dryrun.cell_inputs(build_cell(spec, "train_4k", make_smoke_mesh()), spec.model_cfg, device="cpu")
+    assert train[2]["tokens"].shape == (4, 128) and int(train[1]["step"]) == 0

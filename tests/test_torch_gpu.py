@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the serving path's shapes, and the port's serving path on the card (the
 host route and the posting arena, over a static index and over a mutated
-incremental service) against the host route on the CPU.
+incremental service) against the host route on the CPU; the dense LM path
+(attention, prefill and decode, a float32 train step) on the card at reduced
+sizes.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -418,3 +420,82 @@ def test_build_step_on_card_equals_cpu(cuda, n_buckets):
     cpu = build_step(torch.from_numpy(toks), torch.from_numpy(stop), max_distance=5, n_buckets=n_buckets)
     assert torch.equal(card["bucket_histogram"].cpu(), cpu["bucket_histogram"])
     assert int(card["n_postings"]) == int(cpu["n_postings"]) == int(cpu["bucket_histogram"].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the dense LM path on the card (reduced sizes; chip_smoke.py phase 11 runs
+# the same checks at full width)
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_attention_on_card_equals_plain_softmax(cuda, window):
+    """bf16 within 2e-2 relative (bf16 products rounded before the float32
+    softmax); float32 (TF32 off, PyTorch's default) within rtol 1e-4."""
+    from repro_torch.models.layers import attention_plain, flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda) for shape in
+               ((2, 512, 8, 64), (2, 512, 2, 64), (2, 512, 2, 64)))
+    for dtype, check in ((torch.bfloat16, lambda a, b: _rel(a, b) < 2e-2),
+                         (torch.float32, lambda a, b: torch.allclose(a, b, rtol=1e-4, atol=1e-5))):
+        args = [x.to(dtype) for x in (q, k, v)]
+        got = flash_attention(*args, q_chunk=128, kv_chunk=128, sliding_window=window)
+        want = attention_plain(*args, sliding_window=window)
+        assert got.dtype == dtype and check(got.float(), want.float())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prefill_then_decode_on_card_equals_prefill_of_one_more_token(cuda, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_reduced_spec("tinyllama-1.1b").model_cfg, dtype=dtype)
+    params = transformer.init_params(0, cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 97), generator=gen, device=cuda)
+    with torch.no_grad():
+        _, cache = transformer.prefill_step(params, tokens[:, :96], cfg)
+        padded = {n: torch.cat([c, torch.zeros_like(c[:, :, :4])], dim=2) for n, c in cache.items()}
+        logits, _ = transformer.decode_step(params, padded, tokens[:, 96:], 96, cfg)
+        want, _ = transformer.prefill_step(params, tokens, cfg)
+    if dtype == "float32":
+        assert torch.allclose(logits, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert _rel(logits, want) < 2e-2
+
+
+def test_float32_train_step_on_card_equals_cpu(cuda):
+    """Three float32 steps of the reduced tinyllama train cell (2
+    microbatches) on the card and on the CPU: metrics within rtol 1e-4,
+    params within atol 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_leaves, tree_map
+
+    spec = get_reduced_spec("tinyllama-1.1b")
+    spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32", microbatches=2))
+    cell = build_cell(spec, "train_4k", make_smoke_mesh())
+    cpu_args = dryrun.cell_inputs(cell, spec.model_cfg, device="cpu")
+    card_args = tree_map(lambda t: t.to(cuda), cpu_args)
+    for _ in range(3):
+        cpu_p, cpu_o, cpu_m = cell.fn(*cpu_args)
+        card_p, card_o, card_m = cell.fn(*card_args)
+        assert card_p["embed"].is_cuda
+        for k in cpu_m:
+            assert torch.allclose(card_m[k].cpu(), cpu_m[k], rtol=1e-4, atol=1e-6), k
+        cpu_args = (cpu_p, cpu_o, cpu_args[2])
+        card_args = (card_p, card_o, card_args[2])
+    for a, b in zip(tree_leaves(card_args[:2]), tree_leaves(cpu_args[:2])):
+        assert torch.allclose(a.cpu().float(), b.float(), rtol=0, atol=1e-5)

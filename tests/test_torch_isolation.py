@@ -4,7 +4,8 @@ the host route, the posting arena and a sharded service, runs the scalar
 Combiner, builds, logs, snapshots, mutates and warm-starts an incremental
 sharded service, serves it under a seeded fault schedule, runs the daemon
 behind its TCP transport, bulk-builds with two spawn workers, runs the
-launcher and runs reduced ``paper_search`` dry-run cells."""
+launcher, runs reduced ``paper_search`` dry-run cells and trains the reduced
+tinyllama for two steps through the training launcher."""
 
 import os
 import re
@@ -98,6 +99,9 @@ dryrun.get_spec = get_reduced_spec
 for shape in ("serve_online", "build_chunk"):
     rec = dryrun.run_cell("paper_search", shape, verbose=False, device="cpu")
     assert rec["status"] == "ok", rec
+import repro_torch.models, repro_torch.optim, repro_torch.data
+from repro_torch.launch import train
+train.main(["--arch", "tinyllama-1.1b", "--steps", "2", "--device", "cpu"])
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
@@ -116,6 +120,8 @@ def test_serves_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "frontend: served 1 requests" in proc.stdout
     assert proc.stdout.splitlines()[-1].startswith("served ")
+    assert [ln.split()[:2] for ln in proc.stdout.splitlines() if ln.startswith(("step ", "done: "))] == [
+        ["step", "0"], ["step", "1"], ["done:", "2"]]
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)", re.MULTILINE)
@@ -130,7 +136,10 @@ def test_source_imports_neither_jax_nor_reference():
             "runtime/fault_tolerance.py", "search/resilience.py", "search/service.py",
             "launch/__init__.py", "launch/serve.py", "configs/__init__.py", "configs/common.py",
             "configs/paper_search.py", "search/serving_step.py", "launch/mesh.py",
-            "launch/steps.py", "launch/dryrun.py"} <= names
+            "launch/steps.py", "launch/dryrun.py", "tree.py", "models/__init__.py", "models/layers.py",
+            "models/transformer.py", "models/convert.py", "optim/__init__.py", "optim/optimizer.py",
+            "data/__init__.py", "data/pipeline.py", "configs/lm_common.py", "configs/tinyllama_1_1b.py",
+            "configs/stablelm_3b.py", "configs/mistral_large_123b.py", "launch/train.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources
