@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases 12,13  # phases 1, 2, 12 and 13 only
 
-Phases, each printed with its seconds:
+Phases, each printed with its seconds (``--phases`` selects some of them:
+phases 1 and 2 always run, and phases 3-10 run together or not at all; the
+last line is the same either way):
 
 1. the device: name, count, and ``nvidia-smi``'s name and power limit;
 2. the kernel build: every ``src/repro_torch/kernels/csrc/*.cu``, one
@@ -123,14 +126,14 @@ Phases, each printed with its seconds:
    (jax and the reference package blocked), which must exit 0 with four
    ``ok`` records under ``artifacts/``.
 
-11. the dense LM training path (``tinyllama-1.1b`` at its full width and
-   depth): (a) ``repro_torch.launch.dryrun.run_cell`` on the four runnable
-   cells at one data rank's share of the global batch (train_4k 16 x 4,096
-   in 2 microbatches, prefill_32k 2 x 32,768, decode_32k 8 sequences on a
-   32,768-token cache, long_500k[swa] 1 x 524,288 with a 4,096 window;
-   long_500k stays skipped), each with its wall ms, peak MiB and the model
-   TFLOP/s of the share, and a ``torch.profiler`` breakdown of one train_4k
-   step; the launch counters are set to 0 before and read after (this path
+11. the dense LM training path (``tinyllama-1.1b`` at its full width): (a)
+   ``repro_torch.launch.dryrun.run_cell`` on the four runnable cells at one
+   data rank's share of the global batch (train_4k 16 x 4,096 in 2
+   microbatches and prefill_32k 2 x 32,768 at 4 of the 22 layers,
+   decode_32k 8 sequences on a 32,768-token cache and long_500k[swa] 1 x
+   524,288 with a 4,096 window at all 22; long_500k stays skipped), each
+   with its wall ms, peak MiB and the model TFLOP/s of the share, and a
+   ``torch.profiler`` breakdown of one train_4k step; the launch counters are set to 0 before and read after (this path
    runs none of the three kernels); (b) ``flash_attention`` against
    ``attention_plain`` at one layer's shapes (16 x 4,096, 32 heads, kv 4) in
    bfloat16, within 2e-2 relative; (c) a prefill of 1,024 tokens and one
@@ -148,6 +151,32 @@ Phases, each printed with its seconds:
    ``restore_checkpoint`` and 2 more steps on the restored pipeline state —
    params equal bit for bit; the checkpoint files are deleted after.
 
+12. the MoE LM family, in one child process (torch and the port only) with
+   phase 13, run beside phase 9's host-bound launchers: (a) ``run_cell`` on
+   ``olmoe-1b-7b`` at full width and one data rank's share (prefill_32k at
+   all 16 layers, train_4k at 4 in 4 microbatches, decode_32k and
+   long_500k[swa] at 6) and on ``llama4-maverick-400b-a17b`` at full width
+   cut to one (dense, MoE) block (prefill_32k, decode_32k), each with its
+   wall ms, peak MiB, model TFLOP/s of the share and its launch counters set
+   to 0 before and read after (this path runs none of the three kernels);
+   (b) one MoE layer at olmoe's widths (256 tokens): the einsum and sort
+   dispatches equal on the card at a capacity factor that drops nothing, in
+   float32 and bfloat16, and at the config's capacity factor, which drops,
+   each equal to itself on this machine's CPU, dropped pairs included; (c)
+   a prefill of 1,024 tokens and one ``decode_step`` against a prefill of
+   1,025, all 16 layers at a capacity factor that drops nothing, in float32
+   (within 1e-4 relative, no route flipped) and bfloat16 (within 5e-2 when
+   no route flipped), the decoded token's routing flips counted; (d) one
+   float32 train step at full width, depth 1 (seq 256, batch 2, the
+   config's capacity: its dropped pairs counted), card against CPU.
+
+13. the recsys models (``fm``, ``autoint``, ``dcn-v2``, ``mind``) at full
+   scale through all four of their cells, each on its whole global batch
+   (train_batch 65,536, serve_p99 512, serve_bulk 262,144, retrieval_cand 1
+   x 1,000,000 candidates): wall ms, peak MiB, model TFLOP/s, launch
+   counters; and one float32 train step of each at its reduced config,
+   card against CPU.
+
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
@@ -155,8 +184,10 @@ one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -314,11 +345,16 @@ REAL_DATA_WINDOW = 256
 REAL_DATA_TOP_K = 16
 DRYRUN_OUT = ROOT / "artifacts" / "chip_smoke_dryrun"
 
-# phase 11: the dense LM path at tinyllama-1.1b's full width and depth; the
-# cells at one data rank's share (256 / 16 sequences for train_4k), train and
-# prefill timed once after their first call (each takes seconds)
+# phase 11: the dense LM path at tinyllama-1.1b's full width; the cells at
+# one data rank's share (256 / 16 sequences for train_4k), train and prefill
+# timed once after their first call.  Since phases 12 and 13 joined the run,
+# train_4k (and its profiled step) and prefill_32k run at 4 of the 22 layers:
+# at full depth they took 3 x 12.0 s and 2 x 16.2 s of the run (NVIDIA H100
+# 80GB HBM3, 700 W); the trainer CLI (e) still trains all 22 layers, and (c)
+# still decodes through all of them
 LM_ARCH = "tinyllama-1.1b"
 LM_CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k[swa]", "long_500k")
+LM_CELL_LAYERS = {"train_4k": 4, "prefill_32k": 4}
 LM_BF16_REL = 2e-2  # bfloat16 products rounded before the float32 softmax
 # (c) over all 22 layers: float32 (TF32 off) is the exact check; in bfloat16
 # the two paths round each layer's products apart (a decode's one-row
@@ -388,6 +424,44 @@ for leaf in tree_leaves({"params": params, "opt": opt}):
     digest.update(leaf.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
 print("digest", int(opt["step"]), len(tree_leaves({"params": params, "opt": opt})), digest.hexdigest())
 """
+
+
+# phase 12: the MoE LM family.  olmoe-1b-7b at full width (6.92e9 params,
+# 13.8 GB in bfloat16; 16 layers of 64 experts, top 8) at one data rank's
+# share of each cell: prefill_32k at all 16 layers; the others cut in depth
+# to fit one card:
+#  - train_4k: params, the float32 master, m and v, the gradient accumulator
+#    and the update's new state come to about 37.6 B a parameter when the
+#    update runs: 4 layers (1.88e9 params) about 71 GB, 5 about 87 GB;
+#  - decode_32k (8 x 32,768) and long_500k[swa] (1 x 524,288): the cache is
+#    4.3 GB a layer, and the step returns a new one beside it: 6 layers.
+# llama4-maverick-400b-a17b at full width, cut to one (dense, MoE) block: 2
+# of its 48 layers, 128 experts of top 1, 1.84e10 params, 36.9 GB in
+# bfloat16; prefill_32k and decode_32k.
+MOE_ARCH = "olmoe-1b-7b"
+MOE_CELL_LAYERS = {"train_4k": 4, "prefill_32k": 16, "decode_32k": 6, "long_500k[swa]": 6, "long_500k": 16}
+MAVERICK_ARCH = "llama4-maverick-400b-a17b"
+MAVERICK_CELL_LAYERS = {"prefill_32k": 2, "decode_32k": 2}
+MOE_NO_DROP = 8.0  # (b) and (c): a capacity factor at which no expert overflows
+MOE_CHECK_TOKENS = 256  # (b): einsum's [T, E, C] tensors at olmoe's widths, float32
+MOE_PREFILL = 1024  # (c): prefill S tokens, decode one, against a prefill of S + 1
+# phase 13: the four recsys models at full scale, each cell on its whole
+# global batch (MIND's loss takes its negatives from the whole batch)
+RECSYS_ARCHS = ("fm", "autoint", "dcn-v2", "mind")
+# phases 12 and 13 run in one child process (torch and the port only); beside
+# phase 9's launcher processes its CPU work (the CPU halves of 12d and 13)
+# keeps to a few threads
+CARD_CHILD = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = chip_smoke.new_families([int(p) for p in sys.argv[2].split(",")], int(sys.argv[3]))
+print("card child: " + json.dumps(out), flush=True)
+"""
+CHILD_THREADS = 4
+SEARCH_PHASES = set(range(3, 11))
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -661,11 +735,16 @@ def lm_phase(torch, dev, zero_counts, read_counts, cli: dict, ckpt: dict) -> dic
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_count():,} params, {cfg.dtype}")
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the float32 checks need them off")
 
+    def cut(shape):
+        n = LM_CELL_LAYERS.get(shape, cfg.n_layers)
+        return n, dataclasses.replace(spec, model_cfg=dataclasses.replace(cfg, n_layers=n))
+
     # ---- (a) the cells at one data rank's share ----
     zero_counts()
     for shape in LM_CELLS:
         repeats = 1 if shape in ("train_4k", "prefill_32k") else dryrun.REPEATS
-        rec = dryrun.run_cell(LM_ARCH, shape, False, verbose=False, device=dev, repeats=repeats)
+        n_layers, cut_spec = cut(shape)
+        rec = dryrun.run_cell(LM_ARCH, shape, False, verbose=False, device=dev, repeats=repeats, spec=cut_spec)
         if spec.shapes[shape].skip_reason is not None:
             require(rec["status"] == "skipped", f"{shape}: {rec['status']}, not skipped as in the reference")
             print(f"cell {shape}: skipped ({rec['skip_reason'][:60]}...)")
@@ -676,20 +755,22 @@ def lm_phase(torch, dev, zero_counts, read_counts, cli: dict, ckpt: dict) -> dic
         tflops = rec["model_flops_share"] / wall / 1e9
         peak = rec["peak_bytes"] / 2**20
         inputs = rec["input_shapes"][2] if shape == "train_4k" else rec["input_shapes"][1:]
-        print(f"cell {shape}: {rec['notes']}; inputs {json.dumps(inputs)}; "
+        print(f"cell {shape}: {n_layers} of {cfg.n_layers} layers; {rec['notes']}; inputs {json.dumps(inputs)}; "
               f"wall {[round(x, 3) for x in rec['wall_ms']]} ms (first call {rec['first_call_s']:.2f} s), "
               f"peak {peak:.1f} MiB, {tflops:.2f} model TFLOP/s of the share, {rec['result']}")
-        summary["cells"][shape] = {"wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"],
+        summary["cells"][shape] = {"layers": n_layers, "wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"],
                                    "peak_mib": peak, "model_tflops": tflops, "result": rec["result"]}
         torch.cuda.empty_cache()
     counts = read_counts("LM cells (phase 11a)")
     require(all(v == 0 for v in counts.values()), f"the LM path launched a search kernel: {counts}")
     t11 = phase("LM dry-run cells at the data-rank share (11a)", t11)
 
-    # one train_4k step under the profiler: device busy share, top kernels
-    cell = build_cell(spec, "train_4k", layout)
+    # one train_4k step under the profiler (at the cell's depth): device busy
+    # share, top kernels
+    train_layers, train_spec = cut("train_4k")
+    cell = build_cell(train_spec, "train_4k", layout)
     share, _ = dryrun.data_share(spec.shapes["train_4k"].kwargs["global_batch"], layout)
-    args = dryrun.cell_inputs(cell, cfg, device=dev, batch=share)
+    args = dryrun.cell_inputs(cell, train_spec.model_cfg, device=dev, batch=share)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t_step = time.perf_counter()
@@ -711,7 +792,7 @@ def lm_phase(torch, dev, zero_counts, read_counts, cli: dict, ckpt: dict) -> dic
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     gemm_ms = sum(e.self_device_time_total for e in dev_events
                   if any(w in e.key.lower() for w in ("gemm", "cutlass", "nvjet", "xmma", "sm90"))) / 1e3
-    print(f"profiled train_4k step: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
+    print(f"profiled train_4k step, {train_layers} layers: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), of which matmul kernels {gemm_ms:.1f} ms "
           f"({100 * gemm_ms / busy_ms:.1f}%), {sum(e.count for e in dev_events)} kernel launches; "
           f"adamw_update alone {adamw_ms:.1f} ms")
@@ -880,6 +961,340 @@ def lm_resume_check(procs: list) -> dict:
             "sha256": digests["first"][0][2], "process_s": seconds}
 
 
+class MoESpy:
+    """Within the ``with``: every ``moe_ffn`` call of the port's
+    transformer, recorded as (its input, its router) on the way."""
+
+    def __init__(self, transformer):
+        self._tf = transformer
+        self.calls: list = []
+
+    def __enter__(self):
+        self._orig = self._tf.moe_ffn
+
+        def spy(x, params, cfg):
+            self.calls.append((x.detach(), params["router"].detach()))
+            return self._orig(x, params, cfg)
+
+        self._tf.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._tf.moe_ffn = self._orig
+
+
+def lm_cells(torch, dev, arch: str, layers: dict, read_counts, zero_counts, label: str) -> dict:
+    """``dryrun.run_cell`` on each cell of ``layers`` at that depth (the
+    config's full width, one data rank's share): wall ms, peak MiB, model
+    TFLOP/s; each cell's launch counters set to 0 before and read after."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import dryrun
+
+    spec = get_spec(arch)
+    cfg = spec.model_cfg
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}), "
+          f"{cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff}, top {cfg.moe.top_k}, dispatch {cfg.moe.dispatch!r} "
+          f"(on one card the reference's single-device sort), interleave {cfg.moe_interleave}, vocab {cfg.vocab}, "
+          f"{cfg.param_count():,} params ({cfg.active_param_count():,} active), {cfg.dtype}")
+    out = {}
+    for shape, n_layers in layers.items():
+        cut = dataclasses.replace(spec, model_cfg=dataclasses.replace(cfg, n_layers=n_layers))
+        repeats = 1 if shape in ("train_4k", "prefill_32k") else dryrun.REPEATS
+        zero_counts()
+        rec = dryrun.run_cell(arch, shape, False, verbose=False, device=dev, repeats=repeats, spec=cut)
+        counts = read_counts(f"{label} {arch} {shape}")
+        require(all(v == 0 for v in counts.values()), f"the {arch} {shape} cell launched a search kernel: {counts}")
+        if spec.shapes[shape].skip_reason is not None:
+            require(rec["status"] == "skipped", f"{arch} {shape}: {rec['status']}, not skipped as in the reference")
+            print(f"cell {arch} {shape}: skipped ({rec['skip_reason'][:60]}...)")
+            out[shape] = {"status": "skipped"}
+            continue
+        require(rec["status"] == "ok", f"{arch} {shape}: {rec.get('error')}\n{rec.get('traceback')}")
+        wall = min(rec["wall_ms"])
+        tflops = rec["model_flops_share"] / wall / 1e9
+        peak = rec["peak_bytes"] / 2**20
+        print(f"cell {arch} {shape}: {n_layers} of {cfg.n_layers} layers, "
+              f"{cut.model_cfg.param_count():,} params; {rec['notes']}; wall "
+              f"{[round(x, 3) for x in rec['wall_ms']]} ms (first call {rec['first_call_s']:.2f} s), peak "
+              f"{peak:.1f} MiB, {tflops:.2f} model TFLOP/s of the share, {rec['result']}")
+        out[shape] = {"layers": n_layers, "wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"],
+                      "peak_mib": peak, "model_tflops": tflops, "result": rec["result"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 12 (see the module docstring); returns its summary."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import moe, transformer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    def routes(x, router, k):
+        gates, _ = moe._router(x.reshape(-1, x.shape[-1]).float(), {"router": router})
+        return moe._top_k(gates, k)[1].sort(dim=-1).values
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the float32 checks need them off")
+    t12 = time.perf_counter()
+    summary: dict = {"cells": {}}
+
+    # ---- (a) the cells ----
+    summary["cells"][MOE_ARCH] = lm_cells(torch, dev, MOE_ARCH, MOE_CELL_LAYERS, read_counts, zero_counts,
+                                          "MoE cells (phase 12a)")
+    summary["cells"][MAVERICK_ARCH] = lm_cells(torch, dev, MAVERICK_ARCH, MAVERICK_CELL_LAYERS, read_counts,
+                                               zero_counts, "MoE cells (phase 12a)")
+    t12 = phase("MoE dry-run cells at the data-rank share (12a)", t12)
+
+    spec = get_spec(MOE_ARCH)
+    cfg = spec.model_cfg
+    k = cfg.moe.top_k
+
+    # ---- (b) one MoE layer at olmoe's widths: einsum == sort with no drops,
+    # and with drops each dispatch on the card == on this machine's CPU ----
+    gen = torch.Generator().manual_seed(SEED)
+    params_cpu = moe.init_moe_params(gen, cfg.d_model, cfg.moe, torch.float32)
+    x_cpu = torch.randn((1, MOE_CHECK_TOKENS, cfg.d_model), generator=gen)
+    params_card, x_card = tree_map(lambda t: t.to(dev), params_cpu), x_cpu.to(dev)
+    summary["dispatch"] = {}
+    for dtype, tol in (("float32", None), ("bfloat16", LM_BF16_REL)):
+        dt = getattr(torch, dtype)
+        p = {n: (t if n == "router" else t.to(dt)) for n, t in params_card.items()}
+        out = {}
+        for dispatch in ("einsum", "sort"):
+            mcfg = dataclasses.replace(cfg.moe, capacity_factor=MOE_NO_DROP, dispatch=dispatch)
+            require(not moe.dropped_slots(x_card.to(dt), p, mcfg).any(), f"{dispatch} dropped at cf {MOE_NO_DROP}")
+            out[dispatch] = moe.moe_ffn(x_card.to(dt), p, mcfg)
+        err = rel(out["einsum"][0], out["sort"][0])
+        aux_err = abs(float(out["einsum"][1]) - float(out["sort"][1])) / abs(float(out["sort"][1]))
+        if tol is None:
+            ok = torch.allclose(out["einsum"][0], out["sort"][0], rtol=1e-4, atol=1e-5) and aux_err < 1e-4
+        else:
+            ok = err < tol and aux_err < tol
+        require(ok, f"einsum vs sort on the card, {dtype}: y relative error {err:.3e}, aux {aux_err:.3e}")
+        print(f"one MoE layer at olmoe's widths, {MOE_CHECK_TOKENS} tokens, capacity factor {MOE_NO_DROP} (no drops), "
+              f"{dtype}: einsum == sort on the card (y relative error {err:.3e}, aux {aux_err:.3e})")
+        summary["dispatch"][f"einsum_vs_sort_{dtype}"] = {"y_rel_err": err, "aux_rel_err": aux_err}
+    for dispatch in ("einsum", "sort"):
+        mcfg = dataclasses.replace(cfg.moe, dispatch=dispatch)
+        card_y, card_aux = moe.moe_ffn(x_card, params_card, mcfg)
+        cpu_y, cpu_aux = moe.moe_ffn(x_cpu, params_cpu, mcfg)
+        card_drop = moe.dropped_slots(x_card, params_card, mcfg).cpu()
+        cpu_drop = moe.dropped_slots(x_cpu, params_cpu, mcfg)
+        max_abs = float((card_y.cpu() - cpu_y).abs().max())
+        require(torch.equal(card_drop, cpu_drop) and int(cpu_drop.sum()) > 0,
+                f"{dispatch} at cf {cfg.moe.capacity_factor}: card drops {int(card_drop.sum())}, cpu {int(cpu_drop.sum())}")
+        require(torch.allclose(card_y.cpu(), cpu_y, rtol=1e-4, atol=1e-5)
+                and abs(float(card_aux) - float(cpu_aux)) <= 1e-4 * abs(float(cpu_aux)),
+                f"{dispatch} with drops: card vs cpu max abs {max_abs:.3e}")
+        print(f"  {dispatch} at the config's capacity factor {cfg.moe.capacity_factor} (C = "
+              f"{moe._capacity(MOE_CHECK_TOKENS, mcfg)}): {int(cpu_drop.sum())} of {cpu_drop.numel()} (token, slot) "
+              f"pairs dropped, the same on the card and the CPU; card == cpu (max abs {max_abs:.3e})")
+        summary["dispatch"][f"{dispatch}_drops"] = {"dropped": int(cpu_drop.sum()), "max_abs": max_abs}
+    drops = {d: moe.dropped_slots(x_cpu, params_cpu, dataclasses.replace(cfg.moe, dispatch=d)) for d in ("einsum", "sort")}
+    print(f"  einsum and sort drop {'different' if not torch.equal(drops['einsum'], drops['sort']) else 'the same'} "
+          f"(token, slot) pairs: {int((drops['einsum'] != drops['sort']).sum())} differ")
+    del params_card, x_card, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = phase("einsum vs sort on the card, each dispatch card vs cpu with drops (12b)", t12)
+
+    # ---- (c) prefill S then decode one token vs prefill of S + 1, all layers,
+    # at a capacity factor that drops nothing (the sort dispatch would drop
+    # the prefill's latest tokens first, and a decode of one token never) ----
+    tokens = torch.randint(0, cfg.vocab, (2, MOE_PREFILL + 1), generator=torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    summary["decode_vs_prefill"] = {}
+    for dtype, limit in (("float32", LM_F32_REL), ("bfloat16", LM_DECODE_BF16_REL)):
+        dcfg = dataclasses.replace(cfg, dtype=dtype, moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_NO_DROP))
+        params = transformer.init_params(SEED, dcfg, device=dev)
+        cfg_long = dataclasses.replace(dcfg, q_chunk=MOE_PREFILL + 1, kv_chunk=MOE_PREFILL + 1)
+        with torch.no_grad(), MoESpy(transformer) as spy:
+            _, cache = transformer.prefill_step(params, tokens[:, :MOE_PREFILL], dcfg)
+            cache = {n: torch.cat([c, torch.zeros_like(c[:, :, :1])], dim=2) for n, c in cache.items()}
+            spy.calls.clear()
+            logits, new_cache = transformer.decode_step(params, cache, tokens[:, MOE_PREFILL:], MOE_PREFILL, dcfg)
+            decoded = list(spy.calls)
+            spy.calls.clear()
+            want, want_cache = transformer.prefill_step(params, tokens, cfg_long)
+            prefilled = list(spy.calls)
+        require(len(decoded) == len(prefilled) == cfg.n_layers, f"{len(decoded)}, {len(prefilled)} MoE calls")
+        flips = [int((routes(xd, r, k) != routes(xp[:, -1:], r, k)).any(-1).sum())
+                 for (xd, r), (xp, _) in zip(decoded, prefilled)]
+        err_c = rel(logits, want)
+        err_kv = max(rel(new_cache[n][:, :, MOE_PREFILL], want_cache[n][:, :, MOE_PREFILL]) for n in ("k", "v"))
+        held = dtype == "float32" or not any(flips)
+        require(not held or (err_c < limit and err_kv < limit),
+                f"decode vs prefill, {dtype}: logits relative error {err_c:.3e}, written cache row {err_kv:.3e}, "
+                f"routing flips per layer {flips}")
+        require(dtype != "float32" or not any(flips), f"float32 decode and prefill routed apart: {flips}")
+        print(f"prefill {MOE_PREFILL} + decode_step vs prefill {MOE_PREFILL + 1}, {cfg.n_layers} layers, "
+              f"capacity factor {MOE_NO_DROP}, {dtype}: logits relative error {err_c:.3e}, written cache row "
+              f"{err_kv:.3e} ({'limit ' + str(limit) if held else 'not held: a route flipped'}); routing flips "
+              f"(token, layer) of the decoded token: {sum(flips)} of {2 * cfg.n_layers}; top-1 tokens "
+              f"{logits.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
+        summary["decode_vs_prefill"][dtype] = {"logits_rel_err": err_c, "cache_rel_err": err_kv,
+                                               "routing_flips": sum(flips)}
+        del params, cache, new_cache, want_cache, logits, want, decoded, prefilled
+        gc.collect()
+        torch.cuda.empty_cache()
+    t12 = phase("prefill + decode vs prefill, all 16 layers (12c)", t12)
+
+    # ---- (d) a float32 train step at full width, depth 1, card vs CPU ----
+    cut = dataclasses.replace(cfg, n_layers=1, dtype="float32", microbatches=1)
+    short = ShapeCell(name="train_4k", step="train", kind="training", kwargs={"seq_len": 256, "global_batch": 2})
+    cut_spec = dataclasses.replace(spec, model_cfg=cut, shapes={"train_4k": short})
+    cell = build_cell(cut_spec, "train_4k", make_production_mesh())
+    cpu_args = dryrun.cell_inputs(cell, cut, device="cpu", batch=2)
+    card_args = tree_map(lambda t: t.to(dev), cpu_args)
+    with MoESpy(transformer) as spy:
+        card_p, card_o, card_m = cell.fn(*card_args)
+    layer = tree_map(lambda t: t[0], card_args[0]["layers"]["moe"])
+    dropped = int(moe.dropped_slots(spy.calls[0][0], layer, cut.moe).sum())
+    t_cpu = time.perf_counter()
+    cpu_p, cpu_o, cpu_m = cell.fn(*cpu_args)
+    t_cpu = time.perf_counter() - t_cpu
+    torch.cuda.synchronize()
+    m_err = {n: abs(float(card_m[n]) - float(cpu_m[n])) / max(abs(float(cpu_m[n])), 1e-30) for n in cpu_m}
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    o_err = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(tree_leaves(card_o["master"]), tree_leaves(cpu_o["master"])))
+    require(dropped > 0, "the float32 step dropped no token: no drop was exercised")
+    require(all(e < 1e-4 for e in m_err.values()) and p_err < 1e-5 and o_err < 1e-5,
+            f"float32 MoE train step card vs cpu: metrics {m_err}, params max abs {p_err:.3e}, master {o_err:.3e}")
+    print(f"float32 train step, 1 layer at full width, 2 x 256 tokens, capacity factor {cut.moe.capacity_factor}: "
+          f"{dropped} of {2 * 256 * k} (token, slot) pairs dropped; card == cpu (metrics relative "
+          f"{max(m_err.values()):.2e} < 1e-4, params max abs {p_err:.2e} and master {o_err:.2e} < 1e-5; loss "
+          f"{float(card_m['loss']):.6f}, aux {float(card_m['aux']):.6f}); cpu step {t_cpu:.1f} s")
+    summary["float32_step_card_vs_cpu"] = {"metrics_rel": max(m_err.values()), "params_abs": p_err,
+                                           "dropped": dropped}
+    del cpu_args, card_args, cpu_p, cpu_o, card_p, card_o, spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("float32 MoE train step card vs cpu, 1 layer (12d)", t12)
+    return summary
+
+
+def recsys_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 13 (see the module docstring); returns its summary."""
+    from repro_torch.configs import get_reduced_spec, get_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t13 = time.perf_counter()
+    summary: dict = {}
+    for arch in RECSYS_ARCHS:
+        spec = get_spec(arch)
+        cfg = spec.model_cfg
+        print(f"{arch}: model {cfg.model!r}, {cfg.n_sparse} sparse fields ({cfg.total_vocab:,} rows of "
+              f"{cfg.embed_dim}), {cfg.n_dense} dense, {cfg.param_count():,} params, {cfg.dtype}")
+        summary[arch] = {}
+        for shape in spec.shapes:
+            zero_counts()
+            rec = dryrun.run_cell(arch, shape, False, verbose=False, device=dev)
+            counts = read_counts(f"recsys cells (phase 13a) {arch} {shape}")
+            require(all(v == 0 for v in counts.values()), f"the {arch} {shape} cell launched a search kernel: {counts}")
+            require(rec["status"] == "ok", f"{arch} {shape}: {rec.get('error')}\n{rec.get('traceback')}")
+            wall = min(rec["wall_ms"])
+            tflops = rec["model_flops_global"] / wall / 1e9
+            peak = rec["peak_bytes"] / 2**20
+            print(f"cell {arch} {shape}: whole batch {json.dumps(rec['input_shapes'][-1])}; wall "
+                  f"{[round(x, 3) for x in rec['wall_ms']]} ms (first call {rec['first_call_s']:.2f} s), peak "
+                  f"{peak:.1f} MiB, {tflops:.3f} model TFLOP/s, {rec['result']}")
+            summary[arch][shape] = {"wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"],
+                                    "peak_mib": peak, "model_tflops": tflops, "result": rec["result"]}
+            gc.collect()
+            torch.cuda.empty_cache()
+        # a float32 train step at the reduced config, card vs this machine's CPU
+        rspec = get_reduced_spec(arch)
+        cell = build_cell(rspec, "train_batch", make_production_mesh())
+        cpu_args = dryrun.cell_inputs(cell, rspec.model_cfg, device="cpu")
+        card_args = tree_map(lambda t: t.to(dev), cpu_args)
+        card_p, _, card_m = cell.fn(*card_args)
+        cpu_p, _, cpu_m = cell.fn(*cpu_args)
+        m_err = abs(float(card_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+        p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+        require(m_err < 1e-4 and p_err < 1e-5, f"{arch} float32 train step card vs cpu: loss {m_err:.3e}, "
+                                               f"params max abs {p_err:.3e}")
+        print(f"  {arch} float32 train step at the reduced config ({rspec.shapes['train_batch'].kwargs['batch']} "
+              f"rows): card == cpu (loss relative {m_err:.2e} < 1e-4, params max abs {p_err:.2e} < 1e-5)")
+        summary[arch]["float32_step_card_vs_cpu"] = {"loss_rel": m_err, "params_abs": p_err}
+    phase("recsys dry-run cells at full scale, float32 steps card vs cpu (13)", t13)
+    return summary
+
+
+def new_families(phases: list[int], threads: int) -> dict:
+    """Phases 12 and 13, as selected, in this process (the card child of a
+    whole run): their summaries and their launch counts by path."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.gather import gather_blocks
+    from repro_torch.kernels.intersect import intersect_sorted
+    from repro_torch.kernels.proximity import proximity_window
+
+    if threads:
+        torch.set_num_threads(threads)
+    counted = {"proximity_window": proximity_window, "intersect_sorted": intersect_sorted,
+               "gather_blocks": gather_blocks}
+    path_launches: dict[str, dict[str, int]] = {}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(path):
+        path_launches[path] = {kname: fn.launches for kname, fn in counted.items()}
+        return path_launches[path]
+
+    dev = torch.device("cuda", 0)
+    out: dict = {}
+    if 12 in phases:
+        out["moe"] = moe_phase(torch, dev, zero_counts, read_counts)
+    if 13 in phases:
+        out["recsys"] = recsys_phase(torch, dev, zero_counts, read_counts)
+    out["launches_by_path"] = path_launches
+    return out
+
+
+def card_child_start(procs: list, phases: list[int], threads: int):
+    """Phases 12 and 13 in a fresh process (jax and the reference package
+    blocked)."""
+    # expandable segments: the train_4k cell's state is about 71 GB
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    proc = subprocess.Popen([sys.executable, "-c", CARD_CHILD, str(ROOT), ",".join(map(str, phases)), str(threads)],
+                            cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs.append(proc)
+    return proc, time.perf_counter()
+
+
+def card_child_finish(child) -> dict:
+    """Wait for the child of ``card_child_start``, print its lines and
+    return what it reported."""
+    proc, t_start = child
+    out, err = proc.communicate(timeout=1000)
+    lines = out.splitlines()
+    ok = proc.returncode == 0 and lines and lines[-1].startswith("card child: ")
+    for line in lines[:-1] if ok else lines:
+        print(line)
+    require(ok, f"phases 12-13 exited {proc.returncode}: {err[-4000:]}")
+    print(f"phases 12-13 process: {time.perf_counter() - t_start:.1f} s")
+    return json.loads(lines[-1][len("card child: "):])
+
+
 class Background:
     """``fn()`` on a thread; ``result()`` joins it and re-raises its error."""
 
@@ -904,10 +1319,27 @@ class Background:
 
 
 
-def main() -> int:
+def parse_phases(text: str) -> set[int]:
+    """``--phases``: phase numbers and ranges (``3-10,12``).  Phases 1 and 2
+    (the device, the kernel build) always run; phases 3-10 share the index
+    and the services, so selecting any of them runs all of them."""
+    phases: set[int] = set()
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        phases.update(range(int(lo), int(hi or lo) + 1))
+    if not phases <= set(range(1, 14)):
+        raise argparse.ArgumentTypeError(f"phases are 1-13, not {sorted(phases - set(range(1, 14)))}")
+    return phases | (SEARCH_PHASES if phases & SEARCH_PHASES else set())
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", type=parse_phases, default=set(range(1, 14)),
+                    help="the phases to run, e.g. 12,13 or 3-10 (default: all; see the module docstring)")
+    phases = ap.parse_args(argv).phases
     procs: list = []  # every process the run starts beside its phases
     try:
-        return _main(procs)
+        return _main(procs, phases)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -915,7 +1347,7 @@ def main() -> int:
                 proc.wait()
 
 
-def _main(procs: list) -> int:
+def _main(procs: list, phases: set[int]) -> int:
     import numpy as np
     import torch
 
@@ -968,42 +1400,6 @@ def _main(procs: list) -> int:
         path_launches[path] = {kname: fn.launches for kname, fn in counted.items()}
         return path_launches[path]
 
-    def slate_profile(make_fe, label, first_ms, cached_ms):
-        """Slate latency of 5 fresh frontends (cold result cache) on a warm
-        device, the six phases of one, and one profiled slate's wall, device
-        busy share and top device operations."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        slate_ms, phases = [], {}
-        for rep in range(5):
-            fe = make_fe()
-            prev = fused.collect_phases(phases if rep == 4 else None)
-            t_serve = time.perf_counter()
-            fe.search_many(requests)
-            torch.cuda.synchronize()
-            slate_ms.append((time.perf_counter() - t_serve) * 1e3)
-            fused.collect_phases(prev)
-        print(f"{label} slate latency on {name}: first {first_ms:.1f} ms, cached {cached_ms:.3f} ms, "
-              f"fresh frontend {[round(x, 1) for x in slate_ms]} ms (median {sorted(slate_ms)[2]:.1f})")
-        print(f"{label} phases of one instrumented slate (us): "
-              + json.dumps({k: [round(x, 1) for x in v] for k, v in phases.items()}))
-        # device busy share of one fresh slate, from the profiler's kernel
-        # and copy events (one stream: they do not overlap)
-        fe = make_fe()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t_serve = time.perf_counter()
-            fe.search_many(requests)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t_serve) * 1e3
-        dev_events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-        print(f"{label} profiled slate: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
-              f"({100 * busy_ms / wall_ms:.2f}%), idle {100 - 100 * busy_ms / wall_ms:.2f}%")
-        for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:90]}")
-
     t0 = time.perf_counter()
 
     # ---- 1. device ---------------------------------------------------------
@@ -1023,1219 +1419,1291 @@ def _main(procs: list) -> int:
         print(f"built {src_name}.cu: " + " | ".join(ln.strip() for ln in ptxas))
     t0 = phase("kernel build (nvcc, parallel)", t0)
 
-    # phase 11e beside phase 3: the trainer at full scale while the host
-    # builds the index and the card is otherwise idle
-    lm_cli = lm_cli_start(procs)
+    def search_phases():
+        """Phases 3-10 (see the module docstring); phases 11e and 11f run
+        beside phases 3 and 7, and 12 and 13 beside phase 9, when selected."""
+        nonlocal t0
 
-    # ---- 3. index ------------------------------------------------------------
-    store = synthesize_corpus(n_docs=N_DOCS, doc_len=DOC_LEN, vocab_size=VOCAB, seed=SEED)
-    fl = FLList.from_frequencies(store.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
-    lem = store.lemmatizer
-    subs = {q: expand_subqueries(q, lem) for q in SLATE}
-    # only the slate's (f,s,t) keys are built: every family the slate reads
-    # is complete, and the build stays inside the run's time limit
-    triples = {
-        k.components for q in SLATE for sub in subs[q] for k in select_keys(sub, fl) if k.arity == 3
-    }
-    index = build_indexes(
-        store, SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE, triple_key_filter=triples, fl=fl
-    )
-    print(f"index: {len(store)} docs, {store.total_positions()} positions, "
-          f"{index.size_bytes()['total'] / 2**20:.1f} MiB of postings, {len(triples)} triple keys")
-    t0 = phase("corpus + index build (host)", t0)
-    lm_cli = lm_cli_finish(*lm_cli)
-    t0 = phase("the rest of the trainer CLI (11e) after phase 3", t0)
+        def slate_profile(make_fe, label, first_ms, cached_ms):
+            """Slate latency of 5 fresh frontends (cold result cache) on a warm
+            device, the six phases of one, and one profiled slate's wall, device
+            busy share and top device operations."""
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
 
-    # ---- 4. main path, host route ------------------------------------------
-    def step1_folds(views):
-        """The slate's Step-1 folds as the planner forms them over ``views``
-        (each multi-key (subquery, view) item's key doc lists, shortest
-        first; step r on the card when both sides hold at least the
-        threshold's docs): the items' lists and the device pairs by round."""
-        items = []
-        for q in SLATE:
-            for view in views:
-                for sub in subs[q]:
-                    keys = select_keys(sub, view.fl)
-                    if len(keys) >= 2:
-                        items.append([np.unique(view.key_postings(key.components)[:, 0]) for key in keys])
-        by_round: dict[int, list] = {}
-        for lists in items:
-            lists = sorted(lists, key=len)
-            acc = lists[0]
-            for r, other in enumerate(lists[1:]):
-                if not len(acc):
-                    break
-                if min(len(acc), len(other)) >= fused.INTERSECT_DEVICE_THRESHOLD:
-                    by_round.setdefault(r, []).append((acc, other))
-                acc = np.intersect1d(acc, other)
-        return items, [by_round[r] for r in sorted(by_round)]
+            slate_ms, phases = [], {}
+            for rep in range(5):
+                fe = make_fe()
+                prev = fused.collect_phases(phases if rep == 4 else None)
+                t_serve = time.perf_counter()
+                fe.search_many(requests)
+                torch.cuda.synchronize()
+                slate_ms.append((time.perf_counter() - t_serve) * 1e3)
+                fused.collect_phases(prev)
+            print(f"{label} slate latency on {name}: first {first_ms:.1f} ms, cached {cached_ms:.3f} ms, "
+                  f"fresh frontend {[round(x, 1) for x in slate_ms]} ms (median {sorted(slate_ms)[2]:.1f})")
+            print(f"{label} phases of one instrumented slate (us): "
+                  + json.dumps({k: [round(x, 1) for x in v] for k, v in phases.items()}))
+            # device busy share of one fresh slate, from the profiler's kernel
+            # and copy events (one stream: they do not overlap)
+            fe = make_fe()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_serve = time.perf_counter()
+                fe.search_many(requests)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t_serve) * 1e3
+            dev_events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+            busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+            print(f"{label} profiled slate: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
+                  f"({100 * busy_ms / wall_ms:.2f}%), idle {100 - 100 * busy_ms / wall_ms:.2f}%")
+            for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
+                print(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:90]}")
 
-    fold_items, rounds = step1_folds([index])
-    n_pairs = sum(len(pairs) for pairs in rounds)
-    print(f"slate Step-1 folds: {len(fold_items)} multi-key subqueries, {n_pairs} device pairs in "
-          f"{len(rounds)} rounds {[len(pairs) for pairs in rounds]}")
 
-    requests = [SearchRequest(q, top_k=TOP_K) for q in SLATE]
-    frontend = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
-    zero_counts()
-    fused.reset_dispatch_count()
-    t_serve = time.perf_counter()
-    main_resps = frontend.search_many(requests)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t_serve) * 1e3
-    launches = dict(read_counts("host route"))
-    del launches["gather_blocks"]
-    dispatches = fused.dispatch_count()
-    print(f"host route: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches} "
-          f"(intersect: one per fold round, {len(rounds)} expected; one per pair would be {n_pairs})")
-    for kname, count in launches.items():
-        require(count > 0, f"{kname} was not launched on the host route")
-    require(launches["intersect_sorted"] == len(rounds),
-            f"the host route made {launches['intersect_sorted']} intersect launches for {len(rounds)} fold rounds")
-    t_serve = time.perf_counter()
-    cached = frontend.search_many(requests)
-    cached_ms = (time.perf_counter() - t_serve) * 1e3
-    require(all(r.stats.cache_hits == 1 for r in cached), "second round not all cache hits")
-    for r in main_resps:
-        require(all(np.isfinite(d.score) and d.score > 0 for d in r.docs), f"bad scores for {r.query!r}")
-        print(f"  {r.query!r}: {r.stats.results} fragments, top doc "
-              f"{r.docs[0].doc_id if r.docs else None}, {r.n_subqueries} subqueries")
-    slate_profile(lambda: ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True,
-                                          max_batch=16), "host route", first_ms, cached_ms)
-    # the fused batch's readout phase with the slate's Step-1 rounds on the
-    # card and with a threshold no list reaches (no device intersect), in
-    # turns: the rounds run on a stream of their own and must not slow it
-    work = [[(sub, index) for sub in subs[q]] for q in SLATE]
-    readout_us: dict[int, list] = {}
-    for rep in range(8):
-        threshold = (fused.INTERSECT_DEVICE_THRESHOLD, 1 << 30)[rep % 2]
-        sink = {}
-        prev = fused.collect_phases(sink)
-        fused.serve_query_batch(work, max_distance=MAX_DISTANCE, top_k=TOP_K, use_kernel=True,
-                                intersect_device_threshold=threshold, device="cuda")
-        fused.collect_phases(prev)
-        readout_us.setdefault(threshold, []).append(round(sink["readout_us"][0], 1))
-    print(f"host route readout_us, 4 batches each in turns: device intersects "
-          f"{readout_us[fused.INTERSECT_DEVICE_THRESHOLD]}, none {readout_us[1 << 30]}")
-    t0 = phase("serving (host route)", t0)
+        # phase 11e beside phase 3: the trainer at full scale while the host
+        # builds the index and the card is otherwise idle
+        lm_cli = lm_cli_start(procs) if 11 in phases else None
 
-    # ---- 4b. main path, arena route ------------------------------------------
-    arena = PostingArena(budget_bytes=ARENA_BUDGET, device="cuda")
-    t_acq = time.perf_counter()
-    residency = arena.acquire(index, 0)
-    torch.cuda.synchronize()
-    acquire_s = time.perf_counter() - t_acq
-    m = arena.metrics()
-    resident = {f: fb.nbytes for f, fb in residency.families.items()}
-    refused = {key[3]: nbytes for key, nbytes in arena.refused.items()}
-    print(f"cold acquire (budget {ARENA_BUDGET >> 20} MiB): {acquire_s:.3f} s, "
-          f"{m['arena_uploads']} uploads, {m['arena_upload_bytes'] / 2**20:.1f} MiB copied to the card")
-    print(f"  resident: {json.dumps({f: f'{b / 2**20:.1f} MiB' for f, b in resident.items()})}")
-    print(f"  refused (larger than the budget): {json.dumps({f: f'{b / 2**20:.1f} MiB' for f, b in refused.items()})}")
-    print(f"  arena metrics: {json.dumps(m)}")
-    require(resident, "no family is resident under the budget")
+        # ---- 3. index ------------------------------------------------------------
+        store = synthesize_corpus(n_docs=N_DOCS, doc_len=DOC_LEN, vocab_size=VOCAB, seed=SEED)
+        fl = FLList.from_frequencies(store.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
+        lem = store.lemmatizer
+        subs = {q: expand_subqueries(q, lem) for q in SLATE}
+        # only the slate's (f,s,t) keys are built: every family the slate reads
+        # is complete, and the build stays inside the run's time limit
+        triples = {
+            k.components for q in SLATE for sub in subs[q] for k in select_keys(sub, fl) if k.arity == 3
+        }
+        index = build_indexes(
+            store, SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE, triple_key_filter=triples, fl=fl
+        )
+        print(f"index: {len(store)} docs, {store.total_positions()} positions, "
+              f"{index.size_bytes()['total'] / 2**20:.1f} MiB of postings, {len(triples)} triple keys")
+        t0 = phase("corpus + index build (host)", t0)
+        if lm_cli is not None:
+            lm_cli = lm_cli_finish(*lm_cli)
+            t0 = phase("the rest of the trainer CLI (11e) after phase 3", t0)
 
-    def arena_frontend(**kw):
-        return ServingFrontend(index, lemmatizer=lem, arena=arena, device="cuda", max_batch=16,
-                               **{"use_kernel": True, **kw})
+        # ---- 4. main path, host route ------------------------------------------
+        def step1_folds(views):
+            """The slate's Step-1 folds as the planner forms them over ``views``
+            (each multi-key (subquery, view) item's key doc lists, shortest
+            first; step r on the card when both sides hold at least the
+            threshold's docs): the items' lists and the device pairs by round."""
+            items = []
+            for q in SLATE:
+                for view in views:
+                    for sub in subs[q]:
+                        keys = select_keys(sub, view.fl)
+                        if len(keys) >= 2:
+                            items.append([np.unique(view.key_postings(key.components)[:, 0]) for key in keys])
+            by_round: dict[int, list] = {}
+            for lists in items:
+                lists = sorted(lists, key=len)
+                acc = lists[0]
+                for r, other in enumerate(lists[1:]):
+                    if not len(acc):
+                        break
+                    if min(len(acc), len(other)) >= fused.INTERSECT_DEVICE_THRESHOLD:
+                        by_round.setdefault(r, []).append((acc, other))
+                    acc = np.intersect1d(acc, other)
+            return items, [by_round[r] for r in sorted(by_round)]
 
-    frontend = arena_frontend()
-    uploads = arena.metrics()["arena_uploads"]
-    zero_counts()
-    fused.reset_dispatch_count()
-    t_serve = time.perf_counter()
-    arena_resps = frontend.search_many(requests)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t_serve) * 1e3
-    launches["gather_blocks"] = read_counts("arena route")["gather_blocks"]
-    dispatches = fused.dispatch_count()
-    hits = sum(r.stats.arena_hits for r in arena_resps)
-    misses = sum(r.stats.arena_misses for r in arena_resps)
-    print(f"arena route: {len(SLATE)} queries, {dispatches} device programs, gather launches "
-          f"{launches['gather_blocks']}, arena hits {hits} keys, misses {misses} keys")
-    require(launches["gather_blocks"] > 0, "gather_blocks was not launched on the arena route")
-    require(hits > 0, "the slate did not hit the arena")
-    require(dispatches > 0, "the arena route issued no device program")
-    t_serve = time.perf_counter()
-    cached = frontend.search_many(requests)
-    cached_ms = (time.perf_counter() - t_serve) * 1e3
-    require(all(r.stats.cache_hits == 1 for r in cached), "second arena round not all cache hits")
-    for r, h in zip(arena_resps, main_resps):
-        require([d.doc_id for d in r.docs] == [d.doc_id for d in h.docs],
-                f"arena route top {TOP_K} differs from the host route for {r.query!r}")
-    slate_profile(arena_frontend, "arena route", first_ms, cached_ms)
-    require(arena.metrics()["arena_uploads"] == uploads, "a slate uploaded to the arena: the cold entries were missed")
-    print(f"  arena metrics after the slates: {json.dumps(arena.metrics())}")
-    t0 = phase("serving (arena route)", t0)
+        fold_items, rounds = step1_folds([index])
+        n_pairs = sum(len(pairs) for pairs in rounds)
+        print(f"slate Step-1 folds: {len(fold_items)} multi-key subqueries, {n_pairs} device pairs in "
+              f"{len(rounds)} rounds {[len(pairs) for pairs in rounds]}")
 
-    # ---- 5. kernels against their plain versions, main-path shapes -----------
-    plan = fused.plan_query_batch(work, device="cpu")
-    r, l, k = plan.postab.shape
-    n = plan.doc_len
-    print(f"main-path plan: E={plan.events.shape[0]} (live {int((plan.events[:, 0] >= 0).sum())}) "
-          f"R={r} (live {int((plan.row_doc >= 0).sum())}) L={l} K={k} N={n} Q={plan.query_budget}")
-    # the host's share after the readout: materializing and ranking every
-    # fragment of the slate (what execute_plans does per response)
-    res = fused.serve_query_batch(work, max_distance=MAX_DISTANCE, top_k=TOP_K,
-                                  use_kernel=True, device="cuda")
-    t_rank = time.perf_counter()
-    for frs in res.per_query:
-        rank_documents(frs, top_k=TOP_K)
-    rank_ms = (time.perf_counter() - t_rank) * 1e3
-    print(f"host response ranking of the slate: {rank_ms:.1f} ms over "
-          f"{sum(len(frs) for frs in res.per_query)} fragments")
-    t_plan = time.perf_counter()
-    for q in SLATE:
-        frontend.planner.plan(q)
-    print(f"host query planning of the slate (QueryPlanner.plan): "
-          f"{(time.perf_counter() - t_plan) * 1e3:.1f} ms")
-    events = torch.from_numpy(plan.events).to(dev)
-    mult = torch.from_numpy(plan.mult).to(dev)
-    kernels = []
-
-    def cover_check(occ, mult_, dtype, label, max_distance=MAX_DISTANCE, quiet=False):
-        """The cover kernel against its plain version: emit and start must
-        be equal bit for bit at every position; returns the largest absolute
-        difference of either."""
-        ek, sk = proximity_window(occ, mult_, max_distance, compute_dtype=dtype)
-        ep, sp = proximity_window_plain(occ, mult_, max_distance, compute_dtype=dtype)
-        torch.cuda.synchronize()
-        differ = (ek != ep) | (sk != sp)
-        err = int((sk - sp).abs().max()) if sk.numel() else 0
-        err = max(err, int(differ.any()))
-        if not quiet:
-            print(f"proximity {label} {dtype} {tuple(occ.shape)}: {int(ep.sum())} emits, "
-                  f"{int(differ.sum())} positions differ, max_abs_err {err}")
-        require(err == 0, f"proximity kernel != plain ({label}, {dtype}, max_distance {max_distance})")
-        return err
-
-    def cover_inputs(b, l_, n_, window, dtype, wild_rows):
-        """0/1 rows (sparse, dense, events only at e < window) and, on
-        ``wild_rows``, arbitrary values that wrap in the compute type;
-        multiplicities with 0, negative values, values above the window and
-        256."""
-        occ_np = (rng.random((b, l_, n_)) < np.array([0.1, 0.5, 0.3])[np.arange(b) % 3, None, None])
-        occ_np = occ_np.astype(np.int64)
-        occ_np[2::3, :, window:] = 0
-        if dtype == "uint8":
-            wild = rng.integers(0, 256, (b, l_, n_))
-        else:
-            wild = rng.choice([-(2**31), -3, -1, 0, 1, 2, 3, 2**31 - 1], (b, l_, n_))
-        occ_np[wild_rows] = wild[wild_rows]
-        mult_np = rng.choice([0, 1, 1, 1, 2, 2, 3, -1, -5, window, window + 1, 64, 65, 255, 256], (b, l_))
-        return (torch.from_numpy(occ_np.astype(np.int32)).to(dev),
-                torch.from_numpy(mult_np.astype(np.int32)).to(dev))
-
-    rng = np.random.default_rng(SEED)
-    n_active = int((plan.mult > 0).sum())
-    print(f"cover: {n_active} active (row, lemma) pairs of {r * l}")
-    # the earlier form of the kernel (one thread per position summing its
-    # window) on an H100 80GB HBM3 at 700 W, for comparison
-    cover_err, earlier_ms = 0, {"uint8": 1.5996, "int32": 1.5949}
-    for dtype in ("uint8", "int32"):
-        occ = fused.scatter_occupancy(events, r, l, n, dtype)
-        # the main path's occupancy is 0/1: every tile takes the bit path
-        require(int(occ.max()) <= 1, "the main path's occupancy is not 0/1")
-        cover_err = max(cover_err, cover_check(occ, mult, dtype, "main-path"))
-        # arbitrary occupancy values at the main path's shape: every tile
-        # takes the general path, and both sides wrap in the compute dtype
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        if dtype == "uint8":
-            occ_w = torch.randint(0, 256, (r, l, n), generator=gen, device=dev, dtype=torch.uint8)
-        else:
-            occ_w = torch.randint(-(2**31), 2**31 - 1, (r, l, n), generator=gen, device=dev,
-                                  dtype=torch.int32)
-        mult_w = torch.randint(0, 4, (r, l), generator=gen, device=dev, dtype=torch.int32)
-        cover_err = max(cover_err, cover_check(occ_w, mult_w, dtype, "wraparound"))
-        # one launch whose rows alternate between 0/1 and wrapping values
-        occ_m, mult_m = cover_inputs(512, l, n, 2 * MAX_DISTANCE + 1, dtype, slice(1, None, 2))
-        cover_err = max(cover_err, cover_check(occ_m, mult_m, dtype, "mixed rows"))
-        # the sweep: ragged N, windows 1 to 63, 1 to 8 lemmas, awkward mult
-        t_sweep, n_sweep = time.perf_counter(), 0
-        for n_ in (128, 200, 520, 4096):
-            for md in (0, 1, 5, 31):
-                for l_ in (1, 3, 8):
-                    occ_s, mult_s = cover_inputs(48, l_, n_, 2 * md + 1, dtype, slice(3, None, 4))
-                    cover_err = max(cover_err, cover_check(occ_s, mult_s, dtype, "sweep", md, quiet=True))
-                    n_sweep += 1
-        print(f"proximity sweep {dtype}: {n_sweep} launches (N 128/200/520/4096, max_distance "
-              f"0/1/5/31, L 1/3/8), emit and start equal everywhere, "
-              f"{time.perf_counter() - t_sweep:.2f} s")
-        t_k = cuda_ms(torch, lambda: proximity_window(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 50)
-        t_g = cuda_ms(torch, lambda: proximity_window(occ_w, mult_w, MAX_DISTANCE, compute_dtype=dtype), 20)
-        t_p = cuda_ms(torch, lambda: proximity_window_plain(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 2)
-        ms, plain_ms = t_k[0], t_p[0]
-        item = occ.element_size()
-        # the active occupancy rows read once (an inactive row never changes
-        # the output), mult read, emit and start written
-        n_bytes = n_active * n * item + r * l * item + r * n * (1 + 4)
-        whole_ms = (r * l * n * item + r * l * item + r * n * (1 + 4)) / HBM_BYTES_PER_S * 1e3
-        # one test per active (row, lemma) and position
-        n_ops = n_active * n
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"proximity {dtype}: {timing('kernel (bit path)', t_k)} [earlier per-position form: {earlier_ms[dtype]} ms], "
-              f"{timing('plain', t_p)}, bound {b_ms:.4f} ms ({b_by}; whole-input bytes {whole_ms:.4f} ms)")
-        print(f"proximity {dtype} general path: {timing('kernel on the wraparound input', t_g)}")
-        if dtype == "uint8":  # the frontend's compute dtype: the main path's entry
-            cover_entry = {
-                "name": "proximity_window", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/proximity.cu",
-                "replaces": "src/repro/kernels/proximity.py:105",
-                "launches": launches["proximity_window"],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None,
-            }
-        del occ, occ_w
-    kernels.append({**cover_entry, "max_abs_err": cover_err})
-
-    # the two longest doc lists of one multi-key subquery of the slate
-    pairs = []
-    for lists in fold_items:
-        docs = sorted(lists, key=len)
-        pairs.append((min(len(docs[-1]), len(docs[-2])), docs[-2], docs[-1]))
-    _, a_docs, b_docs = max(pairs, key=lambda t: t[0])
-    a_np, b_np, off_np, n_chunks = fused.intersect_inputs(a_docs, b_docs)
-    a, b, off = (torch.from_numpy(x).to(dev) for x in (a_np, b_np, off_np))
-    print(f"intersect inputs: |a|={len(a_docs)} |b|={len(b_docs)} NA={len(a_np)} NB={len(b_np)} n_chunks={n_chunks}")
-    full_chunks = len(b_np) // 256
-    member = torch.isin(a, b) & (a != int(PAD))
-    intersect_err = 0
-    for chunks, label in ((n_chunks, "main-path"), (full_chunks, "full"), (1, "partial")):
-        got = intersect_sorted(a, b, off, n_chunks=chunks)
-        want = intersect_sorted_plain(a, b, off, n_chunks=chunks)
-        err = int((got - want).abs().max())
-        print(f"intersect {label} n_chunks={chunks}: {int(got.sum())} hits, "
-              f"{int(member.sum())} members, {int((got != want).sum())} elements differ")
-        require(err == 0, f"intersect kernel != plain ({label})")
-        intersect_err = max(intersect_err, err)
-        require(bool((got <= member.int()).all()), f"intersect false positive ({label})")
-        if chunks >= n_chunks:
-            require(torch.equal(got.bool(), member), f"intersect under-reports ({label})")
-
-    def segments_check(segments, label):
-        """One segmented launch against the plain version of each segment
-        alone, every element; returns the packed buffer on the card, its
-        layout and the per-segment masks."""
-        nonlocal intersect_err
-        buf, pack = pack_segments(segments)
-        buf = buf.to(dev)
-        masks = pack.split(intersect_sorted_segments(buf, pack))
-        differ = hits = 0
-        for s_, mask in enumerate(masks):
-            a_s, b_s, off_s = pack.segment(buf, s_)
-            want = intersect_sorted_plain(a_s, b_s, off_s, n_chunks=pack.n_chunks[s_])
-            differ += int((mask != want).sum())
-            hits += int(want.sum())
-            intersect_err = max(intersect_err, int((mask - want).abs().max()))
-        print(f"intersect segmented {label}: {len(masks)} segments in one launch, n_chunks "
-              f"{list(pack.n_chunks)}, NB {list(pack.nb)}, {hits} hits, {differ} elements differ")
-        require(differ == 0, f"segmented intersect kernel != plain ({label})")
-        return buf, pack, masks
-
-    def search_only(a_s, b_s, off_s, chunks):
-        """What a kernel that only binary-searched would report: a
-        lower bound over each block's window, sorted or not."""
-        last, out = len(b_s) // 256 - 1, np.zeros(len(a_s), bool)
-        for blk, o in enumerate(off_s.tolist()):
-            lo, hi = (min(max(t, 0), last) for t in (o // 256, o // 256 + chunks - 1))
-            w, v = b_s[lo * 256:(hi + 1) * 256], a_s[blk * 128:(blk + 1) * 128]
-            out[blk * 128:(blk + 1) * 128] = (w[np.minimum(np.searchsorted(w, v), len(w) - 1)] == v) & (v != PAD)
-        return out
-
-    # one launch per fold round of the slate, as the planner forms them; the
-    # planner sizes n_chunks to cover every span, so the masks are exact
-    round_packs = []
-    for r, round_pairs in enumerate(rounds):
-        buf, pack, masks = segments_check([fused.intersect_inputs(x, y) for x, y in round_pairs],
-                                          f"round {r + 1}")
-        for s_, mask in enumerate(masks):
-            a_s, b_s, _ = pack.segment(buf, s_)
-            require(torch.equal(mask.bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
-                    f"round {r + 1} segment {s_}: not the exact membership")
-        round_packs.append((buf, pack))
-    base = [fused.intersect_inputs(x, y) for x, y in rounds[0]]
-    irng = np.random.default_rng(SEED + 1)
-    big_b = np.sort(irng.choice(20000, 16000, replace=False)).astype(np.int32)
-    big_a = np.sort(irng.choice(20000, 5000, replace=False)).astype(np.int32)
-    a_g, b_g, off_g, _ = fused.intersect_inputs(big_a, big_b)
-    # mixed n_chunks (the planner's, 1, 3, the whole list); every window
-    # clamped at the last tile; a single-tile b; a 16,384-element window
-    # above the kernel's shared-memory budget, searched in place
-    mixed = [(x, y, o, (c, 1, 3, len(y) // 256)[k]) for k, (x, y, o, c) in enumerate(base[:4])]
-    x, y, o, _ = base[4 % len(base)]
-    mixed.append((x, y, np.full_like(o, len(y) - 256), 4))
-    a_small, b_small = base[0][0][:256].copy(), np.full(256, PAD, np.int32)
-    b_small[:200] = base[0][1][:200]
-    mixed.append((a_small, b_small, block_offsets(a_small, b_small, 128, 256), 2))
-    mixed.append((a_g, b_g, off_g, len(b_g) // 256))
-    segments_check(mixed, "mixed")
-    # unsorted windows (a reversed span, a shuffled b, and the in-place
-    # window reversed): equal to the plain version only through the scan
-    unsorted = []
-    for k, (x, y, o, c) in enumerate(base[:2]):
-        y = y.copy()
-        y[:3000] = y[:3000][::-1] if k == 0 else irng.permutation(y[:3000])
-        unsorted.append((x, y, o, c))
-    y = b_g.copy()
-    y[100:12000] = y[100:12000][::-1]
-    unsorted.append((a_g, y, off_g, len(y) // 256))
-    _, _, masks = segments_check(unsorted, "unsorted")
-    wrong = [int((search_only(*seg) != m.cpu().numpy().astype(bool)).sum()) for seg, m in zip(unsorted, masks)]
-    print(f"intersect unsorted: a search alone would get {wrong} elements wrong per segment")
-    require(all(w_ > 0 for w_ in wrong), "an unsorted window a search gets right: the scan branch is not shown")
-    # duplicates and PAD runs in b (non-decreasing: the search stays exact)
-    dups = []
-    for k, (x, y, _, _) in enumerate(base[:2]):
-        y = np.sort(np.repeat(y[: len(y) // 4], 4))
-        y[len(y) // 2: len(y) // 2 + 700] = PAD
-        y = np.sort(y)
-        dups.append((x, y, block_offsets(x, y, 128, 256), (2, len(y) // 256)[k]))
-    _, _, masks = segments_check(dups, "duplicates and PAD runs")
-    a_s, b_s = (torch.from_numpy(t_).to(dev) for t_ in dups[1][:2])
-    require(torch.equal(masks[1].bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
-            "duplicates and PAD runs: the whole-list window is not the exact membership")
-
-    def any_offsets(na_, nb_, chunks):
-        """The CPU tests' arbitrary-offset pairs (same seeds): offsets below
-        0 (-1 and -257 first: floor and truncating division differ there,
-        and a negative first tile wraps to the end), past the end,
-        unaligned."""
-        g = np.random.default_rng(na_ + nb_ + chunks)
-        a_o = np.sort(g.integers(0, 3 * nb_, na_)).astype(np.int32)
-        a_o[-g.integers(1, 40):] = PAD
-        b_o = np.sort(g.integers(0, 3 * nb_, nb_)).astype(np.int32)
-        b_o[-g.integers(1, 64):] = PAD
-        off_o = g.integers(-3 * 256, nb_ + 3 * 256, na_ // 128).astype(np.int32)
-        off_o[:2] = -1, -257
-        return a_o, b_o, off_o, chunks
-
-    anyoff = [any_offsets(*shape) for shape in
-              ((512, 1024, 1), (1024, 2048, 2), (256, 2048, 3), (384, 256, 2), (1024, 4096, 16))]
-    print(f"intersect any offsets: {sum(int((o < 0).sum()) for _, _, o, _ in anyoff)} blocks below 0, "
-          f"{sum(int((o >= len(b_o)).sum()) for _, b_o, o, _ in anyoff)} past the end")
-    segments_check(anyoff, "any offsets")
-
-    t_k = cuda_ms(torch, lambda: intersect_sorted(a, b, off, n_chunks=n_chunks), 200)
-    t_p = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
-    t_l = cuda_ms(torch, lambda: torch.isin(a, b), 200)
-    buf1, pack1 = round_packs[0]
-    t_seg = [cuda_ms(torch, lambda: intersect_sorted_segments(buf_, pack_), 200) for buf_, pack_ in round_packs]
-    a_f, b_f, off_f = a[:128], b[:256], torch.zeros(1, dtype=torch.int32, device=dev)
-    t_f = cuda_ms(torch, lambda: intersect_sorted(a_f, b_f, off_f, n_chunks=1), 200)
-    ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
-    na_, nb_ = len(a_np), len(b_np)
-    # both lists are sorted: a binary search of each a element over its
-    # block's n_chunks * 256 b elements is what the function needs
-    n_ops = na_ * math.ceil(math.log2(n_chunks * 256))
-    b_ms, b_by = bound_ms(4 * (na_ + nb_ + len(off_np) + na_), n_ops)
-    # a round: the packed buffer read once, the masks written once, one
-    # search per a element over its segment's window
-    seg_ops = sum(na_s * math.ceil(math.log2(min(c, nb_s // 256) * 256))
-                  for na_s, nb_s, c in zip(pack1.na, pack1.nb, pack1.n_chunks))
-    seg_b_ms, seg_b_by = bound_ms(4 * (pack1.size + sum(pack1.na)), seg_ops)
-    print(f"intersect: {timing('kernel', t_k)}, {timing('plain', t_p)}, {timing('torch.isin', t_l)}, "
-          f"bound {b_ms:.6f} ms ({b_by})")
-    for r, (t_r, (_, pack_)) in enumerate(zip(t_seg, round_packs)):
-        print(f"intersect round {r + 1}, {len(pack_.na)} segments in one launch: "
-              f"{timing('kernel', t_r)} [{len(pack_.na)} single-pair launches: {len(pack_.na) * ms:.4f} ms]")
-    print(f"intersect round 1 bound {seg_b_ms:.6f} ms ({seg_b_by}); "
-          f"{timing('launch floor (one 128-element block, one 256-element tile)', t_f)}")
-
-    # the slate's Step-1 host wall: one launch and one readout per pair
-    # (intersect_candidates per item) against one per round
-    def step1(batched):
-        launched = intersect_sorted.launches
-        torch.cuda.synchronize()
-        t_s = time.perf_counter()
-        if batched:
-            out = fused.intersect_candidates_many(fold_items, device="cuda")
-        else:
-            out = [fused.intersect_candidates(lists, device="cuda") for lists in fold_items]
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t_s) * 1e3, intersect_sorted.launches - launched, out
-
-    walls, step1_launches = {False: [], True: []}, {}
-    want = [functools.reduce(np.intersect1d, lists) for lists in fold_items]
-    for rep in range(6):
-        for batched in ((False, True) if rep % 2 == 0 else (True, False)):
-            wall, step1_launches[batched], out = step1(batched)
-            walls[batched].append(wall)
-            require(all(np.array_equal(g, w_) for g, w_ in zip(out, want)),
-                    f"Step-1 candidates differ ({'per round' if batched else 'per pair'})")
-    print(f"slate Step-1 host wall (ms, 6 runs each, alternating): one launch per pair "
-          f"{[round(w_, 3) for w_ in walls[False]]} (median {sorted(walls[False])[3]:.3f}, "
-          f"{step1_launches[False]} launches); one per round {[round(w_, 3) for w_ in walls[True]]} "
-          f"(median {sorted(walls[True])[3]:.3f}, {step1_launches[True]} launches)")
-    require(step1_launches[True] == len(rounds) and step1_launches[False] == n_pairs,
-            f"Step-1 launches {step1_launches}, expected {len(rounds)} per round and {n_pairs} per pair")
-    kernels.append({
-        "name": "intersect_sorted", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/intersect.cu",
-        "replaces": "src/repro/kernels/intersect.py:82",
-        "launches": launches["intersect_sorted"], "max_abs_err": intersect_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms,
-        "segmented_ms": t_seg[0][0], "segments": len(pack1.na),
-        "segmented_bound_ms": seg_b_ms, "launch_floor_ms": t_f[0],
-    })
-    del a, b, off, events, mult, round_packs, buf1
-
-    # the arena route's gather descriptors, as serve_query_batch plans them
-    items = []
-    for qi, q in enumerate(SLATE):
-        for sub in subs[q]:
-            keys = select_keys(sub, index.fl)
-            exts = [residency.lookup(key.components) for key in keys]
-            if keys and all(e is not None and e.n_rows for e in exts):
-                items.append((qi, sub, keys, exts, residency))
-    aplan = plan_arena_batch(items, n_queries=len(SLATE))
-    print(f"arena plan: {len(items)} work items, tier {aplan.tier}, {aplan.n_events} live events, "
-          f"groups {list(aplan.families)} with G={[len(x) for x in aplan.src]} output blocks, "
-          f"row_budget {aplan.row_budget}, n_budget {aplan.n_budget}, "
-          f"lemma_budget {aplan.lemma_budget}, doc_bits {aplan.doc_bits}")
-
-    def gather_check(buf, src_t, nv_t, label):
-        got = gather_blocks(buf, src_t, nv_t)
-        want = gather_blocks_plain(buf, src_t, nv_t)
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        print(f"gather {label} G={src_t.shape[0]} over {buf.shape[0] // ARENA_BLOCK} arena blocks: "
-              f"{int((got[:, 0] >= 0).sum())} live rows, max_abs_err {err}")
-        require(err == 0 and got.shape == want.shape, f"gather kernel != plain ({label})")
-        return err
-
-    gather_err, groups = 0, []
-    for g, fname in enumerate(aplan.families):
-        src_t, nv_t = (torch.from_numpy(x[g]).to(dev) for x in (aplan.src, aplan.nv))
-        gather_err = max(gather_err, gather_check(aplan.buffers[g], src_t, nv_t, f"main-path {fname}"))
-        groups.append((len(aplan.src[g]), aplan.buffers[g], src_t, nv_t, aplan.nv[g]))
-    # random descriptors over the largest resident buffer: repeated sources,
-    # padded blocks (src 0, n_valid 0), sources past either end, every
-    # n_valid kind
-    big = max((fb.buf for fb in residency.families.values()), key=lambda t: t.shape[0])
-    nb_big = big.shape[0] // ARENA_BLOCK
-    src_r = rng.integers(0, nb_big, 8192).astype(np.int32)
-    src_r[::7] = src_r[0]
-    src_r[1], src_r[2], src_r[-64:] = -5, nb_big + 5, 0
-    nv_r = rng.choice([0, 1, 63, 64, 127, ARENA_BLOCK, ARENA_BLOCK + 3, -1], 8192).astype(np.int32)
-    nv_r[-64:] = 0
-    gather_err = max(gather_err, gather_check(
-        big, torch.from_numpy(src_r).to(dev), torch.from_numpy(nv_r).to(dev), "random"))
-    # times at the main path's largest group
-    g_blocks, buf, src_t, nv_t, nv_np = max(groups, key=lambda t: t[0])
-    t_k = cuda_ms(torch, lambda: gather_blocks(buf, src_t, nv_t), 200)
-    t_p = cuda_ms(torch, lambda: gather_blocks_plain(buf, src_t, nv_t), 20)
-    blocks3 = buf.view(-1, ARENA_BLOCK, 2)
-    t_l = cuda_ms(torch, lambda: torch.index_select(blocks3, 0, src_t), 200)
-    ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
-    live_rows = int(np.clip(nv_np, 0, ARENA_BLOCK).sum())
-    # 8 B per output row written, per live row read, per block of indirection
-    b_ms, b_by = bound_ms(8 * (g_blocks * ARENA_BLOCK + live_rows + g_blocks), 0)
-    print(f"gather G={g_blocks} ({live_rows} live rows): {timing('kernel', t_k)}, {timing('plain', t_p)}, "
-          f"{timing('torch.index_select (the gather without the mask)', t_l)}, bound {b_ms:.6f} ms ({b_by})")
-    kernels.append({
-        "name": "gather_blocks", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gather.cu",
-        "replaces": "src/repro/kernels/gather.py:64",
-        "launches": launches["gather_blocks"], "max_abs_err": gather_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms,
-    })
-    del groups, buf, src_t, nv_t, blocks3
-    t0 = phase("kernels vs plain versions", t0)
-
-    # ---- 6. the slate against the event-rank cover, the arena and the CPU -----
-    full = [SearchRequest(q, top_k=len(store)) for q in SLATE]
-    cpu_arena = PostingArena(budget_bytes=ARENA_BUDGET, device="cpu")
-    t_acq = time.perf_counter()
-    cpu_arena.acquire(index, 0)
-    print(f"cpu arena cold acquire: {time.perf_counter() - t_acq:.3f} s")
-    runs = {}
-    for label, kwargs in (
-        ("cuda kernel", dict(device="cuda", use_kernel=True)),
-        ("cuda rank", dict(device="cuda", use_kernel=False)),
-        ("cuda arena kernel", dict(device="cuda", use_kernel=True, arena=arena)),
-        ("cuda arena dense", dict(device="cuda", use_kernel=False, arena=arena)),
-        ("cpu arena", dict(device="cpu", arena=cpu_arena)),
-        ("cpu", dict(device="cpu")),
-    ):
-        t_run = time.perf_counter()
-        runs[label] = ServingFrontend(index, lemmatizer=lem, max_batch=16, **kwargs).search_many(full)
-        print(f"{label}: {(time.perf_counter() - t_run) * 1e3:.1f} ms for the slate, all documents ranked")
-        if "arena" in label:
-            require(sum(r.stats.arena_hits for r in runs[label]) > 0, f"{label} did not hit the arena")
-    for qi, q in enumerate(SLATE):
-        ref = runs["cpu"][qi]
-        ref_frags = {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments}
-        for label in runs.keys() - {"cpu"}:
-            got = runs[label][qi]
-            require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments} == ref_frags,
-                    f"{label} fragments differ from the cpu run for {q!r}")
-            require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
-                    f"{label} documents differ from the cpu run for {q!r}")
-            require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
-                    f"{label} scores differ from the cpu run for {q!r}")
-        for resps, route in ((main_resps, "host"), (arena_resps, "arena")):
-            require([d.doc_id for d in resps[qi].docs] == [d.doc_id for d in ref.docs[:TOP_K]],
-                    f"{route} route top {TOP_K} differs from the cpu ranking for {q!r}")
-        print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs agree on all {len(runs)} runs")
-    t0 = phase("agreement: every card and cpu run == the cpu host route", t0)
-
-    # ---- 7. the launcher's default deployment: 4 shards, se2.4 ---------------
-    # the first SHARDED_DOCS documents of phase 3's store: every key of every
-    # shard is built, and two cold acquires build and copy every family
-    shard_store = DocumentStore(documents=store.documents[:SHARDED_DOCS], lemmatizer=lem)
-    # phase 11f beside the host-side builds below
-    lm_ckpt = Background(lambda: lm_resume_check(procs))
-    t_build = time.perf_counter()
-    svc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
-                               max_distance=MAX_DISTANCE, device="cuda")
-    print(f"sharded service: {len(shard_store)} docs of phase 3's store in {N_SHARDS} shards under one "
-          f"FL-list, built in {time.perf_counter() - t_build:.1f} s")
-    for i, shard in enumerate(svc.shards):
-        sizes = shard.size_bytes()
-        longest = max((len(sorted(lists, key=len)[0]) for lists in step1_folds([shard])[0]), default=0)
-        print(f"  shard {i}: {shard.n_docs} docs, {sizes['total'] / 2**20:.1f} MiB of postings "
-              f"({sizes['triple'] / 2**20:.1f} MiB triple); the longest shortest Step-1 list of a "
-              f"multi-key item: {longest} docs (device threshold {fused.INTERSECT_DEVICE_THRESHOLD})")
-    _, shard_rounds = step1_folds(svc.shards)
-    print(f"sharded slate Step-1 folds: {sum(len(pairs) for pairs in shard_rounds)} device pairs in "
-          f"{len(shard_rounds)} rounds")
-    # one index over the same documents (the slate's (f,s,t) keys, as in
-    # phase 3), served by the host route on the CPU
-    fl_one = FLList.from_frequencies(shard_store.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
-    one = build_indexes(shard_store, SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE, fl=fl_one,
-                        triple_key_filter={k.components for q in SLATE for sub in subs[q]
-                                           for k in select_keys(sub, fl_one) if k.arity == 3})
-    single_cpu = ServingFrontend(one, lemmatizer=lem, max_batch=16, device="cpu").search_many(full)
-    t0 = phase("sharded service and single-index build (host), single-index cpu host route", t0)
-    lm_ckpt = lm_ckpt.result()
-    t0 = phase("the rest of the checkpoint resume check (11f) after the builds", t0)
-
-    def sharded_route(path, make_fe, expect):
-        """The slate once through a fresh frontend with the launch counters
-        at 0 before and read after, its cached repeat, the profile of 5
-        fresh frontends, and every document ranked through one more."""
-        fe = make_fe()
+        requests = [SearchRequest(q, top_k=TOP_K) for q in SLATE]
+        frontend = ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True, max_batch=16)
         zero_counts()
         fused.reset_dispatch_count()
         t_serve = time.perf_counter()
-        resps = fe.search_many(requests)
+        main_resps = frontend.search_many(requests)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t_serve) * 1e3
-        counts, dispatches = read_counts(path), fused.dispatch_count()
-        hits = sum(r.stats.arena_hits for r in resps)
-        print(f"{path}: {dispatches} device programs, kernel launches {counts}, arena hits {hits} keys, "
-              f"misses {sum(r.stats.arena_misses for r in resps)} keys")
-        for kname in ("proximity_window", "gather_blocks"):
-            if expect[kname]:
-                require(counts[kname] > 0, f"{kname} was not launched on the {path}")
-        require(counts["intersect_sorted"] == expect["intersect_sorted"],
-                f"the {path} made {counts['intersect_sorted']} intersect launches, "
-                f"{expect['intersect_sorted']} expected")
-        require(hits > 0 or not expect["gather_blocks"], f"the {path} did not hit the arena")
+        launches = dict(read_counts("host route"))
+        del launches["gather_blocks"]
+        dispatches = fused.dispatch_count()
+        print(f"host route: {len(SLATE)} queries, {dispatches} device programs, kernel launches {launches} "
+              f"(intersect: one per fold round, {len(rounds)} expected; one per pair would be {n_pairs})")
+        for kname, count in launches.items():
+            require(count > 0, f"{kname} was not launched on the host route")
+        require(launches["intersect_sorted"] == len(rounds),
+                f"the host route made {launches['intersect_sorted']} intersect launches for {len(rounds)} fold rounds")
         t_serve = time.perf_counter()
-        cached = fe.search_many(requests)
+        cached = frontend.search_many(requests)
         cached_ms = (time.perf_counter() - t_serve) * 1e3
-        require(all(r.stats.cache_hits == 1 for r in cached), f"second {path} round not all cache hits")
-        slate_profile(make_fe, path, first_ms, cached_ms)
-        return make_fe().search_many(full)
+        require(all(r.stats.cache_hits == 1 for r in cached), "second round not all cache hits")
+        for r in main_resps:
+            require(all(np.isfinite(d.score) and d.score > 0 for d in r.docs), f"bad scores for {r.query!r}")
+            print(f"  {r.query!r}: {r.stats.results} fragments, top doc "
+                  f"{r.docs[0].doc_id if r.docs else None}, {r.n_subqueries} subqueries")
+        slate_profile(lambda: ServingFrontend(index, lemmatizer=lem, device="cuda", use_kernel=True,
+                                              max_batch=16), "host route", first_ms, cached_ms)
+        # the fused batch's readout phase with the slate's Step-1 rounds on the
+        # card and with a threshold no list reaches (no device intersect), in
+        # turns: the rounds run on a stream of their own and must not slow it
+        work = [[(sub, index) for sub in subs[q]] for q in SLATE]
+        readout_us: dict[int, list] = {}
+        for rep in range(8):
+            threshold = (fused.INTERSECT_DEVICE_THRESHOLD, 1 << 30)[rep % 2]
+            sink = {}
+            prev = fused.collect_phases(sink)
+            fused.serve_query_batch(work, max_distance=MAX_DISTANCE, top_k=TOP_K, use_kernel=True,
+                                    intersect_device_threshold=threshold, device="cuda")
+            fused.collect_phases(prev)
+            readout_us.setdefault(threshold, []).append(round(sink["readout_us"][0], 1))
+        print(f"host route readout_us, 4 batches each in turns: device intersects "
+              f"{readout_us[fused.INTERSECT_DEVICE_THRESHOLD]}, none {readout_us[1 << 30]}")
+        t0 = phase("serving (host route)", t0)
 
-    sharded = {"sharded host route": sharded_route(
-        "sharded host route",
-        lambda: ServingFrontend(svc, device="cuda", use_kernel=True, max_batch=16),
-        {"proximity_window": True, "gather_blocks": False, "intersect_sorted": len(shard_rounds)})}
-
-    def cold_arena(budget_bytes):
-        """An arena on the card with the frontend's own tokens, acquired
-        cold for every shard: its seconds and each shard's resident and
-        refused families."""
-        fe = ServingFrontend(svc, arena_budget_mb=budget_bytes / 2**20, device="cuda", use_kernel=True,
-                             max_batch=16)
-        token = generation_token(svc)
+        # ---- 4b. main path, arena route ------------------------------------------
+        arena = PostingArena(budget_bytes=ARENA_BUDGET, device="cuda")
         t_acq = time.perf_counter()
-        res = fe.arena.acquire_many([(shard, token, i) for i, shard in enumerate(svc.shards)])
+        residency = arena.acquire(index, 0)
         torch.cuda.synchronize()
-        m = fe.arena.metrics()
-        print(f"sharded cold acquire (budget {budget_bytes >> 20} MiB): {time.perf_counter() - t_acq:.3f} s, "
-              f"{m['arena_uploads']} uploads, {m['arena_upload_bytes'] / 2**20:.1f} MiB copied to the card, "
-              f"{m['arena_bytes'] / 2**20:.1f} MiB kept")
-        fam_bytes = []
-        for i, r in enumerate(res):
-            refused_i = {key[3]: nb for key, nb in fe.arena.refused.items() if key[2] == i}
-            print(f"  shard {i}: resident {json.dumps({f: f'{fb.nbytes / 2**20:.1f} MiB' for f, fb in r.families.items()})}, "
-                  f"refused {json.dumps({f: f'{nb / 2**20:.1f} MiB' for f, nb in refused_i.items()})}")
-            fam_bytes.append({**{f: fb.nbytes for f, fb in r.families.items()}, **refused_i})
-        return fe.arena, res, fam_bytes
+        acquire_s = time.perf_counter() - t_acq
+        m = arena.metrics()
+        resident = {f: fb.nbytes for f, fb in residency.families.items()}
+        refused = {key[3]: nbytes for key, nbytes in arena.refused.items()}
+        print(f"cold acquire (budget {ARENA_BUDGET >> 20} MiB): {acquire_s:.3f} s, "
+              f"{m['arena_uploads']} uploads, {m['arena_upload_bytes'] / 2**20:.1f} MiB copied to the card")
+        print(f"  resident: {json.dumps({f: f'{b / 2**20:.1f} MiB' for f, b in resident.items()})}")
+        print(f"  refused (larger than the budget): {json.dumps({f: f'{b / 2**20:.1f} MiB' for f, b in refused.items()})}")
+        print(f"  arena metrics: {json.dumps(m)}")
+        require(resident, "no family is resident under the budget")
 
-    def arena_route(budget_bytes, arena_, res):
-        uploads = arena_.metrics()["arena_uploads"]
-        triples = all("triple" in r.families for r in res)
-        path = f"sharded arena route ({budget_bytes >> 20} MiB)"
-        sharded[path] = sharded_route(
-            path, lambda: ServingFrontend(svc, arena=arena_, device="cuda", use_kernel=True, max_batch=16),
-            {"proximity_window": not triples, "gather_blocks": triples,
-             "intersect_sorted": 0 if triples else len(shard_rounds)})
-        require(arena_.metrics()["arena_uploads"] == uploads, f"the {path} uploaded: the cold entries were missed")
-        return triples
+        def arena_frontend(**kw):
+            return ServingFrontend(index, lemmatizer=lem, arena=arena, device="cuda", max_batch=16,
+                                   **{"use_kernel": True, **kw})
 
-    # the arena at the smallest power-of-two budget at which the acquire's
-    # admission (every shard's families in order, none evictable) keeps
-    # every shard's triples.  The launcher's 64 MiB keeps none of them, and
-    # phase 8 drives that budget's host-pack fallback over these documents
-    arena_big, res_big, fam_bytes = cold_arena(SHARDED_ARENA_BUDGET)
+        frontend = arena_frontend()
+        uploads = arena.metrics()["arena_uploads"]
+        zero_counts()
+        fused.reset_dispatch_count()
+        t_serve = time.perf_counter()
+        arena_resps = frontend.search_many(requests)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t_serve) * 1e3
+        launches["gather_blocks"] = read_counts("arena route")["gather_blocks"]
+        dispatches = fused.dispatch_count()
+        hits = sum(r.stats.arena_hits for r in arena_resps)
+        misses = sum(r.stats.arena_misses for r in arena_resps)
+        print(f"arena route: {len(SLATE)} queries, {dispatches} device programs, gather launches "
+              f"{launches['gather_blocks']}, arena hits {hits} keys, misses {misses} keys")
+        require(launches["gather_blocks"] > 0, "gather_blocks was not launched on the arena route")
+        require(hits > 0, "the slate did not hit the arena")
+        require(dispatches > 0, "the arena route issued no device program")
+        t_serve = time.perf_counter()
+        cached = frontend.search_many(requests)
+        cached_ms = (time.perf_counter() - t_serve) * 1e3
+        require(all(r.stats.cache_hits == 1 for r in cached), "second arena round not all cache hits")
+        for r, h in zip(arena_resps, main_resps):
+            require([d.doc_id for d in r.docs] == [d.doc_id for d in h.docs],
+                    f"arena route top {TOP_K} differs from the host route for {r.query!r}")
+        slate_profile(arena_frontend, "arena route", first_ms, cached_ms)
+        require(arena.metrics()["arena_uploads"] == uploads, "a slate uploaded to the arena: the cold entries were missed")
+        print(f"  arena metrics after the slates: {json.dumps(arena.metrics())}")
+        t0 = phase("serving (arena route)", t0)
 
-    def triples_kept(budget):
-        used, kept = 0, 0
-        for sizes in fam_bytes:
-            for fname in ("stop_single", "stop_pair", "pair", "triple"):
-                if used + sizes[fname] <= budget:
-                    used += sizes[fname]
-                    kept += fname == "triple"
-        return kept
-
-    require(triples_kept(SHARDED_ARENA_BUDGET) == N_SHARDS
-            and triples_kept(SHARDED_ARENA_BUDGET // 2) < N_SHARDS and triples_kept(ARENA_BUDGET) == 0,
-            f"{SHARDED_ARENA_BUDGET >> 20} MiB is not the smallest power-of-two budget that keeps "
-            f"every shard's triples")
-    print(f"the smallest power-of-two budget that admits every shard's triple family: "
-          f"{SHARDED_ARENA_BUDGET >> 20} MiB (none at {ARENA_BUDGET >> 20} MiB)")
-    require(arena_route(SHARDED_ARENA_BUDGET, arena_big, res_big),
-            f"the triples are not resident at {SHARDED_ARENA_BUDGET >> 20} MiB")
-    arena_big.release()
-    t0 = phase("serving (sharded host and arena routes)", t0)
-
-    svc.algorithm, svc.use_kernel = "fused", True
-    zero_counts()
-    t_serve = time.perf_counter()
-    sharded["svc.search_batch fused"] = svc.search_batch(SLATE, top_k=len(store))
-    torch.cuda.synchronize()
-    counts = read_counts("sharded svc.search_batch fused")
-    print(f"svc.search_batch (fused, use_kernel): {(time.perf_counter() - t_serve) * 1e3:.1f} ms for the slate, "
-          f"all documents ranked, kernel launches {counts}")
-    require(counts["proximity_window"] > 0, "proximity_window was not launched by svc.search_batch")
-    svc.algorithm = "se2.4"
-    t_serve = time.perf_counter()
-    combiner = svc.search_batch(SLATE, top_k=len(store))
-    print(f"svc.search_batch (se2.4, the host Combiner over the same shards): "
-          f"{time.perf_counter() - t_serve:.2f} s for the slate")
-    for qi, q in enumerate(SLATE):
-        ref = combiner[qi]
-        ref_frags = {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments}
-        for label, resps in (*sharded.items(), ("single-index cpu host route", single_cpu)):
-            got = resps[qi]
-            require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments} == ref_frags,
-                    f"{label} fragments differ from se2.4 over the shards for {q!r}")
-            require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
-                    f"{label} documents differ from se2.4 over the shards for {q!r}")
-            require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
-                    f"{label} scores differ from se2.4 over the shards for {q!r}")
-        print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs; se2.4 == "
-              f"{len(sharded) + 1} routes")
-    t0 = phase("agreement: sharded routes == se2.4 over the shards == the single index", t0)
-
-    # the baselines on one query, each held to the contract the reference's
-    # own tests hold it to (tests/test_combiner.py): se2.2 and se2.3 equal
-    # the §10 sweep over their own keys' events in the documents every key
-    # reaches, as se2.4 does over its keys, and SE1 the sweep over the
-    # ordinary index; SE2.1 treats the query as a lemma set, and every
-    # fragment it reports is checked against the document's own lemmas.
-    # Their fragment sets differ from se2.4's by design (other events, other
-    # keys, set semantics): the overlap is printed
-    q = "to be or not to be"
-    qsubs = expand_subqueries(q, lem)
-    docs_by_id = {d.doc_id: d for d in store.documents}
-    want = {"se1": set(), "se2.2": set(), "se2.3": set(), "se2.4": set()}
-    for shard in svc.shards:
-        for sub in qsubs:
-            mult, span = sub.multiplicity(), 2 * MAX_DISTANCE
-            for alg, keys, honor in (("se2.2", simple_key_cover(sub, shard.fl), True),
-                                     ("se2.3", select_keys(sub, shard.fl), False),
-                                     ("se2.4", select_keys(sub, shard.fl), True)):
-                post = {k: shard.key_postings(k.components) for k in keys}
-                # the documents every key's iterator reaches (Step 1)
-                aligned = functools.reduce(np.intersect1d, [np.unique(a[:, 0]) for a in post.values()])
-                for doc, events in key_events(keys, post, honor_stars=honor).items():
-                    if doc in aligned:
-                        want[alg] |= {tuple(r) for r in sweep_events(doc, events, mult, span)}
-            for doc, events in ordinary_events(sub.lemmas, shard.ordinary).items():
-                want["se1"] |= {tuple(r) for r in sweep_events(doc, events, mult, span)}
-    got = {}
-    for alg in ("se2.4", "se1", "se2.1", "se2.2", "se2.3"):
-        svc.algorithm = alg
-        t_q = time.perf_counter()
-        r = svc.search(q, top_k=len(store))
-        secs = time.perf_counter() - t_q
-        got[alg] = {(d.doc_id, f.start, f.end) for d in r.docs for f in d.fragments}
-        print(f"{alg} over the 4 shards, {q!r}: {secs:.3f} s, {len(got[alg])} fragments, "
-              f"{len(got[alg] & got['se2.4'])} shared with se2.4, "
-              f"postings read {r.stats.postings_read}")
-    for alg, frags in want.items():
-        require(got[alg] == frags, f"{alg} != the sweep over its own events for {q!r}")
-    for doc, start, end in got["se2.1"]:
-        words = {lm for pos in docs_by_id[doc].lemma_stream[start:end + 1] for lm in pos}
-        require(end - start <= 2 * MAX_DISTANCE and any(set(sub.lemmas) <= words for sub in qsubs),
-                f"se2.1 fragment {(doc, start, end)} does not hold the query's lemmas")
-    print("baselines against se2.4: " + ", ".join(
-        f"{alg} {'==' if got[alg] == got['se2.4'] else '!='} se2.4" for alg in ("se1", "se2.1", "se2.2", "se2.3")))
-    svc.algorithm = "se2.4"
-
-    # device_topk_merge on the card: each shard's top 10 of a response
-    # (from se2.4 over the shards), a tie forced across shards at the top
-    ref = max(combiner, key=lambda r: len(r.docs))
-    per_shard = [[(d.score, d.doc_id) for d in ref.docs if d.doc_id % N_SHARDS == s_][:TOP_K]
-                 for s_ in range(N_SHARDS)]
-    sc = np.full((N_SHARDS, TOP_K), -np.inf, np.float32)
-    dc = np.full((N_SHARDS, TOP_K), -1, np.int32)
-    for s_, lst in enumerate(per_shard):
-        sc[s_, :len(lst)] = [x for x, _ in lst]
-        dc[s_, :len(lst)] = [y for _, y in lst]
-    sc[1, 0] = sc[3, 0] = sc[0, 0]
-    top_s, top_d = device_topk_merge(torch.from_numpy(sc).to(dev), torch.from_numpy(dc).to(dev), TOP_K)
-    order = np.argsort(-sc.reshape(-1), kind="stable")[:TOP_K]
-    print(f"device_topk_merge on {top_s.device}: {ref.query!r}, {N_SHARDS} x {TOP_K} per-shard lists, "
-          f"merged top docs {top_d.tolist()}")
-    require(top_d.device.type == "cuda" and np.array_equal(top_d.cpu().numpy(), dc.reshape(-1)[order])
-            and np.array_equal(top_s.cpu().numpy(), sc.reshape(-1)[order]),
-            "device_topk_merge != a stable host sort")
-    t0 = phase("baselines and device_topk_merge", t0)
-
-    def agree(label, resps, ref_resps):
-        """Fragments, documents and (rtol) scores of every query equal."""
-        for q, got, ref in zip(SLATE, resps, ref_resps):
-            require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments}
-                    == {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments},
-                    f"{label} fragments differ for {q!r}")
-            require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
-                    f"{label} documents differ for {q!r}")
-            require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
-                    f"{label} scores differ for {q!r}")
-
-    def digests(resps):
-        return [hashlib.sha256(json.dumps(sorted((d.doc_id, f.start, f.end) for d in r.docs
-                                                 for f in d.fragments)).encode()).hexdigest()[:16]
-                for r in resps]
-
-    def durable_phase(snap_dir: Path, ref_dir: Path) -> None:
-        t8 = time.perf_counter()
-        t_build = time.perf_counter()
-        isvc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
-                                    max_distance=MAX_DISTANCE, incremental=True, device="cuda")
-        print(f"incremental service: {len(shard_store)} docs in {N_SHARDS} shards, built in "
-              f"{time.perf_counter() - t_build:.1f} s")
-        for i, (ix, static) in enumerate(zip(isvc.indexers, svc.shards)):
-            eq, why = index_sets_equal(ix.index.to_index_set(), static)
-            require(eq, f"incremental shard {i} != phase 7's static shard: {why}")
-            print(f"  shard {i}: {len(ix.segments)} segment(s), "
-                  f"{sum(seg.live_bytes() for seg in ix.segments) / 2**20:.1f} MiB, == phase 7's shard")
-        t_ref = time.perf_counter()
-        isvc.snapshot(ref_dir)  # WAL-less: phase 9a's bulk tree must equal it file for file
-        print(f"WAL-less snapshot for phase 9a: {time.perf_counter() - t_ref:.2f} s")
-        t_dur = time.perf_counter()
-        isvc.enable_wal(snap_dir)
-        isvc.snapshot(snap_dir)
-        on_disk = sum(f.stat().st_size for f in snap_dir.rglob("*") if f.is_file())
-        print(f"enable_wal + snapshot: {time.perf_counter() - t_dur:.2f} s, {on_disk / 2**20:.1f} MiB on disk")
-        t8 = phase("durable service: incremental build, WAL and snapshot", t8)
-
-        host_fe = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16)
-        arena_fe = ServingFrontend(isvc, arena_budget_mb=ARENA_BUDGET >> 20, use_kernel=True,
-                                   device="cuda", max_batch=16)
-        arena8 = arena_fe.arena
-
-        def acquire(tag):
-            """The attached arena's cold acquire under the live tokens."""
-            tok = generation_token(isvc)
-            t_acq = time.perf_counter()
-            res = arena8.acquire_many([(v, tok[i], i) for i, v in enumerate(isvc.shards)])
+        # ---- 5. kernels against their plain versions, main-path shapes -----------
+        plan = fused.plan_query_batch(work, device="cpu")
+        r, l, k = plan.postab.shape
+        n = plan.doc_len
+        print(f"main-path plan: E={plan.events.shape[0]} (live {int((plan.events[:, 0] >= 0).sum())}) "
+              f"R={r} (live {int((plan.row_doc >= 0).sum())}) L={l} K={k} N={n} Q={plan.query_budget}")
+        # the host's share after the readout: materializing and ranking every
+        # fragment of the slate (what execute_plans does per response)
+        res = fused.serve_query_batch(work, max_distance=MAX_DISTANCE, top_k=TOP_K,
+                                      use_kernel=True, device="cuda")
+        t_rank = time.perf_counter()
+        for frs in res.per_query:
+            rank_documents(frs, top_k=TOP_K)
+        rank_ms = (time.perf_counter() - t_rank) * 1e3
+        print(f"host response ranking of the slate: {rank_ms:.1f} ms over "
+              f"{sum(len(frs) for frs in res.per_query)} fragments")
+        t_plan = time.perf_counter()
+        for q in SLATE:
+            frontend.planner.plan(q)
+        print(f"host query planning of the slate (QueryPlanner.plan): "
+              f"{(time.perf_counter() - t_plan) * 1e3:.1f} ms")
+        events = torch.from_numpy(plan.events).to(dev)
+        mult = torch.from_numpy(plan.mult).to(dev)
+        def cover_check(occ, mult_, dtype, label, max_distance=MAX_DISTANCE, quiet=False):
+            """The cover kernel against its plain version: emit and start must
+            be equal bit for bit at every position; returns the largest absolute
+            difference of either."""
+            ek, sk = proximity_window(occ, mult_, max_distance, compute_dtype=dtype)
+            ep, sp = proximity_window_plain(occ, mult_, max_distance, compute_dtype=dtype)
             torch.cuda.synchronize()
+            differ = (ek != ep) | (sk != sp)
+            err = int((sk - sp).abs().max()) if sk.numel() else 0
+            err = max(err, int(differ.any()))
+            if not quiet:
+                print(f"proximity {label} {dtype} {tuple(occ.shape)}: {int(ep.sum())} emits, "
+                      f"{int(differ.sum())} positions differ, max_abs_err {err}")
+            require(err == 0, f"proximity kernel != plain ({label}, {dtype}, max_distance {max_distance})")
+            return err
+
+        def cover_inputs(b, l_, n_, window, dtype, wild_rows):
+            """0/1 rows (sparse, dense, events only at e < window) and, on
+            ``wild_rows``, arbitrary values that wrap in the compute type;
+            multiplicities with 0, negative values, values above the window and
+            256."""
+            occ_np = (rng.random((b, l_, n_)) < np.array([0.1, 0.5, 0.3])[np.arange(b) % 3, None, None])
+            occ_np = occ_np.astype(np.int64)
+            occ_np[2::3, :, window:] = 0
+            if dtype == "uint8":
+                wild = rng.integers(0, 256, (b, l_, n_))
+            else:
+                wild = rng.choice([-(2**31), -3, -1, 0, 1, 2, 3, 2**31 - 1], (b, l_, n_))
+            occ_np[wild_rows] = wild[wild_rows]
+            mult_np = rng.choice([0, 1, 1, 1, 2, 2, 3, -1, -5, window, window + 1, 64, 65, 255, 256], (b, l_))
+            return (torch.from_numpy(occ_np.astype(np.int32)).to(dev),
+                    torch.from_numpy(mult_np.astype(np.int32)).to(dev))
+
+        rng = np.random.default_rng(SEED)
+        n_active = int((plan.mult > 0).sum())
+        print(f"cover: {n_active} active (row, lemma) pairs of {r * l}")
+        # the earlier form of the kernel (one thread per position summing its
+        # window) on an H100 80GB HBM3 at 700 W, for comparison
+        cover_err, earlier_ms = 0, {"uint8": 1.5996, "int32": 1.5949}
+        for dtype in ("uint8", "int32"):
+            occ = fused.scatter_occupancy(events, r, l, n, dtype)
+            # the main path's occupancy is 0/1: every tile takes the bit path
+            require(int(occ.max()) <= 1, "the main path's occupancy is not 0/1")
+            cover_err = max(cover_err, cover_check(occ, mult, dtype, "main-path"))
+            # arbitrary occupancy values at the main path's shape: every tile
+            # takes the general path, and both sides wrap in the compute dtype
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            if dtype == "uint8":
+                occ_w = torch.randint(0, 256, (r, l, n), generator=gen, device=dev, dtype=torch.uint8)
+            else:
+                occ_w = torch.randint(-(2**31), 2**31 - 1, (r, l, n), generator=gen, device=dev,
+                                      dtype=torch.int32)
+            mult_w = torch.randint(0, 4, (r, l), generator=gen, device=dev, dtype=torch.int32)
+            cover_err = max(cover_err, cover_check(occ_w, mult_w, dtype, "wraparound"))
+            # one launch whose rows alternate between 0/1 and wrapping values
+            occ_m, mult_m = cover_inputs(512, l, n, 2 * MAX_DISTANCE + 1, dtype, slice(1, None, 2))
+            cover_err = max(cover_err, cover_check(occ_m, mult_m, dtype, "mixed rows"))
+            # the sweep: ragged N, windows 1 to 63, 1 to 8 lemmas, awkward mult
+            t_sweep, n_sweep = time.perf_counter(), 0
+            for n_ in (128, 200, 520, 4096):
+                for md in (0, 1, 5, 31):
+                    for l_ in (1, 3, 8):
+                        occ_s, mult_s = cover_inputs(48, l_, n_, 2 * md + 1, dtype, slice(3, None, 4))
+                        cover_err = max(cover_err, cover_check(occ_s, mult_s, dtype, "sweep", md, quiet=True))
+                        n_sweep += 1
+            print(f"proximity sweep {dtype}: {n_sweep} launches (N 128/200/520/4096, max_distance "
+                  f"0/1/5/31, L 1/3/8), emit and start equal everywhere, "
+                  f"{time.perf_counter() - t_sweep:.2f} s")
+            t_k = cuda_ms(torch, lambda: proximity_window(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 50)
+            t_g = cuda_ms(torch, lambda: proximity_window(occ_w, mult_w, MAX_DISTANCE, compute_dtype=dtype), 20)
+            t_p = cuda_ms(torch, lambda: proximity_window_plain(occ, mult, MAX_DISTANCE, compute_dtype=dtype), 2)
+            ms, plain_ms = t_k[0], t_p[0]
+            item = occ.element_size()
+            # the active occupancy rows read once (an inactive row never changes
+            # the output), mult read, emit and start written
+            n_bytes = n_active * n * item + r * l * item + r * n * (1 + 4)
+            whole_ms = (r * l * n * item + r * l * item + r * n * (1 + 4)) / HBM_BYTES_PER_S * 1e3
+            # one test per active (row, lemma) and position
+            n_ops = n_active * n
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            print(f"proximity {dtype}: {timing('kernel (bit path)', t_k)} [earlier per-position form: {earlier_ms[dtype]} ms], "
+                  f"{timing('plain', t_p)}, bound {b_ms:.4f} ms ({b_by}; whole-input bytes {whole_ms:.4f} ms)")
+            print(f"proximity {dtype} general path: {timing('kernel on the wraparound input', t_g)}")
+            if dtype == "uint8":  # the frontend's compute dtype: the main path's entry
+                cover_entry = {
+                    "name": "proximity_window", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/proximity.cu",
+                    "replaces": "src/repro/kernels/proximity.py:105",
+                    "launches": launches["proximity_window"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None,
+                }
+            del occ, occ_w
+        kernels.append({**cover_entry, "max_abs_err": cover_err})
+
+        # the two longest doc lists of one multi-key subquery of the slate
+        pairs = []
+        for lists in fold_items:
+            docs = sorted(lists, key=len)
+            pairs.append((min(len(docs[-1]), len(docs[-2])), docs[-2], docs[-1]))
+        _, a_docs, b_docs = max(pairs, key=lambda t: t[0])
+        a_np, b_np, off_np, n_chunks = fused.intersect_inputs(a_docs, b_docs)
+        a, b, off = (torch.from_numpy(x).to(dev) for x in (a_np, b_np, off_np))
+        print(f"intersect inputs: |a|={len(a_docs)} |b|={len(b_docs)} NA={len(a_np)} NB={len(b_np)} n_chunks={n_chunks}")
+        full_chunks = len(b_np) // 256
+        member = torch.isin(a, b) & (a != int(PAD))
+        intersect_err = 0
+        for chunks, label in ((n_chunks, "main-path"), (full_chunks, "full"), (1, "partial")):
+            got = intersect_sorted(a, b, off, n_chunks=chunks)
+            want = intersect_sorted_plain(a, b, off, n_chunks=chunks)
+            err = int((got - want).abs().max())
+            print(f"intersect {label} n_chunks={chunks}: {int(got.sum())} hits, "
+                  f"{int(member.sum())} members, {int((got != want).sum())} elements differ")
+            require(err == 0, f"intersect kernel != plain ({label})")
+            intersect_err = max(intersect_err, err)
+            require(bool((got <= member.int()).all()), f"intersect false positive ({label})")
+            if chunks >= n_chunks:
+                require(torch.equal(got.bool(), member), f"intersect under-reports ({label})")
+
+        def segments_check(segments, label):
+            """One segmented launch against the plain version of each segment
+            alone, every element; returns the packed buffer on the card, its
+            layout and the per-segment masks."""
+            nonlocal intersect_err
+            buf, pack = pack_segments(segments)
+            buf = buf.to(dev)
+            masks = pack.split(intersect_sorted_segments(buf, pack))
+            differ = hits = 0
+            for s_, mask in enumerate(masks):
+                a_s, b_s, off_s = pack.segment(buf, s_)
+                want = intersect_sorted_plain(a_s, b_s, off_s, n_chunks=pack.n_chunks[s_])
+                differ += int((mask != want).sum())
+                hits += int(want.sum())
+                intersect_err = max(intersect_err, int((mask - want).abs().max()))
+            print(f"intersect segmented {label}: {len(masks)} segments in one launch, n_chunks "
+                  f"{list(pack.n_chunks)}, NB {list(pack.nb)}, {hits} hits, {differ} elements differ")
+            require(differ == 0, f"segmented intersect kernel != plain ({label})")
+            return buf, pack, masks
+
+        def search_only(a_s, b_s, off_s, chunks):
+            """What a kernel that only binary-searched would report: a
+            lower bound over each block's window, sorted or not."""
+            last, out = len(b_s) // 256 - 1, np.zeros(len(a_s), bool)
+            for blk, o in enumerate(off_s.tolist()):
+                lo, hi = (min(max(t, 0), last) for t in (o // 256, o // 256 + chunks - 1))
+                w, v = b_s[lo * 256:(hi + 1) * 256], a_s[blk * 128:(blk + 1) * 128]
+                out[blk * 128:(blk + 1) * 128] = (w[np.minimum(np.searchsorted(w, v), len(w) - 1)] == v) & (v != PAD)
+            return out
+
+        # one launch per fold round of the slate, as the planner forms them; the
+        # planner sizes n_chunks to cover every span, so the masks are exact
+        round_packs = []
+        for r, round_pairs in enumerate(rounds):
+            buf, pack, masks = segments_check([fused.intersect_inputs(x, y) for x, y in round_pairs],
+                                              f"round {r + 1}")
+            for s_, mask in enumerate(masks):
+                a_s, b_s, _ = pack.segment(buf, s_)
+                require(torch.equal(mask.bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
+                        f"round {r + 1} segment {s_}: not the exact membership")
+            round_packs.append((buf, pack))
+        base = [fused.intersect_inputs(x, y) for x, y in rounds[0]]
+        irng = np.random.default_rng(SEED + 1)
+        big_b = np.sort(irng.choice(20000, 16000, replace=False)).astype(np.int32)
+        big_a = np.sort(irng.choice(20000, 5000, replace=False)).astype(np.int32)
+        a_g, b_g, off_g, _ = fused.intersect_inputs(big_a, big_b)
+        # mixed n_chunks (the planner's, 1, 3, the whole list); every window
+        # clamped at the last tile; a single-tile b; a 16,384-element window
+        # above the kernel's shared-memory budget, searched in place
+        mixed = [(x, y, o, (c, 1, 3, len(y) // 256)[k]) for k, (x, y, o, c) in enumerate(base[:4])]
+        x, y, o, _ = base[4 % len(base)]
+        mixed.append((x, y, np.full_like(o, len(y) - 256), 4))
+        a_small, b_small = base[0][0][:256].copy(), np.full(256, PAD, np.int32)
+        b_small[:200] = base[0][1][:200]
+        mixed.append((a_small, b_small, block_offsets(a_small, b_small, 128, 256), 2))
+        mixed.append((a_g, b_g, off_g, len(b_g) // 256))
+        segments_check(mixed, "mixed")
+        # unsorted windows (a reversed span, a shuffled b, and the in-place
+        # window reversed): equal to the plain version only through the scan
+        unsorted = []
+        for k, (x, y, o, c) in enumerate(base[:2]):
+            y = y.copy()
+            y[:3000] = y[:3000][::-1] if k == 0 else irng.permutation(y[:3000])
+            unsorted.append((x, y, o, c))
+        y = b_g.copy()
+        y[100:12000] = y[100:12000][::-1]
+        unsorted.append((a_g, y, off_g, len(y) // 256))
+        _, _, masks = segments_check(unsorted, "unsorted")
+        wrong = [int((search_only(*seg) != m.cpu().numpy().astype(bool)).sum()) for seg, m in zip(unsorted, masks)]
+        print(f"intersect unsorted: a search alone would get {wrong} elements wrong per segment")
+        require(all(w_ > 0 for w_ in wrong), "an unsorted window a search gets right: the scan branch is not shown")
+        # duplicates and PAD runs in b (non-decreasing: the search stays exact)
+        dups = []
+        for k, (x, y, _, _) in enumerate(base[:2]):
+            y = np.sort(np.repeat(y[: len(y) // 4], 4))
+            y[len(y) // 2: len(y) // 2 + 700] = PAD
+            y = np.sort(y)
+            dups.append((x, y, block_offsets(x, y, 128, 256), (2, len(y) // 256)[k]))
+        _, _, masks = segments_check(dups, "duplicates and PAD runs")
+        a_s, b_s = (torch.from_numpy(t_).to(dev) for t_ in dups[1][:2])
+        require(torch.equal(masks[1].bool(), torch.isin(a_s, b_s) & (a_s != int(PAD))),
+                "duplicates and PAD runs: the whole-list window is not the exact membership")
+
+        def any_offsets(na_, nb_, chunks):
+            """The CPU tests' arbitrary-offset pairs (same seeds): offsets below
+            0 (-1 and -257 first: floor and truncating division differ there,
+            and a negative first tile wraps to the end), past the end,
+            unaligned."""
+            g = np.random.default_rng(na_ + nb_ + chunks)
+            a_o = np.sort(g.integers(0, 3 * nb_, na_)).astype(np.int32)
+            a_o[-g.integers(1, 40):] = PAD
+            b_o = np.sort(g.integers(0, 3 * nb_, nb_)).astype(np.int32)
+            b_o[-g.integers(1, 64):] = PAD
+            off_o = g.integers(-3 * 256, nb_ + 3 * 256, na_ // 128).astype(np.int32)
+            off_o[:2] = -1, -257
+            return a_o, b_o, off_o, chunks
+
+        anyoff = [any_offsets(*shape) for shape in
+                  ((512, 1024, 1), (1024, 2048, 2), (256, 2048, 3), (384, 256, 2), (1024, 4096, 16))]
+        print(f"intersect any offsets: {sum(int((o < 0).sum()) for _, _, o, _ in anyoff)} blocks below 0, "
+              f"{sum(int((o >= len(b_o)).sum()) for _, b_o, o, _ in anyoff)} past the end")
+        segments_check(anyoff, "any offsets")
+
+        t_k = cuda_ms(torch, lambda: intersect_sorted(a, b, off, n_chunks=n_chunks), 200)
+        t_p = cuda_ms(torch, lambda: intersect_sorted_plain(a, b, off, n_chunks=n_chunks), 20)
+        t_l = cuda_ms(torch, lambda: torch.isin(a, b), 200)
+        buf1, pack1 = round_packs[0]
+        t_seg = [cuda_ms(torch, lambda: intersect_sorted_segments(buf_, pack_), 200) for buf_, pack_ in round_packs]
+        a_f, b_f, off_f = a[:128], b[:256], torch.zeros(1, dtype=torch.int32, device=dev)
+        t_f = cuda_ms(torch, lambda: intersect_sorted(a_f, b_f, off_f, n_chunks=1), 200)
+        ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
+        na_, nb_ = len(a_np), len(b_np)
+        # both lists are sorted: a binary search of each a element over its
+        # block's n_chunks * 256 b elements is what the function needs
+        n_ops = na_ * math.ceil(math.log2(n_chunks * 256))
+        b_ms, b_by = bound_ms(4 * (na_ + nb_ + len(off_np) + na_), n_ops)
+        # a round: the packed buffer read once, the masks written once, one
+        # search per a element over its segment's window
+        seg_ops = sum(na_s * math.ceil(math.log2(min(c, nb_s // 256) * 256))
+                      for na_s, nb_s, c in zip(pack1.na, pack1.nb, pack1.n_chunks))
+        seg_b_ms, seg_b_by = bound_ms(4 * (pack1.size + sum(pack1.na)), seg_ops)
+        print(f"intersect: {timing('kernel', t_k)}, {timing('plain', t_p)}, {timing('torch.isin', t_l)}, "
+              f"bound {b_ms:.6f} ms ({b_by})")
+        for r, (t_r, (_, pack_)) in enumerate(zip(t_seg, round_packs)):
+            print(f"intersect round {r + 1}, {len(pack_.na)} segments in one launch: "
+                  f"{timing('kernel', t_r)} [{len(pack_.na)} single-pair launches: {len(pack_.na) * ms:.4f} ms]")
+        print(f"intersect round 1 bound {seg_b_ms:.6f} ms ({seg_b_by}); "
+              f"{timing('launch floor (one 128-element block, one 256-element tile)', t_f)}")
+
+        # the slate's Step-1 host wall: one launch and one readout per pair
+        # (intersect_candidates per item) against one per round
+        def step1(batched):
+            launched = intersect_sorted.launches
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            if batched:
+                out = fused.intersect_candidates_many(fold_items, device="cuda")
+            else:
+                out = [fused.intersect_candidates(lists, device="cuda") for lists in fold_items]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t_s) * 1e3, intersect_sorted.launches - launched, out
+
+        walls, step1_launches = {False: [], True: []}, {}
+        want = [functools.reduce(np.intersect1d, lists) for lists in fold_items]
+        for rep in range(6):
+            for batched in ((False, True) if rep % 2 == 0 else (True, False)):
+                wall, step1_launches[batched], out = step1(batched)
+                walls[batched].append(wall)
+                require(all(np.array_equal(g, w_) for g, w_ in zip(out, want)),
+                        f"Step-1 candidates differ ({'per round' if batched else 'per pair'})")
+        print(f"slate Step-1 host wall (ms, 6 runs each, alternating): one launch per pair "
+              f"{[round(w_, 3) for w_ in walls[False]]} (median {sorted(walls[False])[3]:.3f}, "
+              f"{step1_launches[False]} launches); one per round {[round(w_, 3) for w_ in walls[True]]} "
+              f"(median {sorted(walls[True])[3]:.3f}, {step1_launches[True]} launches)")
+        require(step1_launches[True] == len(rounds) and step1_launches[False] == n_pairs,
+                f"Step-1 launches {step1_launches}, expected {len(rounds)} per round and {n_pairs} per pair")
+        kernels.append({
+            "name": "intersect_sorted", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/intersect.cu",
+            "replaces": "src/repro/kernels/intersect.py:82",
+            "launches": launches["intersect_sorted"], "max_abs_err": intersect_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms,
+            "segmented_ms": t_seg[0][0], "segments": len(pack1.na),
+            "segmented_bound_ms": seg_b_ms, "launch_floor_ms": t_f[0],
+        })
+        del a, b, off, events, mult, round_packs, buf1
+
+        # the arena route's gather descriptors, as serve_query_batch plans them
+        items = []
+        for qi, q in enumerate(SLATE):
+            for sub in subs[q]:
+                keys = select_keys(sub, index.fl)
+                exts = [residency.lookup(key.components) for key in keys]
+                if keys and all(e is not None and e.n_rows for e in exts):
+                    items.append((qi, sub, keys, exts, residency))
+        aplan = plan_arena_batch(items, n_queries=len(SLATE))
+        print(f"arena plan: {len(items)} work items, tier {aplan.tier}, {aplan.n_events} live events, "
+              f"groups {list(aplan.families)} with G={[len(x) for x in aplan.src]} output blocks, "
+              f"row_budget {aplan.row_budget}, n_budget {aplan.n_budget}, "
+              f"lemma_budget {aplan.lemma_budget}, doc_bits {aplan.doc_bits}")
+
+        def gather_check(buf, src_t, nv_t, label):
+            got = gather_blocks(buf, src_t, nv_t)
+            want = gather_blocks_plain(buf, src_t, nv_t)
+            err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+            print(f"gather {label} G={src_t.shape[0]} over {buf.shape[0] // ARENA_BLOCK} arena blocks: "
+                  f"{int((got[:, 0] >= 0).sum())} live rows, max_abs_err {err}")
+            require(err == 0 and got.shape == want.shape, f"gather kernel != plain ({label})")
+            return err
+
+        gather_err, groups = 0, []
+        for g, fname in enumerate(aplan.families):
+            src_t, nv_t = (torch.from_numpy(x[g]).to(dev) for x in (aplan.src, aplan.nv))
+            gather_err = max(gather_err, gather_check(aplan.buffers[g], src_t, nv_t, f"main-path {fname}"))
+            groups.append((len(aplan.src[g]), aplan.buffers[g], src_t, nv_t, aplan.nv[g]))
+        # random descriptors over the largest resident buffer: repeated sources,
+        # padded blocks (src 0, n_valid 0), sources past either end, every
+        # n_valid kind
+        big = max((fb.buf for fb in residency.families.values()), key=lambda t: t.shape[0])
+        nb_big = big.shape[0] // ARENA_BLOCK
+        src_r = rng.integers(0, nb_big, 8192).astype(np.int32)
+        src_r[::7] = src_r[0]
+        src_r[1], src_r[2], src_r[-64:] = -5, nb_big + 5, 0
+        nv_r = rng.choice([0, 1, 63, 64, 127, ARENA_BLOCK, ARENA_BLOCK + 3, -1], 8192).astype(np.int32)
+        nv_r[-64:] = 0
+        gather_err = max(gather_err, gather_check(
+            big, torch.from_numpy(src_r).to(dev), torch.from_numpy(nv_r).to(dev), "random"))
+        # times at the main path's largest group
+        g_blocks, buf, src_t, nv_t, nv_np = max(groups, key=lambda t: t[0])
+        t_k = cuda_ms(torch, lambda: gather_blocks(buf, src_t, nv_t), 200)
+        t_p = cuda_ms(torch, lambda: gather_blocks_plain(buf, src_t, nv_t), 20)
+        blocks3 = buf.view(-1, ARENA_BLOCK, 2)
+        t_l = cuda_ms(torch, lambda: torch.index_select(blocks3, 0, src_t), 200)
+        ms, plain_ms, lib_ms = t_k[0], t_p[0], t_l[0]
+        live_rows = int(np.clip(nv_np, 0, ARENA_BLOCK).sum())
+        # 8 B per output row written, per live row read, per block of indirection
+        b_ms, b_by = bound_ms(8 * (g_blocks * ARENA_BLOCK + live_rows + g_blocks), 0)
+        print(f"gather G={g_blocks} ({live_rows} live rows): {timing('kernel', t_k)}, {timing('plain', t_p)}, "
+              f"{timing('torch.index_select (the gather without the mask)', t_l)}, bound {b_ms:.6f} ms ({b_by})")
+        kernels.append({
+            "name": "gather_blocks", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gather.cu",
+            "replaces": "src/repro/kernels/gather.py:64",
+            "launches": launches["gather_blocks"], "max_abs_err": gather_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms,
+        })
+        del groups, buf, src_t, nv_t, blocks3
+        t0 = phase("kernels vs plain versions", t0)
+
+        # ---- 6. the slate against the event-rank cover, the arena and the CPU -----
+        full = [SearchRequest(q, top_k=len(store)) for q in SLATE]
+        cpu_arena = PostingArena(budget_bytes=ARENA_BUDGET, device="cpu")
+        t_acq = time.perf_counter()
+        cpu_arena.acquire(index, 0)
+        print(f"cpu arena cold acquire: {time.perf_counter() - t_acq:.3f} s")
+        runs = {}
+        for label, kwargs in (
+            ("cuda kernel", dict(device="cuda", use_kernel=True)),
+            ("cuda rank", dict(device="cuda", use_kernel=False)),
+            ("cuda arena kernel", dict(device="cuda", use_kernel=True, arena=arena)),
+            ("cuda arena dense", dict(device="cuda", use_kernel=False, arena=arena)),
+            ("cpu arena", dict(device="cpu", arena=cpu_arena)),
+            ("cpu", dict(device="cpu")),
+        ):
+            t_run = time.perf_counter()
+            runs[label] = ServingFrontend(index, lemmatizer=lem, max_batch=16, **kwargs).search_many(full)
+            print(f"{label}: {(time.perf_counter() - t_run) * 1e3:.1f} ms for the slate, all documents ranked")
+            if "arena" in label:
+                require(sum(r.stats.arena_hits for r in runs[label]) > 0, f"{label} did not hit the arena")
+        for qi, q in enumerate(SLATE):
+            ref = runs["cpu"][qi]
+            ref_frags = {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments}
+            for label in runs.keys() - {"cpu"}:
+                got = runs[label][qi]
+                require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments} == ref_frags,
+                        f"{label} fragments differ from the cpu run for {q!r}")
+                require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
+                        f"{label} documents differ from the cpu run for {q!r}")
+                require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
+                        f"{label} scores differ from the cpu run for {q!r}")
+            for resps, route in ((main_resps, "host"), (arena_resps, "arena")):
+                require([d.doc_id for d in resps[qi].docs] == [d.doc_id for d in ref.docs[:TOP_K]],
+                        f"{route} route top {TOP_K} differs from the cpu ranking for {q!r}")
+            print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs agree on all {len(runs)} runs")
+        t0 = phase("agreement: every card and cpu run == the cpu host route", t0)
+
+        # ---- 7. the launcher's default deployment: 4 shards, se2.4 ---------------
+        # the first SHARDED_DOCS documents of phase 3's store: every key of every
+        # shard is built, and two cold acquires build and copy every family
+        shard_store = DocumentStore(documents=store.documents[:SHARDED_DOCS], lemmatizer=lem)
+        # phase 11f beside the host-side builds below
+        lm_ckpt = Background(lambda: lm_resume_check(procs)) if 11 in phases else None
+        t_build = time.perf_counter()
+        svc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
+                                   max_distance=MAX_DISTANCE, device="cuda")
+        print(f"sharded service: {len(shard_store)} docs of phase 3's store in {N_SHARDS} shards under one "
+              f"FL-list, built in {time.perf_counter() - t_build:.1f} s")
+        for i, shard in enumerate(svc.shards):
+            sizes = shard.size_bytes()
+            longest = max((len(sorted(lists, key=len)[0]) for lists in step1_folds([shard])[0]), default=0)
+            print(f"  shard {i}: {shard.n_docs} docs, {sizes['total'] / 2**20:.1f} MiB of postings "
+                  f"({sizes['triple'] / 2**20:.1f} MiB triple); the longest shortest Step-1 list of a "
+                  f"multi-key item: {longest} docs (device threshold {fused.INTERSECT_DEVICE_THRESHOLD})")
+        _, shard_rounds = step1_folds(svc.shards)
+        print(f"sharded slate Step-1 folds: {sum(len(pairs) for pairs in shard_rounds)} device pairs in "
+              f"{len(shard_rounds)} rounds")
+        # one index over the same documents (the slate's (f,s,t) keys, as in
+        # phase 3), served by the host route on the CPU
+        fl_one = FLList.from_frequencies(shard_store.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
+        one = build_indexes(shard_store, SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE, fl=fl_one,
+                            triple_key_filter={k.components for q in SLATE for sub in subs[q]
+                                               for k in select_keys(sub, fl_one) if k.arity == 3})
+        single_cpu = ServingFrontend(one, lemmatizer=lem, max_batch=16, device="cpu").search_many(full)
+        t0 = phase("sharded service and single-index build (host), single-index cpu host route", t0)
+        if lm_ckpt is not None:
+            lm_ckpt = lm_ckpt.result()
+            t0 = phase("the rest of the checkpoint resume check (11f) after the builds", t0)
+
+        def sharded_route(path, make_fe, expect):
+            """The slate once through a fresh frontend with the launch counters
+            at 0 before and read after, its cached repeat, the profile of 5
+            fresh frontends, and every document ranked through one more."""
+            fe = make_fe()
+            zero_counts()
+            fused.reset_dispatch_count()
+            t_serve = time.perf_counter()
+            resps = fe.search_many(requests)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t_serve) * 1e3
+            counts, dispatches = read_counts(path), fused.dispatch_count()
+            hits = sum(r.stats.arena_hits for r in resps)
+            print(f"{path}: {dispatches} device programs, kernel launches {counts}, arena hits {hits} keys, "
+                  f"misses {sum(r.stats.arena_misses for r in resps)} keys")
+            for kname in ("proximity_window", "gather_blocks"):
+                if expect[kname]:
+                    require(counts[kname] > 0, f"{kname} was not launched on the {path}")
+            require(counts["intersect_sorted"] == expect["intersect_sorted"],
+                    f"the {path} made {counts['intersect_sorted']} intersect launches, "
+                    f"{expect['intersect_sorted']} expected")
+            require(hits > 0 or not expect["gather_blocks"], f"the {path} did not hit the arena")
+            t_serve = time.perf_counter()
+            cached = fe.search_many(requests)
+            cached_ms = (time.perf_counter() - t_serve) * 1e3
+            require(all(r.stats.cache_hits == 1 for r in cached), f"second {path} round not all cache hits")
+            slate_profile(make_fe, path, first_ms, cached_ms)
+            return make_fe().search_many(full)
+
+        sharded = {"sharded host route": sharded_route(
+            "sharded host route",
+            lambda: ServingFrontend(svc, device="cuda", use_kernel=True, max_batch=16),
+            {"proximity_window": True, "gather_blocks": False, "intersect_sorted": len(shard_rounds)})}
+
+        def cold_arena(budget_bytes):
+            """An arena on the card with the frontend's own tokens, acquired
+            cold for every shard: its seconds and each shard's resident and
+            refused families."""
+            fe = ServingFrontend(svc, arena_budget_mb=budget_bytes / 2**20, device="cuda", use_kernel=True,
+                                 max_batch=16)
+            token = generation_token(svc)
+            t_acq = time.perf_counter()
+            res = fe.arena.acquire_many([(shard, token, i) for i, shard in enumerate(svc.shards)])
+            torch.cuda.synchronize()
+            m = fe.arena.metrics()
+            print(f"sharded cold acquire (budget {budget_bytes >> 20} MiB): {time.perf_counter() - t_acq:.3f} s, "
+                  f"{m['arena_uploads']} uploads, {m['arena_upload_bytes'] / 2**20:.1f} MiB copied to the card, "
+                  f"{m['arena_bytes'] / 2**20:.1f} MiB kept")
+            fam_bytes = []
+            for i, r in enumerate(res):
+                refused_i = {key[3]: nb for key, nb in fe.arena.refused.items() if key[2] == i}
+                print(f"  shard {i}: resident {json.dumps({f: f'{fb.nbytes / 2**20:.1f} MiB' for f, fb in r.families.items()})}, "
+                      f"refused {json.dumps({f: f'{nb / 2**20:.1f} MiB' for f, nb in refused_i.items()})}")
+                fam_bytes.append({**{f: fb.nbytes for f, fb in r.families.items()}, **refused_i})
+            return fe.arena, res, fam_bytes
+
+        def arena_route(budget_bytes, arena_, res):
+            uploads = arena_.metrics()["arena_uploads"]
             triples = all("triple" in r.families for r in res)
-            print(f"durable arena cold acquire ({tag}, {ARENA_BUDGET >> 20} MiB): "
-                  f"{time.perf_counter() - t_acq:.3f} s, {json.dumps(arena8.metrics())}; every shard's "
-                  f"triples resident: {triples}" + ("" if triples else
-                                                     " (the slate falls back to the host pack)"))
+            path = f"sharded arena route ({budget_bytes >> 20} MiB)"
+            sharded[path] = sharded_route(
+                path, lambda: ServingFrontend(svc, arena=arena_, device="cuda", use_kernel=True, max_batch=16),
+                {"proximity_window": not triples, "gather_blocks": triples,
+                 "intersect_sorted": 0 if triples else len(shard_rounds)})
+            require(arena_.metrics()["arena_uploads"] == uploads, f"the {path} uploaded: the cold entries were missed")
             return triples
 
-        def routes(tag):
-            """The host route and the attached arena's route, each through
-            fresh frontends (launch counters at 0 before, read after)."""
-            _, rounds8 = step1_folds(isvc.shards)
-            n_rounds = len(rounds8)
-            out = {f"durable host route, {tag}": sharded_route(
-                f"durable host route, {tag}",
-                lambda: ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16),
-                {"proximity_window": True, "gather_blocks": False, "intersect_sorted": n_rounds})}
-            triples = acquire(tag)
-            uploads = arena8.uploads
-            path = f"durable arena route ({ARENA_BUDGET >> 20} MiB), {tag}"
-            out[path] = sharded_route(
-                path, lambda: ServingFrontend(isvc, arena=arena8, use_kernel=True, device="cuda", max_batch=16),
-                {"proximity_window": not triples, "gather_blocks": triples,
-                 "intersect_sorted": 0 if triples else n_rounds})
-            require(arena8.uploads == uploads, f"the {path} uploaded: the cold entries were missed")
-            return out
+        # the arena at the smallest power-of-two budget at which the acquire's
+        # admission (every shard's families in order, none evictable) keeps
+        # every shard's triples.  The launcher's 64 MiB keeps none of them, and
+        # phase 8 drives that budget's host-pack fallback over these documents
+        arena_big, res_big, fam_bytes = cold_arena(SHARDED_ARENA_BUDGET)
 
-        before = routes("before mutation")
-        for label, resps in before.items():
-            agree(f"{label} vs phase 7's se2.4", resps, combiner)
-        for fe in (host_fe, arena_fe):
-            require(all(r.stats.cache_hits == 0 for r in fe.search_many(requests)), "a cold slate hit the cache")
-            require(all(r.stats.cache_hits == 1 for r in fe.search_many(requests)), "a repeat missed the cache")
-        t8 = phase("durable service: slate before mutation (host and 64 MiB arena routes)", t8)
+        def triples_kept(budget):
+            used, kept = 0, 0
+            for sizes in fam_bytes:
+                for fname in ("stop_single", "stop_pair", "pair", "triple"):
+                    if used + sizes[fname] <= budget:
+                        used += sizes[fname]
+                        kept += fname == "triple"
+            return kept
 
-        # mutate: 512 new documents, 64 of the slate's documents deleted
-        added = synthesize_corpus(n_docs=512, doc_len=DOC_LEN, vocab_size=VOCAB, seed=1)
-        seen, victims = set(), []
-        for r in before[f"durable host route, before mutation"]:
-            for d in r.docs[:16]:
-                if d.doc_id not in seen and len(victims) < 64:
-                    seen.add(d.doc_id)
-                    victims.append(d.doc_id)
-        require(len(victims) == 64, "the slate holds fewer than 64 documents")
-        evictions, resident = arena8.evictions, arena8.size_bytes
-        torch.cuda.synchronize()
-        mem_before = torch.cuda.memory_allocated()
-        t_mut = time.perf_counter()
-        isvc.add_documents([d.text for d in added.documents])
-        for doc_id in victims:
-            isvc.delete_document(doc_id)
-        add_del_s = time.perf_counter() - t_mut
-        t_commit = time.perf_counter()
-        report = isvc.commit()
-        commit_s = time.perf_counter() - t_commit
-        torch.cuda.synchronize()
-        freed = mem_before - torch.cuda.memory_allocated()
-        evicted = resident - arena8.size_bytes
-        print(f"mutation: {len(added)} added and {len(victims)} deleted in {add_del_s:.2f} s; "
-              f"commit {commit_s:.2f} s, "
-              f"report {json.dumps(report)}")
-        print(f"attached arena: evictions {evictions} -> {arena8.evictions}, {evicted / 2**20:.3f} MiB "
-              f"evicted, torch.cuda.memory_allocated fell by {freed / 2**20:.3f} MiB")
-        require(arena8.evictions > evictions and evicted > 0, "the attached arena evicted nothing")
-        require(freed >= evicted, "the evicted buffers were not freed on the card")
-        require(all(r.stats.cache_hits == 0 for r in host_fe.search_many(requests)),
-                "a host-route slate hit the result cache after the token moved")
-        t8 = phase("durable service: add, delete, commit, eviction", t8)
+        require(triples_kept(SHARDED_ARENA_BUDGET) == N_SHARDS
+                and triples_kept(SHARDED_ARENA_BUDGET // 2) < N_SHARDS and triples_kept(ARENA_BUDGET) == 0,
+                f"{SHARDED_ARENA_BUDGET >> 20} MiB is not the smallest power-of-two budget that keeps "
+                f"every shard's triples")
+        print(f"the smallest power-of-two budget that admits every shard's triple family: "
+              f"{SHARDED_ARENA_BUDGET >> 20} MiB (none at {ARENA_BUDGET >> 20} MiB)")
+        require(arena_route(SHARDED_ARENA_BUDGET, arena_big, res_big),
+                f"the triples are not resident at {SHARDED_ARENA_BUDGET >> 20} MiB")
+        arena_big.release()
+        t0 = phase("serving (sharded host and arena routes)", t0)
 
-        after = routes("after mutation")  # the arena's re-acquire is cold here
-        require(all(r.stats.cache_hits == 0 for r in arena_fe.search_many(requests)),
-                "an arena-route slate hit the result cache after the token moved")
-        isvc.algorithm = "se2.4"
-        t_q = time.perf_counter()
-        live_se24 = isvc.search_batch(SLATE, top_k=len(store))
-        print(f"svc.search_batch (se2.4) over the live shards: {time.perf_counter() - t_q:.2f} s")
-        isvc.algorithm, isvc.use_kernel = "fused", True
+        svc.algorithm, svc.use_kernel = "fused", True
         zero_counts()
-        live_fused = isvc.search_batch(SLATE, top_k=len(store))
+        t_serve = time.perf_counter()
+        sharded["svc.search_batch fused"] = svc.search_batch(SLATE, top_k=len(store))
         torch.cuda.synchronize()
-        require(read_counts("durable svc.search_batch fused")["proximity_window"] > 0,
-                "proximity_window was not launched by the durable svc.search_batch")
-        isvc.algorithm = "se2.4"
-        for label, resps in (*after.items(), ("durable svc.search_batch fused", live_fused)):
-            agree(f"{label} vs se2.4 over the live shards", resps, live_se24)
-        # the scalar rebuild of shard 0's survivors, under the service's
-        # corpus-global FL-list (the shard's own rebuild_index_set would
-        # rank its lemmas by the shard's frequencies alone)
-        ix0 = isvc.indexers[0]
-        t_rb = time.perf_counter()
-        rebuilt = build_indexes(ix0.surviving_store(), SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE,
-                                fl=isvc.fl)
-        eq, why = index_sets_equal(isvc.shards[0].to_index_set(), rebuilt)
-        require(eq, f"shard 0's live view != its rebuild: {why}")
-        print(f"shard 0: live view == the scalar rebuild of its {len(ix0.documents)} survivors "
-              f"({time.perf_counter() - t_rb:.1f} s)")
-        t8 = phase("durable service: slate after mutation, se2.4, fused, shard 0 rebuild", t8)
+        counts = read_counts("sharded svc.search_batch fused")
+        print(f"svc.search_batch (fused, use_kernel): {(time.perf_counter() - t_serve) * 1e3:.1f} ms for the slate, "
+              f"all documents ranked, kernel launches {counts}")
+        require(counts["proximity_window"] > 0, "proximity_window was not launched by svc.search_batch")
+        svc.algorithm = "se2.4"
+        t_serve = time.perf_counter()
+        combiner = svc.search_batch(SLATE, top_k=len(store))
+        print(f"svc.search_batch (se2.4, the host Combiner over the same shards): "
+              f"{time.perf_counter() - t_serve:.2f} s for the slate")
+        for qi, q in enumerate(SLATE):
+            ref = combiner[qi]
+            ref_frags = {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments}
+            for label, resps in (*sharded.items(), ("single-index cpu host route", single_cpu)):
+                got = resps[qi]
+                require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments} == ref_frags,
+                        f"{label} fragments differ from se2.4 over the shards for {q!r}")
+                require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
+                        f"{label} documents differ from se2.4 over the shards for {q!r}")
+                require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
+                        f"{label} scores differ from se2.4 over the shards for {q!r}")
+            print(f"  {q!r}: {len(ref_frags)} fragments in {len(ref.docs)} docs; se2.4 == "
+                  f"{len(sharded) + 1} routes")
+        t0 = phase("agreement: sharded routes == se2.4 over the shards == the single index", t0)
 
-        t_c = time.perf_counter()
-        creport = isvc.compact(memory_budget_bytes=64 << 20)
-        print(f"compact (64 MiB budget): {time.perf_counter() - t_c:.2f} s, report {json.dumps(creport)}")
-        compacted = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
-        compact_se24 = isvc.search_batch(SLATE, top_k=len(store))
-        agree("compacted host route vs se2.4", compacted, compact_se24)
-        agree("se2.4 after compact vs before", compact_se24, live_se24)
-        t8 = phase("durable service: compact and serve", t8)
+        # the baselines on one query, each held to the contract the reference's
+        # own tests hold it to (tests/test_combiner.py): se2.2 and se2.3 equal
+        # the §10 sweep over their own keys' events in the documents every key
+        # reaches, as se2.4 does over its keys, and SE1 the sweep over the
+        # ordinary index; SE2.1 treats the query as a lemma set, and every
+        # fragment it reports is checked against the document's own lemmas.
+        # Their fragment sets differ from se2.4's by design (other events, other
+        # keys, set semantics): the overlap is printed
+        q = "to be or not to be"
+        qsubs = expand_subqueries(q, lem)
+        docs_by_id = {d.doc_id: d for d in store.documents}
+        want = {"se1": set(), "se2.2": set(), "se2.3": set(), "se2.4": set()}
+        for shard in svc.shards:
+            for sub in qsubs:
+                mult, span = sub.multiplicity(), 2 * MAX_DISTANCE
+                for alg, keys, honor in (("se2.2", simple_key_cover(sub, shard.fl), True),
+                                         ("se2.3", select_keys(sub, shard.fl), False),
+                                         ("se2.4", select_keys(sub, shard.fl), True)):
+                    post = {k: shard.key_postings(k.components) for k in keys}
+                    # the documents every key's iterator reaches (Step 1)
+                    aligned = functools.reduce(np.intersect1d, [np.unique(a[:, 0]) for a in post.values()])
+                    for doc, events in key_events(keys, post, honor_stars=honor).items():
+                        if doc in aligned:
+                            want[alg] |= {tuple(r) for r in sweep_events(doc, events, mult, span)}
+                for doc, events in ordinary_events(sub.lemmas, shard.ordinary).items():
+                    want["se1"] |= {tuple(r) for r in sweep_events(doc, events, mult, span)}
+        got = {}
+        for alg in ("se2.4", "se1", "se2.1", "se2.2", "se2.3"):
+            svc.algorithm = alg
+            t_q = time.perf_counter()
+            r = svc.search(q, top_k=len(store))
+            secs = time.perf_counter() - t_q
+            got[alg] = {(d.doc_id, f.start, f.end) for d in r.docs for f in d.fragments}
+            print(f"{alg} over the 4 shards, {q!r}: {secs:.3f} s, {len(got[alg])} fragments, "
+                  f"{len(got[alg] & got['se2.4'])} shared with se2.4, "
+                  f"postings read {r.stats.postings_read}")
+        for alg, frags in want.items():
+            require(got[alg] == frags, f"{alg} != the sweep over its own events for {q!r}")
+        for doc, start, end in got["se2.1"]:
+            words = {lm for pos in docs_by_id[doc].lemma_stream[start:end + 1] for lm in pos}
+            require(end - start <= 2 * MAX_DISTANCE and any(set(sub.lemmas) <= words for sub in qsubs),
+                    f"se2.1 fragment {(doc, start, end)} does not hold the query's lemmas")
+        print("baselines against se2.4: " + ", ".join(
+            f"{alg} {'==' if got[alg] == got['se2.4'] else '!='} se2.4" for alg in ("se1", "se2.1", "se2.2", "se2.3")))
+        svc.algorithm = "se2.4"
 
-        # acknowledged post-snapshot work, then a warm start in a fresh process
-        isvc.snapshot(snap_dir)
-        more = synthesize_corpus(n_docs=128, doc_len=DOC_LEN, vocab_size=VOCAB, seed=2)
-        isvc.add_documents([d.text for d in more.documents])
-        for doc_id in sorted(isvc.indexers[0].documents)[:16]:
-            isvc.delete_document(doc_id)
-        isvc.commit()
-        live = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
-        agree("live host route vs se2.4", live, isvc.search_batch(SLATE, top_k=len(store)))
-        child = subprocess.run(
-            [sys.executable, "-c", WARM_START, str(src), str(snap_dir), json.dumps(SLATE), str(len(store))],
-            capture_output=True, text=True, timeout=600,
-        )
-        require(child.returncode == 0, f"the warm-start process failed: {child.stderr[-3000:]}")
-        warm = json.loads(child.stdout.strip().splitlines()[-1])
-        print(f"fresh-process from_snapshot: restore {warm['restore_s']:.2f} s, {warm['replayed']} WAL records "
-              f"replayed, slate {warm['slate_ms']:.1f} ms, cover launches {warm['cover_launches']}")
-        print(f"  digests live {digests(live)}")
-        print(f"  digests warm {warm['digests']}")
-        require(warm["replayed"] > 0, "the warm start replayed no WAL record")
-        require(warm["cover_launches"] > 0, "the warm-started host route launched no cover kernel")
-        require(warm["digests"] == digests(live), "the warm-started service serves other fragments")
-        phase("durable service: snapshot, acknowledged work, fresh-process warm start", t8)
+        # device_topk_merge on the card: each shard's top 10 of a response
+        # (from se2.4 over the shards), a tie forced across shards at the top
+        ref = max(combiner, key=lambda r: len(r.docs))
+        per_shard = [[(d.score, d.doc_id) for d in ref.docs if d.doc_id % N_SHARDS == s_][:TOP_K]
+                     for s_ in range(N_SHARDS)]
+        sc = np.full((N_SHARDS, TOP_K), -np.inf, np.float32)
+        dc = np.full((N_SHARDS, TOP_K), -1, np.int32)
+        for s_, lst in enumerate(per_shard):
+            sc[s_, :len(lst)] = [x for x, _ in lst]
+            dc[s_, :len(lst)] = [y for _, y in lst]
+        sc[1, 0] = sc[3, 0] = sc[0, 0]
+        top_s, top_d = device_topk_merge(torch.from_numpy(sc).to(dev), torch.from_numpy(dc).to(dev), TOP_K)
+        order = np.argsort(-sc.reshape(-1), kind="stable")[:TOP_K]
+        print(f"device_topk_merge on {top_s.device}: {ref.query!r}, {N_SHARDS} x {TOP_K} per-shard lists, "
+              f"merged top docs {top_d.tolist()}")
+        require(top_d.device.type == "cuda" and np.array_equal(top_d.cpu().numpy(), dc.reshape(-1)[order])
+                and np.array_equal(top_s.cpu().numpy(), sc.reshape(-1)[order]),
+                "device_topk_merge != a stable host sort")
+        t0 = phase("baselines and device_topk_merge", t0)
 
-    def printed(stdout: str) -> list[tuple[str, list[str], str]]:
-        """The launcher's (or its client's) printed responses: per response,
-        its ``query:`` line, its document lines without the score (document
-        and first four fragments) and its flags."""
-        out = []
-        for line in stdout.splitlines():
-            if line.startswith("query: "):
-                flags = line.rsplit("[", 1)[1].rstrip("]") if line.endswith("]") else ""
-                out.append((line.split("'")[1], [], flags))
-            elif line.startswith("  doc ") and out:
-                doc, _, frags = line.partition(" fragments: ")
-                out[-1][1].append(f"{doc.split(' score=')[0]} fragments: {frags}")
-        return out
+        def agree(label, resps, ref_resps):
+            """Fragments, documents and (rtol) scores of every query equal."""
+            for q, got, ref in zip(SLATE, resps, ref_resps):
+                require({(d.doc_id, f.start, f.end) for d in got.docs for f in d.fragments}
+                        == {(d.doc_id, f.start, f.end) for d in ref.docs for f in d.fragments},
+                        f"{label} fragments differ for {q!r}")
+                require([d.doc_id for d in got.docs] == [d.doc_id for d in ref.docs],
+                        f"{label} documents differ for {q!r}")
+                require(np.allclose([d.score for d in got.docs], [d.score for d in ref.docs], rtol=SCORE_RTOL),
+                        f"{label} scores differ for {q!r}")
 
-    def doc_lines(resps):
-        """The launcher's document lines for in-process responses."""
-        return [f"  doc {d.doc_id:5d} fragments: "
-                + ", ".join(f"[{f.start},{f.end}]" for f in d.fragments[:4]) for d in resps.docs]
+        def digests(resps):
+            return [hashlib.sha256(json.dumps(sorted((d.doc_id, f.start, f.end) for d in r.docs
+                                                     for f in d.fragments)).encode()).hexdigest()[:16]
+                    for r in resps]
 
-    def launcher_phase(work: Path) -> None:
-        t9 = time.perf_counter()
-        bulk_dir, cli_dir = work / "bulk", work / "cli"
-        env = {**os.environ, "PYTHONPATH": str(src)}
-        procs: list[subprocess.Popen] = []
-        stopping = threading.Event()
-        procs_lock = threading.Lock()  # no launch slips past the cleanup below
+        def durable_phase(snap_dir: Path, ref_dir: Path) -> None:
+            t8 = time.perf_counter()
+            t_build = time.perf_counter()
+            isvc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
+                                        max_distance=MAX_DISTANCE, incremental=True, device="cuda")
+            print(f"incremental service: {len(shard_store)} docs in {N_SHARDS} shards, built in "
+                  f"{time.perf_counter() - t_build:.1f} s")
+            for i, (ix, static) in enumerate(zip(isvc.indexers, svc.shards)):
+                eq, why = index_sets_equal(ix.index.to_index_set(), static)
+                require(eq, f"incremental shard {i} != phase 7's static shard: {why}")
+                print(f"  shard {i}: {len(ix.segments)} segment(s), "
+                      f"{sum(seg.live_bytes() for seg in ix.segments) / 2**20:.1f} MiB, == phase 7's shard")
+            t_ref = time.perf_counter()
+            isvc.snapshot(ref_dir)  # WAL-less: phase 9a's bulk tree must equal it file for file
+            print(f"WAL-less snapshot for phase 9a: {time.perf_counter() - t_ref:.2f} s")
+            t_dur = time.perf_counter()
+            isvc.enable_wal(snap_dir)
+            isvc.snapshot(snap_dir)
+            on_disk = sum(f.stat().st_size for f in snap_dir.rglob("*") if f.is_file())
+            print(f"enable_wal + snapshot: {time.perf_counter() - t_dur:.2f} s, {on_disk / 2**20:.1f} MiB on disk")
+            t8 = phase("durable service: incremental build, WAL and snapshot", t8)
 
-        def launch(*args) -> subprocess.Popen:
-            with procs_lock:
-                require(not stopping.is_set(), "phase 9 is stopping: no more launcher processes")
-                proc = subprocess.Popen([sys.executable, "-u", "-c", RUN_MODULE, "repro_torch.launch.serve", *map(str, args)], env=env,
-                                        cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                procs.append(proc)
-            return proc
+            host_fe = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16)
+            arena_fe = ServingFrontend(isvc, arena_budget_mb=ARENA_BUDGET >> 20, use_kernel=True,
+                                       device="cuda", max_batch=16)
+            arena8 = arena_fe.arena
 
-        def finish(proc, label, timeout=600) -> str:
-            out, err = proc.communicate(timeout=timeout)
-            require(proc.returncode == 0, f"launcher {label} exited {proc.returncode}: {err[-3000:]}")
+            def acquire(tag):
+                """The attached arena's cold acquire under the live tokens."""
+                tok = generation_token(isvc)
+                t_acq = time.perf_counter()
+                res = arena8.acquire_many([(v, tok[i], i) for i, v in enumerate(isvc.shards)])
+                torch.cuda.synchronize()
+                triples = all("triple" in r.families for r in res)
+                print(f"durable arena cold acquire ({tag}, {ARENA_BUDGET >> 20} MiB): "
+                      f"{time.perf_counter() - t_acq:.3f} s, {json.dumps(arena8.metrics())}; every shard's "
+                      f"triples resident: {triples}" + ("" if triples else
+                                                         " (the slate falls back to the host pack)"))
+                return triples
+
+            def routes(tag):
+                """The host route and the attached arena's route, each through
+                fresh frontends (launch counters at 0 before, read after)."""
+                _, rounds8 = step1_folds(isvc.shards)
+                n_rounds = len(rounds8)
+                out = {f"durable host route, {tag}": sharded_route(
+                    f"durable host route, {tag}",
+                    lambda: ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16),
+                    {"proximity_window": True, "gather_blocks": False, "intersect_sorted": n_rounds})}
+                triples = acquire(tag)
+                uploads = arena8.uploads
+                path = f"durable arena route ({ARENA_BUDGET >> 20} MiB), {tag}"
+                out[path] = sharded_route(
+                    path, lambda: ServingFrontend(isvc, arena=arena8, use_kernel=True, device="cuda", max_batch=16),
+                    {"proximity_window": not triples, "gather_blocks": triples,
+                     "intersect_sorted": 0 if triples else n_rounds})
+                require(arena8.uploads == uploads, f"the {path} uploaded: the cold entries were missed")
+                return out
+
+            before = routes("before mutation")
+            for label, resps in before.items():
+                agree(f"{label} vs phase 7's se2.4", resps, combiner)
+            for fe in (host_fe, arena_fe):
+                require(all(r.stats.cache_hits == 0 for r in fe.search_many(requests)), "a cold slate hit the cache")
+                require(all(r.stats.cache_hits == 1 for r in fe.search_many(requests)), "a repeat missed the cache")
+            t8 = phase("durable service: slate before mutation (host and 64 MiB arena routes)", t8)
+
+            # mutate: 512 new documents, 64 of the slate's documents deleted
+            added = synthesize_corpus(n_docs=512, doc_len=DOC_LEN, vocab_size=VOCAB, seed=1)
+            seen, victims = set(), []
+            for r in before[f"durable host route, before mutation"]:
+                for d in r.docs[:16]:
+                    if d.doc_id not in seen and len(victims) < 64:
+                        seen.add(d.doc_id)
+                        victims.append(d.doc_id)
+            require(len(victims) == 64, "the slate holds fewer than 64 documents")
+            evictions, resident = arena8.evictions, arena8.size_bytes
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            t_mut = time.perf_counter()
+            isvc.add_documents([d.text for d in added.documents])
+            for doc_id in victims:
+                isvc.delete_document(doc_id)
+            add_del_s = time.perf_counter() - t_mut
+            t_commit = time.perf_counter()
+            report = isvc.commit()
+            commit_s = time.perf_counter() - t_commit
+            torch.cuda.synchronize()
+            freed = mem_before - torch.cuda.memory_allocated()
+            evicted = resident - arena8.size_bytes
+            print(f"mutation: {len(added)} added and {len(victims)} deleted in {add_del_s:.2f} s; "
+                  f"commit {commit_s:.2f} s, "
+                  f"report {json.dumps(report)}")
+            print(f"attached arena: evictions {evictions} -> {arena8.evictions}, {evicted / 2**20:.3f} MiB "
+                  f"evicted, torch.cuda.memory_allocated fell by {freed / 2**20:.3f} MiB")
+            require(arena8.evictions > evictions and evicted > 0, "the attached arena evicted nothing")
+            require(freed >= evicted, "the evicted buffers were not freed on the card")
+            require(all(r.stats.cache_hits == 0 for r in host_fe.search_many(requests)),
+                    "a host-route slate hit the result cache after the token moved")
+            t8 = phase("durable service: add, delete, commit, eviction", t8)
+
+            after = routes("after mutation")  # the arena's re-acquire is cold here
+            require(all(r.stats.cache_hits == 0 for r in arena_fe.search_many(requests)),
+                    "an arena-route slate hit the result cache after the token moved")
+            isvc.algorithm = "se2.4"
+            t_q = time.perf_counter()
+            live_se24 = isvc.search_batch(SLATE, top_k=len(store))
+            print(f"svc.search_batch (se2.4) over the live shards: {time.perf_counter() - t_q:.2f} s")
+            isvc.algorithm, isvc.use_kernel = "fused", True
+            zero_counts()
+            live_fused = isvc.search_batch(SLATE, top_k=len(store))
+            torch.cuda.synchronize()
+            require(read_counts("durable svc.search_batch fused")["proximity_window"] > 0,
+                    "proximity_window was not launched by the durable svc.search_batch")
+            isvc.algorithm = "se2.4"
+            for label, resps in (*after.items(), ("durable svc.search_batch fused", live_fused)):
+                agree(f"{label} vs se2.4 over the live shards", resps, live_se24)
+            # the scalar rebuild of shard 0's survivors, under the service's
+            # corpus-global FL-list (the shard's own rebuild_index_set would
+            # rank its lemmas by the shard's frequencies alone)
+            ix0 = isvc.indexers[0]
+            t_rb = time.perf_counter()
+            rebuilt = build_indexes(ix0.surviving_store(), SW_COUNT, FU_COUNT, max_distance=MAX_DISTANCE,
+                                    fl=isvc.fl)
+            eq, why = index_sets_equal(isvc.shards[0].to_index_set(), rebuilt)
+            require(eq, f"shard 0's live view != its rebuild: {why}")
+            print(f"shard 0: live view == the scalar rebuild of its {len(ix0.documents)} survivors "
+                  f"({time.perf_counter() - t_rb:.1f} s)")
+            t8 = phase("durable service: slate after mutation, se2.4, fused, shard 0 rebuild", t8)
+
+            t_c = time.perf_counter()
+            creport = isvc.compact(memory_budget_bytes=64 << 20)
+            print(f"compact (64 MiB budget): {time.perf_counter() - t_c:.2f} s, report {json.dumps(creport)}")
+            compacted = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
+            compact_se24 = isvc.search_batch(SLATE, top_k=len(store))
+            agree("compacted host route vs se2.4", compacted, compact_se24)
+            agree("se2.4 after compact vs before", compact_se24, live_se24)
+            t8 = phase("durable service: compact and serve", t8)
+
+            # acknowledged post-snapshot work, then a warm start in a fresh process
+            isvc.snapshot(snap_dir)
+            more = synthesize_corpus(n_docs=128, doc_len=DOC_LEN, vocab_size=VOCAB, seed=2)
+            isvc.add_documents([d.text for d in more.documents])
+            for doc_id in sorted(isvc.indexers[0].documents)[:16]:
+                isvc.delete_document(doc_id)
+            isvc.commit()
+            live = ServingFrontend(isvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
+            agree("live host route vs se2.4", live, isvc.search_batch(SLATE, top_k=len(store)))
+            child = subprocess.run(
+                [sys.executable, "-c", WARM_START, str(src), str(snap_dir), json.dumps(SLATE), str(len(store))],
+                capture_output=True, text=True, timeout=600,
+            )
+            require(child.returncode == 0, f"the warm-start process failed: {child.stderr[-3000:]}")
+            warm = json.loads(child.stdout.strip().splitlines()[-1])
+            print(f"fresh-process from_snapshot: restore {warm['restore_s']:.2f} s, {warm['replayed']} WAL records "
+                  f"replayed, slate {warm['slate_ms']:.1f} ms, cover launches {warm['cover_launches']}")
+            print(f"  digests live {digests(live)}")
+            print(f"  digests warm {warm['digests']}")
+            require(warm["replayed"] > 0, "the warm start replayed no WAL record")
+            require(warm["cover_launches"] > 0, "the warm-started host route launched no cover kernel")
+            require(warm["digests"] == digests(live), "the warm-started service serves other fragments")
+            phase("durable service: snapshot, acknowledged work, fresh-process warm start", t8)
+
+        def printed(stdout: str) -> list[tuple[str, list[str], str]]:
+            """The launcher's (or its client's) printed responses: per response,
+            its ``query:`` line, its document lines without the score (document
+            and first four fragments) and its flags."""
+            out = []
+            for line in stdout.splitlines():
+                if line.startswith("query: "):
+                    flags = line.rsplit("[", 1)[1].rstrip("]") if line.endswith("]") else ""
+                    out.append((line.split("'")[1], [], flags))
+                elif line.startswith("  doc ") and out:
+                    doc, _, frags = line.partition(" fragments: ")
+                    out[-1][1].append(f"{doc.split(' score=')[0]} fragments: {frags}")
             return out
 
-        slate_args = ["--queries", *SLATE, "--top-k", TOP_K]
-        try:
-            # 9c run 4 first, in the background: the CLI's own corpus and tree
-            cli_runs: dict[str, object] = {}
+        def doc_lines(resps):
+            """The launcher's document lines for in-process responses."""
+            return [f"  doc {d.doc_id:5d} fragments: "
+                    + ", ".join(f"[{f.start},{f.end}]" for f in d.fragments[:4]) for d in resps.docs]
 
-            def cli_chain():
-                try:
-                    t_c = time.perf_counter()
-                    cli_runs["cold"] = finish(launch("--bulk-ingest", "--snapshot-dir", cli_dir,
-                                                     "--n-docs", CLI_DOCS, "--n-shards", N_SHARDS,
-                                                     "--sw-count", SW_COUNT, "--fu-count", FU_COUNT,
-                                                     *slate_args), "run 4 (bulk-ingest cold start)")
-                    cli_runs["cold_s"] = time.perf_counter() - t_c
-                    t_c = time.perf_counter()
-                    cli_runs["warm"] = finish(launch("--snapshot-dir", cli_dir, *slate_args),
-                                              "run 4 (warm start)")
-                    cli_runs["warm_s"] = time.perf_counter() - t_c
-                except BaseException as e:  # re-raised in the main thread
-                    cli_runs["error"] = e
+        def launcher_phase(work: Path) -> None:
+            t9 = time.perf_counter()
+            bulk_dir, cli_dir = work / "bulk", work / "cli"
+            env = {**os.environ, "PYTHONPATH": str(src)}
+            procs: list[subprocess.Popen] = []
+            stopping = threading.Event()
+            procs_lock = threading.Lock()  # no launch slips past the cleanup below
 
-            cli_thread = threading.Thread(target=cli_chain, daemon=True)
-            cli_thread.start()
+            def launch(*args) -> subprocess.Popen:
+                with procs_lock:
+                    require(not stopping.is_set(), "phase 9 is stopping: no more launcher processes")
+                    proc = subprocess.Popen([sys.executable, "-u", "-c", RUN_MODULE, "repro_torch.launch.serve", *map(str, args)], env=env,
+                                            cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                    procs.append(proc)
+                return proc
 
-            # ---- 9a. bulk ingest on the card's host, byte for byte ----------
-            t_b = time.perf_counter()
-            bsvc, bstats = ShardedSearchService.bulk_ingest(
-                shard_store, bulk_dir, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
-                max_distance=MAX_DISTANCE, workers=4, device="cuda")
-            bulk_s = time.perf_counter() - t_b
-            spill = sum(st.spill_bytes for st in bstats)
-            print(f"bulk ingest: {len(shard_store)} docs into {N_SHARDS} shards, 4 spawn workers, "
-                  f"{bulk_s:.2f} s, {spill / 1024:.0f} KiB spilled, {len(shard_store) / bulk_s:.0f} docs/s; "
-                  f"per shard (lemmatize, spill, merge s): "
-                  + json.dumps([[round(st.lemmatize_s, 2), round(st.spill_s, 2), round(st.merge_s, 2)]
-                                for st in bstats]))
+            def finish(proc, label, timeout=600) -> str:
+                out, err = proc.communicate(timeout=timeout)
+                require(proc.returncode == 0, f"launcher {label} exited {proc.returncode}: {err[-3000:]}")
+                return out
 
-            def tree(root):
-                return {str(f.relative_to(root)): hashlib.sha256(f.read_bytes()).hexdigest()
-                        for f in sorted(root.rglob("*"))
-                        if f.is_file() and not f.name.startswith("restore_epoch")}
+            slate_args = ["--queries", *SLATE, "--top-k", TOP_K]
+            try:
+                # 9c run 4 first, in the background: the CLI's own corpus and tree
+                cli_runs: dict[str, object] = {}
 
-            bulk_tree, ref_tree = tree(bulk_dir), tree(work / "reference")
-            require(set(bulk_tree) == set(ref_tree),
-                    f"bulk tree files != the snapshot's: {sorted(set(bulk_tree) ^ set(ref_tree))[:8]}")
-            differ = sorted(k for k in bulk_tree if bulk_tree[k] != ref_tree[k])
-            require(not differ, f"bulk tree differs from the snapshot in {differ[:8]}")
-            print(f"bulk tree == phase 8's WAL-less snapshot: {len(bulk_tree)} files, sha256 of each "
-                  f"equal ({sum(f.stat().st_size for f in bulk_dir.rglob('*') if f.is_file()) / 2**20:.1f} MiB)")
-            zero_counts()
-            t_serve = time.perf_counter()
-            bulk_resps = ServingFrontend(bsvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
-            torch.cuda.synchronize()
-            counts = read_counts("bulk-ingested host route")
-            print(f"bulk-ingested service, host route: {(time.perf_counter() - t_serve) * 1e3:.1f} ms for the "
-                  f"slate, all documents ranked, kernel launches {counts}")
-            require(counts["proximity_window"] > 0, "proximity_window was not launched on the bulk-ingested service")
-            agree("bulk-ingested host route vs phase 7's se2.4", bulk_resps, combiner)
-            t9 = phase("launcher deployments: bulk ingest, tree and slate (9a)", t9)
+                def cli_chain():
+                    try:
+                        t_c = time.perf_counter()
+                        cli_runs["cold"] = finish(launch("--bulk-ingest", "--snapshot-dir", cli_dir,
+                                                         "--n-docs", CLI_DOCS, "--n-shards", N_SHARDS,
+                                                         "--sw-count", SW_COUNT, "--fu-count", FU_COUNT,
+                                                         *slate_args), "run 4 (bulk-ingest cold start)")
+                        cli_runs["cold_s"] = time.perf_counter() - t_c
+                        t_c = time.perf_counter()
+                        cli_runs["warm"] = finish(launch("--snapshot-dir", cli_dir, *slate_args),
+                                                  "run 4 (warm start)")
+                        cli_runs["warm_s"] = time.perf_counter() - t_c
+                    except BaseException as e:  # re-raised in the main thread
+                        cli_runs["error"] = e
 
-            # ---- 9b. resilience on the card ----------------------------------
-            from repro_torch.search.resilience import FaultInjector, ResiliencePolicy
+                cli_thread = threading.Thread(target=cli_chain, daemon=True)
+                cli_thread.start()
 
-            bsvc.enable_wal(bulk_dir)
-            injector = FaultInjector.from_seed(CHAOS_SEED, n_shards=N_SHARDS)
-            bsvc.enable_resilience(policy=ResiliencePolicy(snapshot_dir=bulk_dir), injector=injector)
-            print(f"fault schedule, seed {CHAOS_SEED}: " + json.dumps(
-                [[e.point, e.kind, e.shard, e.at_call, e.count] for e in injector.schedule]))
-            # the bulk tree now only gets read: start 9c's runs 1-3 alongside
-            runs = {"warm": launch("--snapshot-dir", bulk_dir, *slate_args, "--repeat", 2),
-                    "chaos": launch("--snapshot-dir", bulk_dir, *slate_args, "--repeat", 3,
-                                    "--chaos-seed", CHAOS_SEED),
-                    "daemon": launch("--daemon", "--port", 0, "--replicas", 2, "--snapshot-dir", bulk_dir)}
-            t_runs = time.perf_counter()
-            daemon_out: list[str] = []
-            listening = threading.Event()
+                # ---- 9a. bulk ingest on the card's host, byte for byte ----------
+                t_b = time.perf_counter()
+                bsvc, bstats = ShardedSearchService.bulk_ingest(
+                    shard_store, bulk_dir, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
+                    max_distance=MAX_DISTANCE, workers=4, device="cuda")
+                bulk_s = time.perf_counter() - t_b
+                spill = sum(st.spill_bytes for st in bstats)
+                print(f"bulk ingest: {len(shard_store)} docs into {N_SHARDS} shards, 4 spawn workers, "
+                      f"{bulk_s:.2f} s, {spill / 1024:.0f} KiB spilled, {len(shard_store) / bulk_s:.0f} docs/s; "
+                      f"per shard (lemmatize, spill, merge s): "
+                      + json.dumps([[round(st.lemmatize_s, 2), round(st.spill_s, 2), round(st.merge_s, 2)]
+                                    for st in bstats]))
 
-            def drain_daemon():
-                for line in runs["daemon"].stdout:
-                    daemon_out.append(line)
-                    if "listening on" in line:
-                        listening.set()
+                def tree(root):
+                    return {str(f.relative_to(root)): hashlib.sha256(f.read_bytes()).hexdigest()
+                            for f in sorted(root.rglob("*"))
+                            if f.is_file() and not f.name.startswith("restore_epoch")}
 
-            daemon_err: list[str] = []
-            drains = [threading.Thread(target=drain_daemon, daemon=True),
-                      threading.Thread(target=lambda: daemon_err.extend(runs["daemon"].stderr), daemon=True)]
-            for th in drains:
-                th.start()
-
-            fe9 = ServingFrontend(bsvc, arena_budget_mb=ARENA_BUDGET >> 20, use_kernel=True, device="cuda",
-                                  max_batch=16)
-            by_query = dict(zip(SLATE, combiner))
-            zero_counts()
-            flagged = 0
-            for rnd in range(CHAOS_ROUNDS):
-                t_r = time.perf_counter()
-                resps = fe9.search_many(full)
+                bulk_tree, ref_tree = tree(bulk_dir), tree(work / "reference")
+                require(set(bulk_tree) == set(ref_tree),
+                        f"bulk tree files != the snapshot's: {sorted(set(bulk_tree) ^ set(ref_tree))[:8]}")
+                differ = sorted(k for k in bulk_tree if bulk_tree[k] != ref_tree[k])
+                require(not differ, f"bulk tree differs from the snapshot in {differ[:8]}")
+                print(f"bulk tree == phase 8's WAL-less snapshot: {len(bulk_tree)} files, sha256 of each "
+                      f"equal ({sum(f.stat().st_size for f in bulk_dir.rglob('*') if f.is_file()) / 2**20:.1f} MiB)")
+                zero_counts()
+                t_serve = time.perf_counter()
+                bulk_resps = ServingFrontend(bsvc, use_kernel=True, device="cuda", max_batch=16).search_many(full)
                 torch.cuda.synchronize()
-                for q, r in zip(SLATE, resps):
-                    ref = by_query[q]
-                    if r.stats.shards_degraded:
-                        # se2.4 over the live shards: the shards hold disjoint
-                        # documents, and a document's score is its own
-                        dead = bsvc.supervisor.last_excluded
-                        require(r.stats.partial, f"round {rnd}: a degraded response is not flagged partial")
-                        ref = copy.copy(ref)
-                        ref.docs = [d for d in ref.docs if d.doc_id % N_SHARDS not in dead]
-                        flagged += 1
-                    else:
-                        require(not r.stats.partial, f"round {rnd}: an exact response is flagged partial")
-                    agree(f"chaos round {rnd} {q!r}", [r], [ref])
-                st = resps[0].stats
-                print(f"  chaos round {rnd}: {(time.perf_counter() - t_r) * 1e3:.1f} ms, cache hits "
-                      f"{sum(r.stats.cache_hits for r in resps)}, degraded {st.shards_degraded}, retries "
-                      f"{st.retries}, recoveries {st.recoveries}, arena hits {sum(r.stats.arena_hits for r in resps)}")
-            counts = read_counts("chaos frontend (64 MiB arena)")
-            rm = bsvc.resilience_metrics()
-            am = fe9.metrics()
-            print(f"chaos frontend: {CHAOS_ROUNDS} rounds, {flagged} flagged responses, kernel launches {counts}; "
-                  f"resilience {json.dumps(rm)}; arena pressure events {am['arena_pressure_events']}, "
-                  f"uploads {am['arena_uploads']}")
-            print("  fired: " + json.dumps(injector.log, default=str))
-            require(counts["proximity_window"] > 0, "proximity_window was not launched under the fault schedule")
-            require(rm["fired"] >= 2 and rm["recoveries"] >= 1,
-                    f"the schedule fired {rm['fired']} faults and {rm['recoveries']} recoveries")
-            bsvc.algorithm, bsvc.use_kernel = "fused", True
-            zero_counts()
-            dead_resps = bsvc.search_batch(SLATE, top_k=len(store), dead_shards=[1])
-            torch.cuda.synchronize()
-            counts = read_counts("dead_shards=[1] fused")
-            bsvc.algorithm = "se2.4"
-            require(counts["proximity_window"] > 0, "proximity_window was not launched with a dead shard")
-            for q, r in zip(SLATE, dead_resps):
-                require(r.stats.shards_degraded == 1 and r.stats.partial, f"dead-shard response {q!r} not flagged")
-                ref = copy.copy(by_query[q])
-                ref.docs = [d for d in ref.docs if d.doc_id % N_SHARDS != 1]
-                agree(f"dead_shards=[1] {q!r}", [r], [ref])
-            print(f"search_batch(dead_shards=[1]) fused: every response flagged and == se2.4 over shards 0, 2, 3; "
-                  f"kernel launches {counts}")
-            t9 = phase("launcher deployments: fault schedule and dead shards (9b)", t9)
+                counts = read_counts("bulk-ingested host route")
+                print(f"bulk-ingested service, host route: {(time.perf_counter() - t_serve) * 1e3:.1f} ms for the "
+                      f"slate, all documents ranked, kernel launches {counts}")
+                require(counts["proximity_window"] > 0, "proximity_window was not launched on the bulk-ingested service")
+                agree("bulk-ingested host route vs phase 7's se2.4", bulk_resps, combiner)
+                t9 = phase("launcher deployments: bulk ingest, tree and slate (9a)", t9)
 
-            # ---- 9c. the launcher in fresh processes ---------------------------
-            live10 = ServingFrontend(bsvc, use_kernel=True, device="cuda", max_batch=16).search_many(requests)
-            warm_out = finish(runs["warm"], "run 1 (warm start)")
-            warm_printed = printed(warm_out)
-            print("  " + "\n  ".join(ln for ln in warm_out.splitlines() if not ln.startswith(("  doc", "query"))
-                                       and ln.strip()))
-            require(any(ln.startswith(f"warm start: restored {N_SHARDS} shards") for ln in warm_out.splitlines()),
-                    "run 1 printed no warm start")
-            require(len(warm_printed) == 2 * len(SLATE), f"run 1 printed {len(warm_printed)} responses")
-            require(all("CACHED" in flags for _, _, flags in warm_printed[len(SLATE):]),
-                    "run 1's second round is not all [CACHED]")
-            for (q, lines, _), r in zip(warm_printed, live10):
-                require(lines == doc_lines(r), f"run 1's top {TOP_K} for {q!r} != the live service's")
-            chaos_out = finish(runs["chaos"], "run 2 (fault schedule)")
-            res_line = [ln for ln in chaos_out.splitlines() if ln.startswith("resilience:")]
-            print(f"  run 2: {[ln for ln in chaos_out.splitlines() if ln.startswith('chaos:')]} {res_line}")
-            require(len(res_line) == 1 and not res_line[0].startswith("resilience: 0 fault"),
-                    "run 2 reported no fault fired")
-            require(listening.wait(timeout=600), f"the daemon never listened: {''.join(daemon_err)[-3000:]}")
-            line = next(ln for ln in daemon_out if "listening on" in ln)
-            address = line.split(" on ", 1)[1].split()[0]
-            print(f"  daemon ({time.perf_counter() - t_runs:.1f} s after start): {line.strip()}")
-            t_cl = time.perf_counter()
-            client_out = finish(launch("--connect", address, "--kill-primary", *slate_args), "client")
-            client_printed = printed(client_out)
-            print(f"  client ({time.perf_counter() - t_cl:.1f} s): " + " | ".join(
-                ln for ln in client_out.splitlines() if ln.startswith(("kill_primary", "daemon"))))
-            require(len(client_printed) == len(SLATE), f"the client printed {len(client_printed)} responses")
-            for (q, lines, _), (wq, wlines, _) in zip(client_printed, warm_printed):
-                require(q == wq and lines == wlines, f"the daemon's wire response for {q!r} != run 1's")
-            require(any("1 failover(s)" in ln for ln in client_out.splitlines() if ln.startswith("daemon:")),
-                    "the client's metrics report no failover")
-            runs["daemon"].send_signal(signal.SIGINT)
-            rc = runs["daemon"].wait(timeout=60)
-            for th in drains:
-                th.join(timeout=10)
-            require(rc == 0, f"the daemon exited {rc} on SIGINT: {''.join(daemon_err)[-3000:]}")
-            summary = [ln.strip() for ln in daemon_out if ln.startswith("daemon: primary=")]
-            print(f"  daemon after SIGINT: exit {rc}, {summary}")
-            require(len(summary) == 1, "the daemon printed no summary on SIGINT")
-            cli_thread.join(timeout=900)
-            require("error" not in cli_runs and "warm" in cli_runs, f"run 4 failed: {cli_runs.get('error')}")
-            cold_p, warm_p = printed(cli_runs["cold"]), printed(cli_runs["warm"])
-            print(f"  run 4: cold start {cli_runs['cold_s']:.1f} s, warm start {cli_runs['warm_s']:.1f} s (process "
-                  f"wall); " + " | ".join(ln for ln in (cli_runs["cold"] + cli_runs["warm"]).splitlines()
-                                        if ln.startswith(("bulk ingest:", "warm start:"))))
-            require(len(cold_p) == len(SLATE) and [x[:2] for x in cold_p] == [x[:2] for x in warm_p],
-                    "run 4's cold and warm starts printed other documents")
-            phase("launcher deployments: four launcher runs (9c)", t9)
+                # ---- 9b. resilience on the card ----------------------------------
+                from repro_torch.search.resilience import FaultInjector, ResiliencePolicy
+
+                bsvc.enable_wal(bulk_dir)
+                injector = FaultInjector.from_seed(CHAOS_SEED, n_shards=N_SHARDS)
+                bsvc.enable_resilience(policy=ResiliencePolicy(snapshot_dir=bulk_dir), injector=injector)
+                print(f"fault schedule, seed {CHAOS_SEED}: " + json.dumps(
+                    [[e.point, e.kind, e.shard, e.at_call, e.count] for e in injector.schedule]))
+                # the bulk tree now only gets read: start 9c's runs 1-3 alongside
+                runs = {"warm": launch("--snapshot-dir", bulk_dir, *slate_args, "--repeat", 2),
+                        "chaos": launch("--snapshot-dir", bulk_dir, *slate_args, "--repeat", 3,
+                                        "--chaos-seed", CHAOS_SEED),
+                        "daemon": launch("--daemon", "--port", 0, "--replicas", 2, "--snapshot-dir", bulk_dir)}
+                t_runs = time.perf_counter()
+                daemon_out: list[str] = []
+                listening = threading.Event()
+
+                def drain_daemon():
+                    for line in runs["daemon"].stdout:
+                        daemon_out.append(line)
+                        if "listening on" in line:
+                            listening.set()
+
+                daemon_err: list[str] = []
+                drains = [threading.Thread(target=drain_daemon, daemon=True),
+                          threading.Thread(target=lambda: daemon_err.extend(runs["daemon"].stderr), daemon=True)]
+                for th in drains:
+                    th.start()
+
+                fe9 = ServingFrontend(bsvc, arena_budget_mb=ARENA_BUDGET >> 20, use_kernel=True, device="cuda",
+                                      max_batch=16)
+                by_query = dict(zip(SLATE, combiner))
+                zero_counts()
+                flagged = 0
+                for rnd in range(CHAOS_ROUNDS):
+                    t_r = time.perf_counter()
+                    resps = fe9.search_many(full)
+                    torch.cuda.synchronize()
+                    for q, r in zip(SLATE, resps):
+                        ref = by_query[q]
+                        if r.stats.shards_degraded:
+                            # se2.4 over the live shards: the shards hold disjoint
+                            # documents, and a document's score is its own
+                            dead = bsvc.supervisor.last_excluded
+                            require(r.stats.partial, f"round {rnd}: a degraded response is not flagged partial")
+                            ref = copy.copy(ref)
+                            ref.docs = [d for d in ref.docs if d.doc_id % N_SHARDS not in dead]
+                            flagged += 1
+                        else:
+                            require(not r.stats.partial, f"round {rnd}: an exact response is flagged partial")
+                        agree(f"chaos round {rnd} {q!r}", [r], [ref])
+                    st = resps[0].stats
+                    print(f"  chaos round {rnd}: {(time.perf_counter() - t_r) * 1e3:.1f} ms, cache hits "
+                          f"{sum(r.stats.cache_hits for r in resps)}, degraded {st.shards_degraded}, retries "
+                          f"{st.retries}, recoveries {st.recoveries}, arena hits {sum(r.stats.arena_hits for r in resps)}")
+                counts = read_counts("chaos frontend (64 MiB arena)")
+                rm = bsvc.resilience_metrics()
+                am = fe9.metrics()
+                print(f"chaos frontend: {CHAOS_ROUNDS} rounds, {flagged} flagged responses, kernel launches {counts}; "
+                      f"resilience {json.dumps(rm)}; arena pressure events {am['arena_pressure_events']}, "
+                      f"uploads {am['arena_uploads']}")
+                print("  fired: " + json.dumps(injector.log, default=str))
+                require(counts["proximity_window"] > 0, "proximity_window was not launched under the fault schedule")
+                require(rm["fired"] >= 2 and rm["recoveries"] >= 1,
+                        f"the schedule fired {rm['fired']} faults and {rm['recoveries']} recoveries")
+                bsvc.algorithm, bsvc.use_kernel = "fused", True
+                zero_counts()
+                dead_resps = bsvc.search_batch(SLATE, top_k=len(store), dead_shards=[1])
+                torch.cuda.synchronize()
+                counts = read_counts("dead_shards=[1] fused")
+                bsvc.algorithm = "se2.4"
+                require(counts["proximity_window"] > 0, "proximity_window was not launched with a dead shard")
+                for q, r in zip(SLATE, dead_resps):
+                    require(r.stats.shards_degraded == 1 and r.stats.partial, f"dead-shard response {q!r} not flagged")
+                    ref = copy.copy(by_query[q])
+                    ref.docs = [d for d in ref.docs if d.doc_id % N_SHARDS != 1]
+                    agree(f"dead_shards=[1] {q!r}", [r], [ref])
+                print(f"search_batch(dead_shards=[1]) fused: every response flagged and == se2.4 over shards 0, 2, 3; "
+                      f"kernel launches {counts}")
+                t9 = phase("launcher deployments: fault schedule and dead shards (9b)", t9)
+
+                # ---- 9c. the launcher in fresh processes ---------------------------
+                live10 = ServingFrontend(bsvc, use_kernel=True, device="cuda", max_batch=16).search_many(requests)
+                warm_out = finish(runs["warm"], "run 1 (warm start)")
+                warm_printed = printed(warm_out)
+                print("  " + "\n  ".join(ln for ln in warm_out.splitlines() if not ln.startswith(("  doc", "query"))
+                                           and ln.strip()))
+                require(any(ln.startswith(f"warm start: restored {N_SHARDS} shards") for ln in warm_out.splitlines()),
+                        "run 1 printed no warm start")
+                require(len(warm_printed) == 2 * len(SLATE), f"run 1 printed {len(warm_printed)} responses")
+                require(all("CACHED" in flags for _, _, flags in warm_printed[len(SLATE):]),
+                        "run 1's second round is not all [CACHED]")
+                for (q, lines, _), r in zip(warm_printed, live10):
+                    require(lines == doc_lines(r), f"run 1's top {TOP_K} for {q!r} != the live service's")
+                chaos_out = finish(runs["chaos"], "run 2 (fault schedule)")
+                res_line = [ln for ln in chaos_out.splitlines() if ln.startswith("resilience:")]
+                print(f"  run 2: {[ln for ln in chaos_out.splitlines() if ln.startswith('chaos:')]} {res_line}")
+                require(len(res_line) == 1 and not res_line[0].startswith("resilience: 0 fault"),
+                        "run 2 reported no fault fired")
+                require(listening.wait(timeout=600), f"the daemon never listened: {''.join(daemon_err)[-3000:]}")
+                line = next(ln for ln in daemon_out if "listening on" in ln)
+                address = line.split(" on ", 1)[1].split()[0]
+                print(f"  daemon ({time.perf_counter() - t_runs:.1f} s after start): {line.strip()}")
+                t_cl = time.perf_counter()
+                client_out = finish(launch("--connect", address, "--kill-primary", *slate_args), "client")
+                client_printed = printed(client_out)
+                print(f"  client ({time.perf_counter() - t_cl:.1f} s): " + " | ".join(
+                    ln for ln in client_out.splitlines() if ln.startswith(("kill_primary", "daemon"))))
+                require(len(client_printed) == len(SLATE), f"the client printed {len(client_printed)} responses")
+                for (q, lines, _), (wq, wlines, _) in zip(client_printed, warm_printed):
+                    require(q == wq and lines == wlines, f"the daemon's wire response for {q!r} != run 1's")
+                require(any("1 failover(s)" in ln for ln in client_out.splitlines() if ln.startswith("daemon:")),
+                        "the client's metrics report no failover")
+                runs["daemon"].send_signal(signal.SIGINT)
+                rc = runs["daemon"].wait(timeout=60)
+                for th in drains:
+                    th.join(timeout=10)
+                require(rc == 0, f"the daemon exited {rc} on SIGINT: {''.join(daemon_err)[-3000:]}")
+                summary = [ln.strip() for ln in daemon_out if ln.startswith("daemon: primary=")]
+                print(f"  daemon after SIGINT: exit {rc}, {summary}")
+                require(len(summary) == 1, "the daemon printed no summary on SIGINT")
+                cli_thread.join(timeout=900)
+                require("error" not in cli_runs and "warm" in cli_runs, f"run 4 failed: {cli_runs.get('error')}")
+                cold_p, warm_p = printed(cli_runs["cold"]), printed(cli_runs["warm"])
+                print(f"  run 4: cold start {cli_runs['cold_s']:.1f} s, warm start {cli_runs['warm_s']:.1f} s (process "
+                      f"wall); " + " | ".join(ln for ln in (cli_runs["cold"] + cli_runs["warm"]).splitlines()
+                                            if ln.startswith(("bulk ingest:", "warm start:"))))
+                require(len(cold_p) == len(SLATE) and [x[:2] for x in cold_p] == [x[:2] for x in warm_p],
+                        "run 4's cold and warm starts printed other documents")
+                phase("launcher deployments: four launcher runs (9c)", t9)
+            finally:
+                with procs_lock:
+                    stopping.set()
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+
+        # ---- 8. the durable deployment under mutation ----------------------------
+        # the launcher's --snapshot-dir deployment (incremental shards, the
+        # write-ahead log, snapshots, a 64 MiB arena attached to the source) over
+        # the same documents, mutated while it serves, then warm-started in a
+        # fresh process from what it wrote
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
+        try:
+            durable_phase(work / "snapshot", work / "reference")
+            # phases 12 and 13 in a child process beside phase 9's host-bound
+            # launchers (no slate of phase 9 is timed against a device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            child = card_child_start(procs, new, threads=CHILD_THREADS) if new else None
+            print(f"card memory held here: {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved; phases "
+                  f"{new} {'started beside phase 9' if new else 'not selected'}")
+            t0 = time.perf_counter()
+            launcher_phase(work)
+            t0 = phase("the launcher's deployments (phase 9, whole)", t0)
+            card = card_child_finish(child) if child else None
+            t0 = phase(f"the rest of phases {new} after phase 9", t0)
         finally:
-            with procs_lock:
-                stopping.set()
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+            shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 8. the durable deployment under mutation ----------------------------
-    # the launcher's --snapshot-dir deployment (incremental shards, the
-    # write-ahead log, snapshots, a 64 MiB arena attached to the source) over
-    # the same documents, mutated while it serves, then warm-started in a
-    # fresh process from what it wrote
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
-    try:
-        durable_phase(work / "snapshot", work / "reference")
+        # ---- 10. the paper_search device steps ------------------------------------
+        paper_search_phase(torch, dev, index, subs, kernels, zero_counts, read_counts)
+        return lm_cli, lm_ckpt, card
+
+
+    kernels: list = []
+    new = [p for p in (12, 13) if p in phases]
+    if SEARCH_PHASES & phases:
+        lm_cli, lm_ckpt, card = search_phases()
+    else:
         t0 = time.perf_counter()
-        launcher_phase(work)
-        t0 = phase("the launcher's deployments (phase 9, whole)", t0)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-
-    # ---- 10. the paper_search device steps ------------------------------------
-    paper_search_phase(torch, dev, index, subs, kernels, zero_counts, read_counts)
+        card = card_child_finish(card_child_start(procs, new, threads=0)) if new else None
+        t0 = phase(f"phases {new} alone", t0)
+        if 11 in phases:
+            lm_cli = lm_cli_finish(*lm_cli_start(procs))
+            lm_ckpt = lm_resume_check(procs)
+            t0 = phase("the trainer CLI (11e) and the checkpoint resume check (11f) alone", t0)
 
     # ---- 11. the dense LM training path -----------------------------------------
-    lm = lm_phase(torch, dev, zero_counts, read_counts, lm_cli, lm_ckpt)
-    print("lm phase: " + json.dumps(lm))
+    if 11 in phases:
+        lm = lm_phase(torch, dev, zero_counts, read_counts, lm_cli, lm_ckpt)
+        print("lm phase: " + json.dumps(lm))
+
+    # ---- 12 and 13: what their child process reported -----------------------------
+    if card is not None:
+        path_launches.update(card.pop("launches_by_path"))
+        print("moe and recsys phases: " + json.dumps(card))
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

@@ -2,34 +2,44 @@
 
 The reference registers ten assigned architectures and the paper's own
 ``paper_search`` system.  The port holds ``paper_search`` (the search
-system's fixed-shape device steps) and the three dense LMs
-(``stablelm-3b``, ``mistral-large-123b``, ``tinyllama-1.1b``).  The other
-ids are known, and asking for their specs raises ``NotImplementedError``
-naming what they need and the port lacks: MoE layers, the recsys models or
-the GNN models.  An unknown id raises ``KeyError``.
+system's fixed-shape device steps), the five LMs (three dense, two MoE) and
+the four recsys models.  ``gat-cora`` is known, and asking for its spec
+raises ``NotImplementedError`` naming what it needs and the port lacks: the
+GNN models.  An unknown id raises ``KeyError``.
 """
 
 from __future__ import annotations
 
-from . import mistral_large_123b, paper_search, stablelm_3b, tinyllama_1_1b
+from . import (
+    autoint,
+    dcn_v2,
+    fm,
+    llama4_maverick,
+    mind,
+    mistral_large_123b,
+    olmoe_1b_7b,
+    paper_search,
+    stablelm_3b,
+    tinyllama_1_1b,
+)
 from .common import ArchSpec, ShapeCell
 
 _MODULES = {
     "stablelm-3b": stablelm_3b,
     "mistral-large-123b": mistral_large_123b,
     "tinyllama-1.1b": tinyllama_1_1b,
+    "llama4-maverick-400b-a17b": llama4_maverick,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "autoint": autoint,
+    "mind": mind,
+    "dcn-v2": dcn_v2,
+    "fm": fm,
     "paper_search": paper_search,
 }
 
 # the reference's ids the port does not hold, and what each needs
 _NOT_PORTED = {
-    "llama4-maverick-400b-a17b": "MoE layers",
-    "olmoe-1b-7b": "MoE layers",
     "gat-cora": "GNN models",
-    "autoint": "recsys models",
-    "mind": "recsys models",
-    "dcn-v2": "recsys models",
-    "fm": "recsys models",
 }
 
 # the reference's registry order

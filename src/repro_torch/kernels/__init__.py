@@ -15,13 +15,14 @@ from .intersect import (
 )
 from .ops import proximity_search_scores
 from .proximity import proximity_window, proximity_window_plain
-from .ref import fragment_scores_ref, intersect_ref, proximity_window_ref
+from .ref import embedding_bag_ref, fragment_scores_ref, intersect_ref, proximity_window_ref
 
 __all__ = [
     "ARENA_BLOCK",
     "PAD",
     "SegmentPack",
     "block_offsets",
+    "embedding_bag_ref",
     "fragment_scores_ref",
     "gather_blocks",
     "gather_blocks_plain",

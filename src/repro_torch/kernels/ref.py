@@ -10,7 +10,7 @@ import torch
 
 from ..core.window import window_cover_batch
 
-__all__ = ["proximity_window_ref", "intersect_ref", "fragment_scores_ref"]
+__all__ = ["proximity_window_ref", "intersect_ref", "embedding_bag_ref", "fragment_scores_ref"]
 
 
 def proximity_window_ref(
@@ -26,6 +26,19 @@ def intersect_ref(
     """Membership of each element of sorted ``a`` in sorted ``b`` (1/0)."""
     idx = torch.searchsorted(b, a).clamp(0, b.shape[0] - 1)
     return ((b[idx] == a) & (a != pad_value)).to(torch.int32)
+
+
+def embedding_bag_ref(
+    table: torch.Tensor,  # [V, D]
+    indices: torch.Tensor,  # [B, K] (pad = -1)
+    weights: torch.Tensor | None = None,  # [B, K]
+) -> torch.Tensor:
+    """Sum-mode embedding bag with padding; the RecSys gather-reduce op."""
+    ok = (indices >= 0).to(table.dtype)[..., None]
+    gathered = table[torch.clamp(indices, min=0)] * ok
+    if weights is not None:
+        gathered = gathered * weights[..., None].to(table.dtype)
+    return gathered.sum(dim=1)
 
 
 def fragment_scores_ref(emit: torch.Tensor, start: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,10 @@ are folded into one program.  An LM cell runs one data rank's share of its
 global batch (``global_batch // data``, ``data`` 16 on one pod and 32 on
 two, at least 1) at the cell's full sequence length and the config's full
 width and depth; its record keeps the global batch's ``model_flops_global``
-and adds the share's.  Records of cells that ran are cached in
+and adds the share's.  A recsys cell runs its whole global batch (MIND's
+loss takes its negatives from the whole batch, so a share would change it),
+on the trainer's batches (``recsys_batch``).  Records of cells that ran are
+cached in
 ``--out`` and skipped on the next run; the exit code is 1 when any cell
 failed.
 """
@@ -33,17 +36,18 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..configs import PORTED_ARCH_IDS, get_spec
-from ..data.pipeline import LMTokenPipeline
-from ..models import transformer
+from ..configs import PORTED_ARCH_IDS, ArchSpec, get_spec
+from ..data.pipeline import LMTokenPipeline, RecsysBatchPipeline
+from ..models import recsys, transformer
 from ..optim import adamw_init
 from ..tree import tree_leaves
 from .mesh import MeshLayout, make_production_mesh
 from .steps import Cell, build_cell
 
-__all__ = ["cell_inputs", "run_cell", "main"]
+__all__ = ["cell_inputs", "recsys_batch", "run_cell", "main"]
 
 # build cells: FL-numbers over a vocabulary of this many lemmas, the most
 # frequent STOP_LEMMAS of them stop lemmas (the serving smoke's sw_count)
@@ -83,6 +87,41 @@ def _lm_inputs(cell: Cell, cfg, batch: int, seed: int, dev: torch.device) -> tup
     return params, adamw_init(params), bat
 
 
+def recsys_batch(cfg: recsys.RecsysConfig, rows: int, seed: int = 0) -> tuple[dict, RecsysBatchPipeline]:
+    """The reference trainer's first recsys batch (``_concrete_batch``),
+    with its numpy draws: the pipeline's batch of ``rows`` rows, MIND's ids
+    clipped into the item vocabulary, or a CTR model's sparse ids drawn
+    uniformly per field; and the pipeline, for the batches after it."""
+    rng = np.random.default_rng(seed)
+    pipe = RecsysBatchPipeline(cfg.field_vocab, rows, n_dense=cfg.n_dense,
+                               hist_len=cfg.hist_len if cfg.model == "mind" else 0, seed=seed)
+    b = pipe.next_batch()
+    if cfg.model == "mind":
+        b["hist_ids"] = np.clip(b["hist_ids"], -1, cfg.field_vocab[0] - 1)
+        b["target_id"] = np.clip(b["target_id"], 0, cfg.field_vocab[0] - 1)
+    else:
+        b["sparse_ids"] = np.stack([rng.integers(0, v, rows) for v in cfg.field_vocab], axis=1).astype(np.int32)
+    return b, pipe
+
+
+def _recsys_inputs(cell: Cell, cfg: recsys.RecsysConfig, seed: int, dev: torch.device) -> tuple:
+    """Params from the seed; the batch of ``recsys_batch`` with the cell's
+    keys, at the cell's rows; for retrieval, candidate items drawn uniformly
+    from the item vocabulary (field 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = recsys.init_recsys_params(gen, cfg, device=dev)
+    shapes = cell.abstract_args[-1]
+    rows = next(t.shape[0] for k, t in shapes.items() if k != "cand_ids")
+    host, _ = recsys_batch(cfg, rows, seed)
+    if "cand_ids" in shapes:
+        rng = np.random.default_rng((seed, 1))
+        host["cand_ids"] = rng.integers(0, cfg.field_vocab[0], shapes["cand_ids"].shape[0]).astype(np.int32)
+    bat = {k: torch.from_numpy(host[k]).to(dev) for k in shapes}
+    if cell.step == "train":
+        return params, adamw_init(params), bat
+    return params, bat
+
+
 def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda", batch: int | None = None) -> tuple:
     """Seeded inputs at the cell's shapes on ``device``, dense enough that
     covers fire.
@@ -94,9 +133,12 @@ def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda", batch: int | N
     range.  Build cells: log-uniform FL-numbers (frequent lemmas dominate, as
     in text), the smallest ``STOP_LEMMAS`` of them stop lemmas.  LM cells:
     see ``_lm_inputs``, at ``batch`` rows (default the cell's global batch).
-    The same seed on the same device gives the same inputs.
+    Recsys cells: see ``_recsys_inputs``.  The same seed on the same device
+    gives the same inputs.
     """
     dev = torch.device(device)
+    if isinstance(cfg, recsys.RecsysConfig):
+        return _recsys_inputs(cell, cfg, seed, dev)
     if cell.step in ("train", "prefill", "decode"):
         if batch is None:  # the global batch: the tokens' leading extent
             tokens = cell.abstract_args[2] if cell.step == "decode" else cell.abstract_args[-1]["tokens"]
@@ -145,15 +187,7 @@ def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda", batch: int | N
 
 def _check_lm_outputs(cell: Cell, cfg, args: tuple, out) -> dict:
     if cell.step == "train":
-        new_params, new_state, metrics = out
-        bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
-        if bad or int(new_state["step"]) != int(args[1]["step"]) + 1:
-            raise AssertionError(f"train outputs: metrics {bad} not finite, or step {int(new_state['step'])}")
-        for old, new in zip(tree_leaves(args[0]), tree_leaves(new_params)):
-            if new.shape != old.shape or new.dtype != old.dtype:
-                raise AssertionError(f"train outputs: a param {tuple(old.shape)} {old.dtype} became "
-                                     f"{tuple(new.shape)} {new.dtype}")
-        return {k: float(v) for k, v in metrics.items()}
+        return _check_train_outputs(args, out)
     logits, cache = out
     b = args[1]["tokens"].shape[0] if cell.step == "prefill" else args[2].shape[0]
     if logits.shape != (b, cfg.vocab) or not bool(torch.isfinite(logits).all()):
@@ -165,8 +199,32 @@ def _check_lm_outputs(cell: Cell, cfg, args: tuple, out) -> dict:
     return {"logits_absmax": float(logits.abs().max())}
 
 
+def _check_train_outputs(args: tuple, out) -> dict:
+    new_params, new_state, metrics = out
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+    if bad or int(new_state["step"]) != int(args[1]["step"]) + 1:
+        raise AssertionError(f"train outputs: metrics {bad} not finite, or step {int(new_state['step'])}")
+    for old, new in zip(tree_leaves(args[0]), tree_leaves(new_params)):
+        if new.shape != old.shape or new.dtype != old.dtype:
+            raise AssertionError(f"train outputs: a param {tuple(old.shape)} {old.dtype} became "
+                                 f"{tuple(new.shape)} {new.dtype}")
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _check_recsys_outputs(cell: Cell, args: tuple, out) -> dict:
+    if cell.step == "train":
+        return _check_train_outputs(args, out)
+    bat = args[1]
+    n = bat["cand_ids"].shape[0] if cell.step == "retrieval" else next(iter(bat.values())).shape[0]
+    if out.shape != (n,) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{cell.step} outputs: scores {tuple(out.shape)} (want ({n},)), finite")
+    return {"scores_absmax": float(out.abs().max())}
+
+
 def _check_outputs(cell: Cell, cfg, out, args: tuple) -> dict:
     """The outputs' shapes and invariants; a summary for the record."""
+    if isinstance(cfg, recsys.RecsysConfig):
+        return _check_recsys_outputs(cell, args, out)
     if cell.step in ("train", "prefill", "decode"):
         return _check_lm_outputs(cell, cfg, args, out)
     if cell.step == "build":
@@ -190,14 +248,17 @@ def _check_outputs(cell: Cell, cfg, out, args: tuple) -> dict:
 def _shapes(x):
     if isinstance(x, dict):
         return {k: _shapes(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_shapes(v) for v in x]
     return list(x.shape)
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = True, *, device="cuda",
-             repeats: int = REPEATS) -> dict:
+             repeats: int = REPEATS, spec: ArchSpec | None = None) -> dict:
     """Run one cell on ``device`` at the layout's shard count: one call,
-    then ``repeats`` timed calls on inputs from seed 0."""
-    spec = get_spec(arch)
+    then ``repeats`` timed calls on inputs from seed 0.  ``spec`` replaces
+    the registry's (a config cut to fit one card)."""
+    spec = spec or get_spec(arch)
     cell_meta = spec.shapes[shape]
     mesh = make_production_mesh(multi_pod=multi_pod)
     dev = torch.device(device)

@@ -1,15 +1,15 @@
 """Cell builder: (architecture, shape) -> step function + abstract inputs.
 
-The reference's ``launch/steps.py`` for the dense LM cells (train, prefill,
-decode) and the ``paper_search`` cells; the dry-run and the trainer share
-it.  The abstract inputs are ``device="meta"`` tensors, which carry the
-reference's shapes and dtypes and allocate nothing (the counterpart of
-``jax.ShapeDtypeStruct``); an LM cell's are at its global batch.  The
-reference also gives each cell partition specs over its device mesh; on one
-card there is no mesh, and the layout's size only sets the number of cluster
-shards a serve cell folds into one program
-(``search/serving_step.serve_step_sharded``).  The gnn and recsys families
-raise ``NotImplementedError``.
+The reference's ``launch/steps.py`` for the LM cells (train, prefill,
+decode; dense and MoE), the recsys cells (train, score, retrieval) and the
+``paper_search`` cells; the dry-run and the trainer share it.  The abstract
+inputs are ``device="meta"`` tensors, which carry the reference's shapes and
+dtypes and allocate nothing (the counterpart of ``jax.ShapeDtypeStruct``);
+every cell's are at its global batch.  The reference also gives each cell
+partition specs over its device mesh; on one card there is no mesh, and the
+layout's size only sets the number of cluster shards a serve cell folds into
+one program (``search/serving_step.serve_step_sharded``).  The gnn family
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Any, Callable
 import torch
 
 from ..configs.common import ArchSpec, ShapeCell
-from ..models import transformer
+from ..models import recsys, transformer
 from ..optim import AdamWConfig, adamw_init, adamw_update, cast_like, global_norm
 from ..search.serving_step import build_step, serve_step_sharded
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -44,12 +44,12 @@ class Cell:
     notes: str = ""
 
 
-def _value_and_grad(params, batch, cfg):
+def _value_and_grad(loss_fn, params, batch, cfg):
     """``jax.value_and_grad(loss_fn, has_aux=True)``: (loss, metrics), and
     the gradients as a tree like ``params``; ``params`` is not modified."""
     leaves, treedef = tree_flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    loss, metrics = transformer.loss_fn(tree_unflatten(treedef, live), batch, cfg)
+    loss, metrics = loss_fn(tree_unflatten(treedef, live), batch, cfg)
     grads = torch.autograd.grad(loss, live)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(treedef, list(grads))
 
@@ -81,7 +81,7 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
                 nll = torch.zeros((), dtype=torch.float32, device=dev)
                 aux = torch.zeros((), dtype=torch.float32, device=dev)
                 for mb in mbs:
-                    _, metrics, grads = _value_and_grad(params, mb, cfg)
+                    _, metrics, grads = _value_and_grad(transformer.loss_fn, params, mb, cfg)
                     for a, g in zip(tree_leaves(gacc), tree_leaves(grads)):
                         a.add_(g)  # in float32: the accumulator is this step's own
                     del grads
@@ -91,7 +91,7 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
                 nll, aux = nll / n_micro, aux / n_micro
                 loss = nll + cfg.aux_loss_weight * aux
             else:
-                loss, metrics, grads = _value_and_grad(params, bat, cfg)
+                loss, metrics, grads = _value_and_grad(transformer.loss_fn, params, bat, cfg)
                 nll, aux = metrics["nll"], metrics["aux"]
             master, new_state = adamw_update(grads, opt_state, opt_cfg)
             out_metrics = {"loss": loss, "nll": nll, "aux": aux, "grad_norm": global_norm(grads)}
@@ -142,6 +142,96 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
     )
 
 
+# the most candidates a retrieval cell scores in one forward: serve_bulk's
+# batch (262,144 rows).  AutoInt's activations at 1,000,000 candidates are
+# about 70 GB in float32.
+RETRIEVAL_CHUNK = 262_144
+
+
+def _recsys_batch_shapes(cfg: recsys.RecsysConfig, cell: ShapeCell) -> dict[str, Any]:
+    b = cell.kwargs["batch"]
+    if cfg.model == "mind":
+        out = {"hist_ids": _meta((b, cfg.hist_len), torch.int32), "target_id": _meta((b,), torch.int32)}
+    else:
+        out = {"sparse_ids": _meta((b, cfg.n_sparse), torch.int32)}
+        if cfg.n_dense:
+            out["dense"] = _meta((b, cfg.n_dense), torch.float32)
+    if cell.step == "train" and cfg.model != "mind":
+        out["label"] = _meta((b,), torch.float32)
+    return out
+
+
+def _recsys_flops(cfg: recsys.RecsysConfig, batch: int) -> float:
+    d = cfg.embed_dim
+    if cfg.model == "fm":
+        per = 4.0 * cfg.n_sparse * d
+    elif cfg.model == "autoint":
+        da, h, f = cfg.d_attn, cfg.n_attn_heads, cfg.n_sparse
+        per = cfg.n_attn_layers * (6.0 * f * d * h * da + 4.0 * f * f * h * da)
+    elif cfg.model == "dcn_v2":
+        x0 = cfg.x0_dim
+        per = cfg.n_cross_layers * 2.0 * x0 * x0
+        fan = x0
+        for m in cfg.mlp_dims:
+            per += 2.0 * fan * m
+            fan = m
+    else:  # mind
+        per = cfg.capsule_iters * 6.0 * cfg.hist_len * cfg.n_interests * d + 2.0 * cfg.hist_len * d * d
+    return per * batch
+
+
+def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+    cfg: recsys.RecsysConfig = spec.cfg_for(cell.name)
+    p_shapes = recsys.recsys_param_shapes(cfg)
+    b_shapes = _recsys_batch_shapes(cfg, cell)
+
+    if cell.step == "train":
+        opt_cfg = AdamWConfig(lr=1e-3, weight_decay=1e-5)
+        o_shapes = adamw_init(p_shapes)
+
+        def train_fn(params, opt_state, bat):
+            loss, _, grads = _value_and_grad(recsys.recsys_loss, params, bat, cfg)
+            master, new_state = adamw_update(grads, opt_state, opt_cfg)
+            return cast_like(master, params), new_state, {"loss": loss}
+
+        bsz = cell.kwargs["batch"]
+        return Cell(
+            arch_id=spec.arch_id, shape_name=cell.name, step="train",
+            fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
+            model_flops_fn=lambda: 3.0 * _recsys_flops(cfg, bsz),
+        )
+
+    if cell.step == "score":
+        @torch.no_grad()
+        def score_fn(params, bat):
+            return recsys.recsys_score(params, bat, cfg)
+
+        bsz = cell.kwargs["batch"]
+        return Cell(
+            arch_id=spec.arch_id, shape_name=cell.name, step="score",
+            fn=score_fn, abstract_args=(p_shapes, b_shapes),
+            model_flops_fn=lambda: _recsys_flops(cfg, bsz),
+        )
+
+    # retrieval: one context vs n_candidates
+    c = cell.kwargs["n_candidates"]
+    b_shapes["cand_ids"] = _meta((c,), torch.int32)
+
+    @torch.no_grad()
+    def retrieval_fn(params, bat):
+        # one card holds what the reference spreads over its data ranks:
+        # each chunk of candidates is one batched forward (every
+        # candidate's score depends on it and the context alone)
+        chunks = bat["cand_ids"].split(RETRIEVAL_CHUNK)
+        return torch.cat([recsys.recsys_retrieval_score(params, {**bat, "cand_ids": ch}, cfg) for ch in chunks])
+
+    return Cell(
+        arch_id=spec.arch_id, shape_name=cell.name, step="retrieval",
+        fn=retrieval_fn, abstract_args=(p_shapes, b_shapes),
+        model_flops_fn=lambda: _recsys_flops(cfg, c),
+    )
+
+
 def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
     cfg = spec.model_cfg
     if cell.step == "serve":
@@ -188,13 +278,15 @@ def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
     )
 
 
-_NOT_PORTED = {"gnn": "GNN models", "recsys": "recsys models"}
+_NOT_PORTED = {"gnn": "GNN models"}
 
 
 def build_cell(spec: ArchSpec, shape_name: str, mesh: MeshLayout) -> Cell:
     cell = spec.shapes[shape_name]
     if spec.family == "lm":
         return _lm_cell(spec, cell, mesh)
+    if spec.family == "recsys":
+        return _recsys_cell(spec, cell, mesh)
     if spec.family == "search":
         return _search_cell(spec, cell, mesh)
     if spec.family in _NOT_PORTED:

@@ -3,17 +3,20 @@
 The reference's ``repro/launch/train.py`` on one device: the same flags,
 defaults and printed lines, plus ``--device`` (default ``cuda``).  It runs
 real steps of the cell the dry-run runs (``launch/steps.build_cell``: one
-code path), on deterministic ``LMTokenPipeline`` batches, with asynchronous
-checkpoints every ``--ckpt-every`` steps.  Without ``--full-scale`` it trains
-the reduced config (CPU-sized) on the cell's batch; with it, the full config
-on one data rank's share of the cell's global batch (``global_batch //
-data``, ``data`` 16 on the single-pod layout), at the full sequence length.
+code path), on deterministic pipeline batches, with asynchronous checkpoints
+every ``--ckpt-every`` steps.  Without ``--full-scale`` it trains the
+reduced config (CPU-sized) on the cell's batch; with it, the full config.
+An LM (dense or MoE) trains on one data rank's share of the cell's global
+batch (``global_batch // data``, ``data`` 16 on the single-pod layout), at
+the full sequence length; a recsys model on the whole batch, whose first
+batch is drawn as the reference draws it (``dryrun.recsys_batch``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 6 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 6 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --steps 6 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --full-scale --steps 6
 
-Only the lm family runs: the registry refuses the MoE, GNN and recsys
-architectures with ``NotImplementedError``.
+The GNN architecture is refused by the registry with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..configs import get_reduced_spec, get_spec
 from ..data.pipeline import LMTokenPipeline
-from ..models import transformer
+from ..models import recsys, transformer
 from ..optim import adamw_init
-from .dryrun import data_share
+from .dryrun import data_share, recsys_batch
 from .mesh import make_production_mesh, make_smoke_mesh
 from .steps import build_cell
 
@@ -56,20 +59,26 @@ def main(argv: list[str] | None = None) -> None:
     mesh = make_production_mesh() if args.full_scale else make_smoke_mesh()
     cell = build_cell(spec, shape, mesh)
     kw = spec.shapes[shape].kwargs
-    batch_rows, _ = data_share(kw["global_batch"], mesh)
     device = torch.device(args.device)
 
     cfg = spec.cfg_for(shape)
-    params = transformer.init_params(0, cfg, device=device)
+    if spec.family == "lm":
+        params = transformer.init_params(0, cfg, device=device)
+        pipe = LMTokenPipeline(cfg.vocab, kw["seq_len"], data_share(kw["global_batch"], mesh)[0], seed=0)
+        batch = pipe.next_batch()
+    else:
+        params = recsys.init_recsys_params(0, cfg, device=device)
+        batch, pipe = recsys_batch(cfg, kw["batch"])
     opt_state = adamw_init(params)
-    pipe = LMTokenPipeline(cfg.vocab, kw["seq_len"], batch_rows, seed=0)
-    batch = _to_device(pipe.next_batch(), device)
+    batch = _to_device(batch, device)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     t0 = time.time()
     for step in range(args.steps):
         if step > 0:
-            batch = _to_device(pipe.next_batch(), device)
+            nb = pipe.next_batch()
+            # a pipeline batch with the first batch's keys replaces it
+            batch = _to_device(nb, device) if set(nb) == set(batch) else batch
         params, opt_state, metrics = cell.fn(params, opt_state, batch)
         if step % 5 == 0 or step == args.steps - 1:
             # in sorted key order, as the reference's jitted step returns them

@@ -1,20 +1,24 @@
-"""Decoder-only transformer family (dense / GQA / sliding-window).
+"""Decoder-only transformer family (dense / GQA / MoE / sliding-window).
 
 The reference's ``repro/models/transformer.py`` as torch ops: one code path
-for the dense LM architectures, parameters stacked along a leading layer axis
+for the five LM architectures, parameters stacked along a leading layer axis
 (the reference's scanned layout, so checkpoint leaves match in order and
 shape), a per-layer (or per-``remat_block``-layers) activation checkpoint
 through ``torch.utils.checkpoint``, chunked online-softmax attention
 (``layers.flash_attention``) and a full or sliding-window KV cache.
 
 Step functions (run by the dry-run and the trainer):
-  * ``loss_fn``       — next-token cross-entropy, for train_4k
+  * ``loss_fn``       — next-token cross-entropy (+ MoE aux), for train_4k
   * ``prefill_step``  — full-sequence forward, emits the KV cache + last logits
   * ``decode_step``   — one token against a KV cache, for decode_32k/long_500k
 
-MoE layers (``moe`` set in the config) are not ported: building or running
-such a model raises ``NotImplementedError``.  ``fsdp`` shards parameters over
-a device mesh in the reference; on one card it changes nothing.
+A config with ``moe`` set gives every layer an MoE FFN (``models/moe.py``) in
+place of the dense one; with ``moe_interleave`` 2 as well, the stack is one
+of blocks, each a dense sublayer then an MoE sublayer (``{"dense_sub",
+"moe_sub"}``, stacked over ``n_layers // moe_interleave`` blocks), and cache
+layer ``2i`` is block i's dense sublayer, ``2i + 1`` its MoE sublayer.
+``fsdp`` shards parameters over a device mesh in the reference; on one card
+it changes nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_flatten, tree_unflatten
 from .layers import _dot_f32, decode_attention, dense_init, flash_attention, rms_norm, rope
+from .moe import MoEConfig, moe_ffn, moe_layout
 
 __all__ = [
     "TransformerConfig",
@@ -51,7 +56,7 @@ class TransformerConfig:
     n_kv_heads: int
     d_ff: int
     vocab: int
-    moe: Any = None  # the reference's MoEConfig; not ported
+    moe: MoEConfig | None = None
     moe_interleave: int = 1  # 2 = alternate dense/MoE FFNs (Llama-4 style)
     rope_theta: float = 10000.0
     sliding_window: int | None = None
@@ -111,35 +116,51 @@ class TransformerConfig:
         return total + 2 * self.vocab * d + d
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers: not ported to repro_torch")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
+def _layer_layout(cfg: TransformerConfig, n: int, use_moe: bool) -> dict[str, Any]:
+    """One layer's parameters, stacked ``n`` deep: ``("ones", shape)`` or
+    ``("dense", shape, scale[, dtype])`` entries."""
+    d, dh = cfg.d_model, cfg.d_head
+    p: dict[str, Any] = {
+        "ln1": ("ones", (n, d)),
+        "ln2": ("ones", (n, d)),
+        "wq": ("dense", (n, d, cfg.n_heads * dh), None),
+        "wk": ("dense", (n, d, cfg.n_kv_heads * dh), None),
+        "wv": ("dense", (n, d, cfg.n_kv_heads * dh), None),
+        "wo": ("dense", (n, cfg.n_heads * dh, d), None),
+    }
+    if use_moe:
+        p["moe"] = moe_layout(d, cfg.moe, (n,))
+    else:
+        p["ffn"] = {
+            "w_gate": ("dense", (n, d, cfg.d_ff), None),
+            "w_up": ("dense", (n, d, cfg.d_ff), None),
+            "w_down": ("dense", (n, cfg.d_ff, d), None),
+        }
+    return p
+
+
+def _interleaved(cfg: TransformerConfig) -> bool:
+    return cfg.moe is not None and cfg.moe_interleave > 1
+
+
 def _layout(cfg: TransformerConfig) -> dict[str, Any]:
-    """Every parameter's shape and init: ``("ones", shape)`` or
-    ``("dense", shape, scale)``; layer leaves carry the leading layer axis."""
-    d, dh, n = cfg.d_model, cfg.d_head, cfg.n_layers
+    """Every parameter's shape and init; layer leaves carry the leading
+    layer (or block) axis."""
+    d = cfg.d_model
+    if _interleaved(cfg):
+        # blocks of (dense layer, moe layer)
+        n_blocks = cfg.n_layers // cfg.moe_interleave
+        layers = {"dense_sub": _layer_layout(cfg, n_blocks, False), "moe_sub": _layer_layout(cfg, n_blocks, True)}
+    else:
+        layers = _layer_layout(cfg, cfg.n_layers, cfg.moe is not None)
     return {
         "embed": ("dense", (cfg.vocab, d), 0.02),
-        "layers": {
-            "ln1": ("ones", (n, d)),
-            "ln2": ("ones", (n, d)),
-            "wq": ("dense", (n, d, cfg.n_heads * dh), None),
-            "wk": ("dense", (n, d, cfg.n_kv_heads * dh), None),
-            "wv": ("dense", (n, d, cfg.n_kv_heads * dh), None),
-            "wo": ("dense", (n, cfg.n_heads * dh, d), None),
-            "ffn": {
-                "w_gate": ("dense", (n, d, cfg.d_ff), None),
-                "w_up": ("dense", (n, d, cfg.d_ff), None),
-                "w_down": ("dense", (n, cfg.d_ff, d), None),
-            },
-        },
+        "layers": layers,
         "final_norm": ("ones", (d,)),
         "unembed": ("dense", (d, cfg.vocab), None),
     }
@@ -152,18 +173,17 @@ def _build(layout: dict[str, Any], make) -> dict[str, Any]:
 def init_params(key: int | torch.Generator, cfg: TransformerConfig, *, device="cuda") -> dict[str, Any]:
     """Random parameters from ``key`` (a seed, or a ``torch.Generator`` on
     ``device``): embeddings N(0, 0.02), matrices N(0, fan_in ** -0.5), norms
-    ones, in ``cfg.dtype``.  The reference draws from ``jax.random``, which
-    torch cannot reproduce: ``models/convert.py`` carries its parameters
-    across."""
-    _dense_only(cfg)
+    ones, in ``cfg.dtype`` (MoE routers in float32).  The reference draws
+    from ``jax.random``, which torch cannot reproduce: ``models/convert.py``
+    carries its parameters across."""
     dev = torch.device(device)
     gen = key if isinstance(key, torch.Generator) else torch.Generator(device=dev).manual_seed(key)
     dt = cfg.torch_dtype
 
-    def make(kind, shape, scale=None):
+    def make(kind, shape, scale=None, dtype=None):
         if kind == "ones":
             return torch.ones(shape, dtype=dt, device=dev)
-        return dense_init(gen, shape, dt, scale=scale)
+        return dense_init(gen, shape, dtype or dt, scale=scale)
 
     return _build(_layout(cfg), make)
 
@@ -171,7 +191,8 @@ def init_params(key: int | torch.Generator, cfg: TransformerConfig, *, device="c
 def param_shapes(cfg: TransformerConfig) -> dict[str, Any]:
     """``init_params``'s tree as ``device="meta"`` tensors (no allocation)."""
     dt = cfg.torch_dtype
-    return _build(_layout(cfg), lambda kind, shape, scale=None: torch.empty(shape, dtype=dt, device="meta"))
+    return _build(_layout(cfg), lambda kind, shape, scale=None, dtype=None: torch.empty(
+        shape, dtype=dtype or dt, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +210,14 @@ def _qkv(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
-def _ffn(x: torch.Tensor, layer) -> torch.Tensor:
+def _ffn(x: torch.Tensor, layer, cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN and its MoE aux loss (0 for a dense FFN)."""
+    if "moe" in layer:
+        return moe_ffn(x, layer["moe"], cfg.moe)
     f = layer["ffn"]
     g = _dot_f32(x, f["w_gate"])
     u = _dot_f32(x, f["w_up"])
-    return (F.silu(g) * u).to(x.dtype) @ f["w_down"]
+    return (F.silu(g) * u).to(x.dtype) @ f["w_down"], torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_fwd(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor):
@@ -208,7 +232,14 @@ def _layer_fwd(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.
     ).reshape(b, s, cfg.n_heads * cfg.d_head)
     h = h + (attn @ layer["wo"]).to(h.dtype)
     x = rms_norm(h, layer["ln2"])
-    return h + _ffn(x, layer), (k, v)
+    y, aux = _ffn(x, layer, cfg)
+    return h + y, (k, v), aux
+
+
+def _sublayers(layer, cfg: TransformerConfig) -> list:
+    """One entry of the stack as the layers it runs in order: a block's
+    dense then MoE sublayer, or the layer itself."""
+    return [layer["dense_sub"], layer["moe_sub"]] if _interleaved(cfg) else [layer]
 
 
 def _unstack(layers: dict[str, Any]) -> list[dict[str, Any]]:
@@ -221,7 +252,6 @@ def _unstack(layers: dict[str, Any]) -> list[dict[str, Any]]:
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, collect_cache: bool = False):
     """tokens [B, S] -> (hidden [B, S, D], aux, optional cache [L,B,S,Hkv,Dh]x2)."""
-    _dense_only(cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     h = F.embedding(tokens, params["embed"])
@@ -232,28 +262,34 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, collect_cache:
         rb = 1
 
     def block(hh, *block_layers):
-        kvs = []
+        kvs, aux = [], torch.zeros((), dtype=torch.float32, device=hh.device)
         for layer in block_layers:
-            hh, kv = _layer_fwd(hh, layer, cfg, positions)
-            kvs.append(kv)
-        return hh, kvs
+            a = 0.0
+            for sub in _sublayers(layer, cfg):
+                hh, kv, a_sub = _layer_fwd(hh, sub, cfg, positions)
+                kvs.append(kv)
+                a = a + a_sub
+            aux = aux + a
+        return hh, kvs, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
     kvs = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, n_stack, rb):
         group = layers[i:i + rb]
         if remat:
             # sqrt-remat with rb > 1: the backward keeps one input per block
-            h, kv = checkpoint(block, h, *group, use_reentrant=False)
+            h, kv, a = checkpoint(block, h, *group, use_reentrant=False)
         else:
-            h, kv = block(h, *group)
+            h, kv, a = block(h, *group)
+        aux = aux + a
         if collect_cache:
             kvs.extend(kv)
     cache = None
     if collect_cache:
         cache = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
     h = rms_norm(h, params["final_norm"])
-    return h, torch.zeros((), dtype=torch.float32, device=h.device), cache
+    return h, aux, cache
 
 
 def loss_fn(params, batch: dict[str, torch.Tensor], cfg: TransformerConfig) -> tuple[torch.Tensor, dict]:
@@ -302,7 +338,7 @@ def _sublayer_decode(hh, layer, kc, vc, cfg: TransformerConfig, positions, cache
     attn = attn.reshape(b, 1, cfg.n_heads * cfg.d_head)
     hh = hh + (attn @ layer["wo"]).to(hh.dtype)
     x = rms_norm(hh, layer["ln2"])
-    return hh + _ffn(x, layer)
+    return hh + _ffn(x, layer, cfg)[0]
 
 
 def decode_step(
@@ -314,14 +350,14 @@ def decode_step(
 ):
     """One new token with a KV cache of length ``cache_len``; returns (logits
     [B, V], the new cache).  The input cache is not written to."""
-    _dense_only(cfg)
     n = int(cache_len)
     b = tokens.shape[0]
     positions = torch.full((b, 1), n, dtype=torch.int32, device=tokens.device)
     h = F.embedding(tokens, params["embed"])  # [B, 1, D]
     k_new, v_new = cache["k"].clone(), cache["v"].clone()
-    for i, layer in enumerate(_unstack(params["layers"])):
-        h = _sublayer_decode(h, layer, k_new[i], v_new[i], cfg, positions, n)
+    subs = [sub for layer in _unstack(params["layers"]) for sub in _sublayers(layer, cfg)]
+    for i, sub in enumerate(subs):
+        h = _sublayer_decode(h, sub, k_new[i], v_new[i], cfg, positions, n)
     h = rms_norm(h, params["final_norm"])
     logits = _dot_f32(h[:, -1], params["unembed"])
     return logits, {"k": k_new, "v": v_new}

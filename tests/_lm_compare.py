@@ -1,5 +1,6 @@
-"""Shared helpers of the dense-LM port tests: the same configs, weights and
-inputs in both packages, and the tolerances the tests hold the port to.
+"""Shared helpers of the LM port tests (dense and MoE): the same configs,
+weights and inputs in both packages, and the tolerances the tests hold the
+port to.
 
 Tolerances (float32 model / bfloat16 model):
   * forward (logits, loss): rtol 1e-4, atol 1e-5 / relative error 2e-2;
@@ -24,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import get_reduced_spec as ref_get_reduced_spec
+from repro_torch.models import moe as port_moe
 from repro_torch.models import transformer as port_tf
 from repro_torch.models.convert import from_reference
 
@@ -32,6 +34,7 @@ from repro_torch.models.convert import from_reference
 torch.set_num_threads(2)
 
 DENSE_ARCHS = ["tinyllama-1.1b", "stablelm-3b", "mistral-large-123b"]
+MOE_ARCHS = ["olmoe-1b-7b", "llama4-maverick-400b-a17b"]
 DTYPES = ["float32", "bfloat16"]
 FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-6)
@@ -42,15 +45,22 @@ def ref_cfg(arch: str, dtype: str, **changes):
     return dataclasses.replace(ref_get_reduced_spec(arch).model_cfg, dtype=dtype, **changes)
 
 
+def port_moe_cfg(rmoe) -> port_moe.MoEConfig:
+    return port_moe.MoEConfig(**dataclasses.asdict(rmoe))
+
+
 def port_cfg(rcfg) -> port_tf.TransformerConfig:
     """The port's config with every field of the reference's ``rcfg``."""
-    return port_tf.TransformerConfig(**{f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)})
+    fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)}
+    if fields["moe"] is not None:
+        fields["moe"] = port_moe_cfg(fields["moe"])
+    return port_tf.TransformerConfig(**fields)
 
 
 def ref_params(rcfg, seed: int = 0):
     from repro.models import transformer as ref_tf
 
-    return ref_tf.init_params(jax.random.key(seed), rcfg)
+    return jax.jit(ref_tf.init_params, static_argnums=1)(jax.random.key(seed), rcfg)
 
 
 def to_port(tree):

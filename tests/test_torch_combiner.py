@@ -210,3 +210,56 @@ def test_golden_engine_fragments(query, expected):
     for sub in expand_subqueries(query, store.lemmatizer):
         union |= set(_triples(vec.search_subquery(sub)[0]))
     assert sorted(union) == expected
+
+
+# A fault both packages share, pinned: on these inputs ``se24_combiner``
+# misses a fragment that the §10 oracle over its own keys and the fused
+# program both return.  Each case is the input a reference test draws at one
+# of its random seeds (``tests/test_fused.py::
+# test_fused_random_corpus_random_subqueries`` at 3003 and 3936,
+# ``tests/test_arena.py::test_arena_random_corpora_random_subqueries`` at
+# 6670, which draws subqueries of 1-4 lemmas where the other draws 2-4): the
+# subquery of the draw that fails and the fragment the Combiner misses.
+SE24_MISSES = {
+    "test_fused-3003": (3003, 2, 0, (0, 24, 32)),
+    "test_fused-3936": (3936, 2, 2, (7, 24, 32)),
+    "test_arena-6670": (6670, 1, 1, (0, 12, 20)),
+}
+
+
+def _random_corpus_draw(seed: int, min_lemmas: int):
+    """The texts and subqueries those reference tests draw from ``seed``."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(15)]
+    probs = np.array([1 / (i + 1) ** 1.1 for i in range(15)])
+    probs /= probs.sum()
+    texts = [" ".join(rng.choice(vocab, size=60, p=probs)) for _ in range(8)]
+    subs = [tuple(str(x) for x in rng.choice(vocab[:6], size=int(rng.integers(min_lemmas, 5)), replace=True))
+            for _ in range(3)]
+    return texts, subs
+
+
+@pytest.mark.parametrize("case", list(SE24_MISSES))
+def test_se24_combiner_misses_a_fragment_in_both_packages(case):
+    from repro.core.combiner import se24_combiner as ref_se24_combiner
+    from repro.core.keys import Subquery as RefSubquery
+    from repro.search.vectorized import VectorizedEngine as RefVectorizedEngine
+
+    seed, min_lemmas, which, missed = SE24_MISSES[case]
+    texts, subs = _random_corpus_draw(seed, min_lemmas)
+    kw = dict(sw_count=10_000, fu_count=0, max_distance=4)
+    ref_idx = ref_build_indexes(RefDocumentStore.from_texts(texts), **kw)
+    idx = build_indexes(DocumentStore.from_texts(texts), **kw)
+    sub, ref_sub = Subquery(subs[which]), RefSubquery(subs[which])
+    combiner = set(_triples(se24_combiner(sub, idx)[0]))
+    assert combiner == set(_triples(ref_se24_combiner(ref_sub, ref_idx)[0]))
+    assert missed not in combiner
+    keys = select_keys(sub, idx.fl)
+    oracle = set(_triples(oracle_search(sub, keys, {k: idx.key_postings(k.components) for k in keys},
+                                        idx.max_distance)))
+    ref_keys = ref_select_keys(ref_sub, ref_idx.fl)
+    assert oracle == set(_triples(ref_oracle_search(ref_sub, ref_keys, {k: ref_idx.key_postings(k.components)
+                                                                      for k in ref_keys}, ref_idx.max_distance)))
+    fused = set(_triples(VectorizedEngine(idx, device="cpu").search_query_batch([[sub]])[0].per_query[0]))
+    ref_fused = set(_triples(RefVectorizedEngine(ref_idx).search_query_batch([[ref_sub]])[0].per_query[0]))
+    assert fused == ref_fused == oracle == combiner | {missed}

@@ -2,7 +2,8 @@
 against the reference's, on the CPU: the same cells, shapes, dtypes, shard
 counts and useful-work models for ``paper_search`` and the dense LMs (whose
 cells run one data rank's share); ``run_cell`` and ``main`` on the reduced
-spec; the architectures and families not ported refuse, naming their item.
+spec; the MoE and recsys architectures build and run; the GNN architecture
+and family refuse, naming their item.
 """
 
 import dataclasses
@@ -53,7 +54,7 @@ def _assert_same_args(port_args, ref_args):
 
 def test_configs_are_the_reference_configs():
     assert ARCH_IDS == REF_ARCH_IDS and ASSIGNED_ARCH_IDS == REF_ASSIGNED_ARCH_IDS
-    assert PORTED_ARCH_IDS == ("stablelm-3b", "mistral-large-123b", "tinyllama-1.1b", "paper_search")
+    assert PORTED_ARCH_IDS == tuple(a for a in REF_ARCH_IDS if a != "gat-cora")
     for arch in PORTED_ARCH_IDS:
         for get, ref_get in ((get_spec, ref_get_spec), (get_reduced_spec, ref_get_reduced_spec)):
             spec, ref = get(arch), ref_get(arch)
@@ -159,16 +160,20 @@ def test_main_exits_one_when_a_cell_fails(tmp_path, monkeypatch):
     assert rec["status"] == "error" and "broken step" in rec["error"]
 
 
-# what each architecture the port does not hold needs; the dense LMs build
-_NEEDS = {"llama4-maverick-400b-a17b": "MoE layers", "olmoe-1b-7b": "MoE layers", "gat-cora": "GNN models",
-          "autoint": "recsys models", "mind": "recsys models", "dcn-v2": "recsys models", "fm": "recsys models"}
+# what each architecture the port does not hold needs; the others build
+_NEEDS = {"gat-cora": "GNN models"}
+_FAMILIES = {"stablelm-3b": "lm", "mistral-large-123b": "lm", "tinyllama-1.1b": "lm",
+             "llama4-maverick-400b-a17b": "lm", "olmoe-1b-7b": "lm", "autoint": "recsys", "mind": "recsys",
+             "dcn-v2": "recsys", "fm": "recsys"}
 
 
 @pytest.mark.parametrize("arch_id", REF_ASSIGNED_ARCH_IDS)
 def test_scaffolding_architectures_refuse(arch_id):
+    """Only the GNN architecture still refuses; every other id resolves to
+    its family, full and reduced."""
     for get in (get_spec, get_reduced_spec):
         if arch_id not in _NEEDS:
-            assert get(arch_id).family == "lm"
+            assert get(arch_id).family == _FAMILIES[arch_id] == ref_get_spec(arch_id).family
             continue
         with pytest.raises(NotImplementedError, match=_NEEDS[arch_id]):
             get(arch_id)
@@ -176,19 +181,22 @@ def test_scaffolding_architectures_refuse(arch_id):
 
 @pytest.mark.parametrize("family", ["lm", "gnn", "recsys"])
 def test_scaffolding_families_refuse_to_build_cells(family):
-    """gnn and recsys cells refuse; an lm cell of a config with MoE layers
-    refuses as it runs."""
-    if family == "lm":
-        spec = get_reduced_spec("tinyllama-1.1b")
-        moe = types.SimpleNamespace(d_ff=32, n_experts=4, n_shared_experts=0, top_k=1)
-        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, moe=moe))
-        with pytest.raises(NotImplementedError, match="MoE layers"):
-            cell = build_cell(spec, "prefill_32k", make_smoke_mesh())
-            cell.fn({}, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    """gnn cells refuse; an lm cell of a config with MoE layers and a recsys
+    cell build and run."""
+    if family == "gnn":
+        spec = dataclasses.replace(get_spec("paper_search"), family=family)
+        with pytest.raises(NotImplementedError, match="GNN models"):
+            build_cell(spec, "serve_online", make_smoke_mesh())
         return
-    spec = dataclasses.replace(get_spec("paper_search"), family=family)
-    with pytest.raises(NotImplementedError, match={"gnn": "GNN models", "recsys": "recsys models"}[family]):
-        build_cell(spec, "serve_online", make_smoke_mesh())
+    arch, shape = ("olmoe-1b-7b", "prefill_32k") if family == "lm" else ("fm", "serve_p99")
+    spec = get_reduced_spec(arch)
+    cell = build_cell(spec, shape, make_smoke_mesh())
+    args = dryrun.cell_inputs(cell, spec.model_cfg, device="cpu")
+    out = cell.fn(*args)
+    if family == "lm":
+        assert spec.model_cfg.moe is not None and out[0].shape == (2, spec.model_cfg.vocab)
+    else:
+        assert out.shape == (spec.shapes[shape].kwargs["batch"],) and bool(torch.isfinite(out).all())
 
 
 def test_unknown_architecture_is_a_key_error():

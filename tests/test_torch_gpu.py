@@ -2,8 +2,8 @@
 at the serving path's shapes, and the port's serving path on the card (the
 host route and the posting arena, over a static index and over a mutated
 incremental service) against the host route on the CPU; the dense LM path
-(attention, prefill and decode, a float32 train step) on the card at reduced
-sizes.
+(attention, prefill and decode, a float32 train step), the MoE FFN and the
+MoE and recsys train steps on the card at reduced sizes.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -499,3 +499,51 @@ def test_float32_train_step_on_card_equals_cpu(cuda):
         card_args = (card_p, card_o, card_args[2])
     for a, b in zip(tree_leaves(card_args[:2]), tree_leaves(cpu_args[:2])):
         assert torch.allclose(a.cpu().float(), b.float(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "sort"])
+@pytest.mark.parametrize("capacity_factor", [0.25, 8.0])
+def test_moe_ffn_on_card_equals_cpu(cuda, dispatch, capacity_factor):
+    """One MoE layer of 16 experts, top 4, float32: the same output, aux and
+    dropped (token, slot) pairs on the card and the CPU, with drops (0.25)
+    and without (8.0)."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    cfg = moe.MoEConfig(n_experts=16, top_k=4, d_ff=64, capacity_factor=capacity_factor, dispatch=dispatch)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe_params(gen, 32, cfg, torch.float32)
+    x = torch.randn((2, 40, 32), generator=gen)
+    card = moe.moe_ffn(x.to(cuda), tree_map(lambda t: t.to(cuda), params), cfg)
+    cpu = moe.moe_ffn(x, params, cfg)
+    assert torch.allclose(card[0].cpu(), cpu[0], rtol=1e-4, atol=1e-5)
+    assert torch.allclose(card[1].cpu(), cpu[1], rtol=1e-4)
+    dropped = moe.dropped_slots(x.to(cuda), tree_map(lambda t: t.to(cuda), params), cfg).cpu()
+    assert torch.equal(dropped, moe.dropped_slots(x, params, cfg)) and bool(dropped.any()) == (capacity_factor < 1)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "fm", "autoint", "dcn-v2", "mind"])
+def test_moe_and_recsys_float32_train_step_on_card_equals_cpu(cuda, arch):
+    """One float32 step of each reduced MoE and recsys train cell on the
+    card and on the CPU: metrics within rtol 1e-4, params within atol 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_leaves, tree_map
+
+    spec = get_reduced_spec(arch)
+    if spec.family == "lm":
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32"))
+    shape = next(n for n, c in spec.shapes.items() if c.step == "train")
+    cell = build_cell(spec, shape, make_smoke_mesh())
+    cpu_args = dryrun.cell_inputs(cell, spec.model_cfg, device="cpu")
+    card_args = tree_map(lambda t: t.to(cuda), cpu_args)
+    cpu_p, _, cpu_m = cell.fn(*cpu_args)
+    card_p, _, card_m = cell.fn(*card_args)
+    for k in cpu_m:
+        assert torch.allclose(card_m[k].cpu(), cpu_m[k], rtol=1e-4, atol=1e-6), k
+    for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
+        assert a.is_cuda and torch.allclose(a.cpu(), b, rtol=0, atol=1e-5)

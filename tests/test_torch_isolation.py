@@ -4,8 +4,10 @@ the host route, the posting arena and a sharded service, runs the scalar
 Combiner, builds, logs, snapshots, mutates and warm-starts an incremental
 sharded service, serves it under a seeded fault schedule, runs the daemon
 behind its TCP transport, bulk-builds with two spawn workers, runs the
-launcher, runs reduced ``paper_search`` dry-run cells and trains the reduced
-tinyllama for two steps through the training launcher."""
+launcher, runs reduced ``paper_search`` dry-run cells, trains the reduced
+tinyllama, olmoe and llama4-maverick (MoE) and fm and mind (recsys) for two
+steps through the training launcher, runs a reduced recsys cell and a MoE
+FFN, and resolves every architecture id but the GNN one."""
 
 import os
 import re
@@ -102,6 +104,24 @@ for shape in ("serve_online", "build_chunk"):
 import repro_torch.models, repro_torch.optim, repro_torch.data
 from repro_torch.launch import train
 train.main(["--arch", "tinyllama-1.1b", "--steps", "2", "--device", "cpu"])
+for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "fm", "mind"):
+    train.main(["--arch", arch, "--steps", "2", "--device", "cpu"])
+from repro_torch.configs import ARCH_IDS, get_spec
+from repro_torch.configs import autoint, dcn_v2, fm, llama4_maverick, mind, olmoe_1b_7b, recsys_common
+from repro_torch.kernels.ref import embedding_bag_ref
+from repro_torch.models import moe, recsys
+for arch in ARCH_IDS:
+    try:
+        get_spec(arch)
+    except NotImplementedError as e:
+        assert arch == "gat-cora" and "GNN models" in str(e), (arch, e)
+rec = dryrun.run_cell("dcn-v2", "retrieval_cand", verbose=False, device="cpu", repeats=1)
+assert rec["status"] == "ok", rec
+import torch
+cfg = moe.MoEConfig(n_experts=4, top_k=2, d_ff=8, dispatch="sort")
+p = moe.init_moe_params(torch.Generator().manual_seed(0), 8, cfg, torch.float32)
+y, aux = moe.moe_ffn(torch.randn(1, 6, 8), p, cfg)
+assert y.shape == (1, 6, 8) and embedding_bag_ref(torch.ones(3, 2), torch.tensor([[0, -1]])).tolist() == [[1.0, 1.0]]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
@@ -120,8 +140,9 @@ def test_serves_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "frontend: served 1 requests" in proc.stdout
     assert proc.stdout.splitlines()[-1].startswith("served ")
+    # tinyllama, olmoe, llama4-maverick, fm, mind: two steps each
     assert [ln.split()[:2] for ln in proc.stdout.splitlines() if ln.startswith(("step ", "done: "))] == [
-        ["step", "0"], ["step", "1"], ["done:", "2"]]
+        ["step", "0"], ["step", "1"], ["done:", "2"]] * 5
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)", re.MULTILINE)
@@ -139,7 +160,9 @@ def test_source_imports_neither_jax_nor_reference():
             "launch/steps.py", "launch/dryrun.py", "tree.py", "models/__init__.py", "models/layers.py",
             "models/transformer.py", "models/convert.py", "optim/__init__.py", "optim/optimizer.py",
             "data/__init__.py", "data/pipeline.py", "configs/lm_common.py", "configs/tinyllama_1_1b.py",
-            "configs/stablelm_3b.py", "configs/mistral_large_123b.py", "launch/train.py"} <= names
+            "configs/stablelm_3b.py", "configs/mistral_large_123b.py", "launch/train.py", "models/moe.py",
+            "models/recsys.py", "configs/olmoe_1b_7b.py", "configs/llama4_maverick.py", "configs/recsys_common.py",
+            "configs/fm.py", "configs/autoint.py", "configs/dcn_v2.py", "configs/mind.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources

@@ -31,6 +31,7 @@ from tests._lm_compare import (
     port_cfg,
     ref_cfg,
     ref_params,
+    rel_err,
     to_port,
     torch_batch,
 )
@@ -187,11 +188,52 @@ def test_param_counts_equal_the_reference(arch):
 
 
 def test_moe_configs_raise():
+    """MoE configs no longer raise: a narrowed olmoe config builds, counts
+    the reference's parameters and runs forward, prefill and decode."""
     moe_cfg = ref_get_spec("olmoe-1b-7b").model_cfg
-    cfg = port_cfg(dataclasses.replace(moe_cfg, n_layers=2, d_model=32, n_heads=4, n_kv_heads=4, vocab=64))
-    assert cfg.param_count() == dataclasses.replace(moe_cfg, n_layers=2, d_model=32, n_heads=4,
-                                                    n_kv_heads=4, vocab=64).param_count()
-    for fn in (lambda: port_tf.init_params(0, cfg, device="cpu"),
-               lambda: port_tf.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)):
-        with pytest.raises(NotImplementedError, match="MoE layers"):
-            fn()
+    small = dataclasses.replace(moe_cfg, n_layers=2, d_model=32, n_heads=4, n_kv_heads=4, vocab=64)
+    cfg = port_cfg(small)
+    assert cfg.param_count() == small.param_count()
+    params = port_tf.init_params(0, cfg, device="cpu")
+    assert sum(t.numel() for t in tree_leaves(params)) == cfg.param_count()
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    h, aux, _ = port_tf.forward(params, tokens, cfg)
+    assert h.shape == (1, 4, 32) and float(aux) > 0
+    with torch.no_grad():
+        logits, cache = port_tf.prefill_step(params, tokens, cfg)
+        step, _ = port_tf.decode_step(params, cache, tokens[:, :1], 3, cfg)
+    assert logits.shape == step.shape == (1, 64) and bool(torch.isfinite(step).all())
+
+
+def test_bfloat16_decode_vs_prefill_gap_is_the_references():
+    """In bfloat16, a decode step after a prefill of S tokens and a prefill
+    of S + 1 tokens round their products apart, and the residual stream
+    carries the difference through the layers.  At tinyllama-1.1b's full
+    depth (22 layers; its head layout and d_head, width cut to d_model 512
+    so the check stays small on the CPU) the reference shows the gap the
+    port shows (1.6e-2 and 1.8e-2 on this input): a property of bfloat16,
+    not of the port.  float32 closes it."""
+    full = ref_get_spec("tinyllama-1.1b").model_cfg
+    s = 64
+    gaps = {}
+    for dtype in ("float32", "bfloat16"):
+        rcfg = dataclasses.replace(full, d_model=512, n_heads=8, n_kv_heads=1, d_ff=1408, dtype=dtype)
+        assert rcfg.n_layers == 22 and rcfg.d_head == full.d_head
+        cfg = port_cfg(rcfg)
+        rp = ref_params(rcfg)
+        toks = np.random.default_rng(0).integers(0, rcfg.vocab, (2, s + 1)).astype(np.int32)
+        prefill = jax.jit(lambda p, t: ref_tf.prefill_step(p, t, rcfg))
+        _, cache = prefill(rp, toks[:, :s])
+        cache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, 1), (0, 0), (0, 0))) for k, v in cache.items()}
+        ref_step, _ = jax.jit(lambda p, c, t: ref_tf.decode_step(p, c, t, jnp.int32(s), rcfg))(rp, cache, toks[:, s:])
+        ref_gap = rel_err(ref_step, prefill(rp, toks)[0])
+        pp = to_port(rp)
+        with torch.no_grad():
+            _, pc = port_tf.prefill_step(pp, torch.from_numpy(toks[:, :s]), cfg)
+            pc = {k: torch.cat([v, torch.zeros_like(v[:, :, :1])], dim=2) for k, v in pc.items()}
+            step, _ = port_tf.decode_step(pp, pc, torch.from_numpy(toks[:, s:]), s, cfg)
+            port_gap = rel_err(step, port_tf.prefill_step(pp, torch.from_numpy(toks), cfg)[0])
+        gaps[dtype] = (ref_gap, port_gap)
+    assert max(gaps["float32"]) < 1e-5
+    ref_gap, port_gap = gaps["bfloat16"]
+    assert 5e-3 < ref_gap < 5e-2 and port_gap < 1.5 * ref_gap, gaps
