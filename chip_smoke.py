@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 12,13  # phases 1, 2, 12 and 13 only
+    python3 chip_smoke.py --phases 14     # phases 1, 2 and 14 only
 
 Phases, each printed with its seconds (``--phases`` selects some of them:
 phases 1 and 2 always run, and phases 3-10 run together or not at all; the
@@ -176,6 +177,28 @@ last line is the same either way):
    x 1,000,000 candidates): wall ms, peak MiB, model TFLOP/s, launch
    counters; and one float32 train step of each at its reduced config,
    card against CPU.
+
+14. the GNN family and the cost counters, in the child process of phases
+   12 and 13, after them: (a) ``run_cell`` on all four ``gat-cora`` cells at
+   full shape, each graph whole (``full_graph_sm`` Cora's 2,708 nodes;
+   ``minibatch_lg`` the 169,984-node sampled budget at 602 features;
+   ``ogb_products`` 2,449,029 nodes, 61,859,140 edges, 100 features, 47
+   classes; ``molecule`` 128 graphs of 30 nodes), each with its wall ms,
+   first-call seconds (the call the cost counter runs), peak MiB, model
+   TFLOP/s, the layer-2 aggregate's edge chunks, the record's
+   ``flops_per_device``, ``hbm_bytes_per_device`` and collective fields,
+   and its launch counters set to 0 before and read after (this path runs
+   none of the three kernels), and a ``torch.profiler`` breakdown of one
+   ``ogb_products`` step; (b) one float32 train step of each reduced
+   cell, card against CPU; (c) the chunked aggregate against the unchunked
+   form at ogbn-products' node count and widths on ``AGG_EDGES`` edges,
+   values and both gradients, with each form's time and peak memory; (d)
+   ``python -m repro_torch.launch.train --arch gat-cora --steps 2`` in a
+   fresh process; (e) for a reduced cell of each family (``paper_search``
+   ``serve_online`` through the cover kernel, tinyllama's ``train_4k``,
+   ``fm``'s ``train_batch``, ``gat-cora``'s ``molecule``), the cost counted
+   on the card equal to the cost counted on the CPU, flops and bytes, op
+   by op where they differ.
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -448,9 +471,21 @@ MOE_PREFILL = 1024  # (c): prefill S tokens, decode one, against a prefill of S 
 # phase 13: the four recsys models at full scale, each cell on its whole
 # global batch (MIND's loss takes its negatives from the whole batch)
 RECSYS_ARCHS = ("fm", "autoint", "dcn-v2", "mind")
-# phases 12 and 13 run in one child process (torch and the port only); beside
-# phase 9's launcher processes its CPU work (the CPU halves of 12d and 13)
-# keeps to a few threads
+# phase 14: the GNN family (gat-cora) at full shape, every cell whole on one
+# card: ogb_products is 2,449,029 nodes and 61,859,140 edges, where the
+# reference shards the nodes over its mesh
+GNN_ARCH = "gat-cora"
+# (c): the chunked aggregate against the unchunked form at ogbn-products'
+# node count, heads and classes, on as many edges as the unchunked form's
+# [E, 8, 47] float32 tensors leave room for (6.0 GB each)
+AGG_EDGES = 4_000_000
+# (e): a reduced cell of each family, its cost counted on the card and on
+# this machine's CPU
+COST_CELLS = (("paper_search", "serve_online"), ("tinyllama-1.1b", "train_4k"), ("fm", "train_batch"),
+              ("gat-cora", "molecule"))
+# phases 12, 13 and 14 run in one child process (torch and the port only);
+# beside phase 9's launcher processes its CPU work (the CPU halves of 12d,
+# 13, 14b and 14e) keeps to a few threads
 CARD_CHILD = """
 import json, sys
 sys.modules["jax"] = None
@@ -462,6 +497,8 @@ print("card child: " + json.dumps(out), flush=True)
 """
 CHILD_THREADS = 4
 SEARCH_PHASES = set(range(3, 11))
+CHILD_PHASES = (12, 13, 14)
+ALL_PHASES = set(range(1, 15))
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -1235,9 +1272,197 @@ def recsys_phase(torch, dev, zero_counts, read_counts) -> dict:
     return summary
 
 
+def gnn_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 14a-d (see the module docstring); returns its summary."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_reduced_spec, get_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import gnn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t14 = time.perf_counter()
+    spec = get_spec(GNN_ARCH)
+    summary: dict = {}
+    # ---- (a) every cell at full shape, whole
+    for shape, meta in spec.shapes.items():
+        cfg, kw = spec.cfg_for(shape), meta.kwargs
+        zero_counts()
+        rec = dryrun.run_cell(GNN_ARCH, shape, False, verbose=False, device=dev)
+        counts = read_counts(f"gnn cells (phase 14a) {GNN_ARCH} {shape}")
+        require(all(v == 0 for v in counts.values()), f"the {shape} cell launched a search kernel: {counts}")
+        require(rec["status"] == "ok", f"{GNN_ARCH} {shape}: {rec.get('error')}\n{rec.get('traceback')}")
+        wall = min(rec["wall_ms"])
+        tflops = rec["model_flops_global"] / wall / 1e9
+        peak = rec["peak_bytes"] / 2**20
+        chunk = gnn.edge_chunk(kw["n_edges"], cfg.n_heads, cfg.n_classes, dev)
+        print(f"cell {GNN_ARCH} {shape}: whole graph, {kw['n_nodes']:,} nodes, {kw['n_edges']:,} edges, "
+              f"{cfg.d_feat} features, {cfg.n_classes} classes, task {cfg.task}, {cfg.param_count():,} params; "
+              f"layer-2 aggregate in {-(-kw['n_edges'] // chunk)} chunk(s) of {chunk:,} edges; wall "
+              f"{[round(x, 3) for x in rec['wall_ms']]} ms (first call, counted, {rec['first_call_s']:.2f} s; "
+              f"inputs {rec['inputs_s']:.2f} s), peak {peak:.1f} MiB, {tflops:.4f} model TFLOP/s; "
+              f"flops/dev {rec['flops_per_device']:.4e}, hbm/dev {rec['hbm_bytes_per_device']:.4e} B, "
+              f"coll/dev {rec['collective_total_per_device']:.4e} B {rec['collective_bytes_per_device']}; "
+              f"{rec['result']}")
+        summary[shape] = {"wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"], "inputs_s": rec["inputs_s"],
+                          "peak_mib": peak, "model_tflops": tflops, "chunk": chunk,
+                          "flops_per_device": rec["flops_per_device"],
+                          "hbm_bytes_per_device": rec["hbm_bytes_per_device"],
+                          "collective_total_per_device": rec["collective_total_per_device"],
+                          "result": rec["result"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one ogb_products step under the profiler: device busy share, top kernels
+    cell = build_cell(spec, "ogb_products", make_production_mesh())
+    args = dryrun.cell_inputs(cell, spec.cfg_for("ogb_products"), device=dev)
+    cell.fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_step = time.perf_counter()
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_step) * 1e3
+    del out, args
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    print(f"profiled ogb_products step: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev_events)} kernel launches")
+    for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.1f} ms x{e.count:<6d} {e.key[:100]}")
+    summary["ogb_products_profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": [
+        (e.key[:100], e.self_device_time_total / 1e3, e.count)
+        for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]]}
+    del prof, dev_events
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = phase("gnn dry-run cells at full shape, a profiled ogb_products step (14a)", t14)
+
+    # ---- (b) a float32 train step of each reduced cell, card vs this CPU
+    rspec = get_reduced_spec(GNN_ARCH)
+    for shape in rspec.shapes:
+        cell = build_cell(rspec, shape, make_smoke_mesh())
+        cpu_args = dryrun.cell_inputs(cell, rspec.cfg_for(shape), device="cpu")
+        card_args = tree_map(lambda t: t.to(dev), cpu_args)
+        card_p, _, card_m = cell.fn(*card_args)
+        cpu_p, _, cpu_m = cell.fn(*cpu_args)
+        m_err = abs(float(card_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+        p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+        require(m_err < 1e-4 and p_err < 1e-5 and float(card_m["acc"]) == float(cpu_m["acc"]),
+                f"gat-cora {shape} float32 train step card vs cpu: loss {m_err:.3e}, params max abs {p_err:.3e}, "
+                f"acc {float(card_m['acc'])} vs {float(cpu_m['acc'])}")
+        print(f"  {GNN_ARCH} {shape} float32 train step at the reduced config: card == cpu (loss relative "
+              f"{m_err:.2e} < 1e-4, acc equal, params max abs {p_err:.2e} < 1e-5)")
+        summary[f"{shape}_float32_step_card_vs_cpu"] = {"loss_rel": m_err, "params_abs": p_err}
+    t14 = phase("float32 gnn train steps card vs cpu (14b)", t14)
+
+    # ---- (c) the chunked aggregate against the unchunked form
+    big = spec.shapes["ogb_products"].kwargs
+    cfg = spec.cfg_for("ogb_products")
+    n, e, nh, d = big["n_nodes"], AGG_EDGES, cfg.n_heads, cfg.n_classes
+    gen = torch.Generator(device=dev).manual_seed(14)
+    src = torch.randint(0, n, (e,), generator=gen, device=dev)
+    dst = torch.randint(0, n, (e,), generator=gen, device=dev)
+    ex = torch.rand((e, nh), generator=gen, device=dev).requires_grad_(True)
+    h = torch.randn((n, nh, d), generator=gen, device=dev).requires_grad_(True)
+    g_out = torch.randn((n, nh, d), generator=gen, device=dev)
+    chunk = gnn.edge_chunk(e, nh, d, dev)
+    runs = {}
+    for label, fn in (("chunked", lambda: gnn.aggregate(ex, h, src, dst)),
+                      ("unchunked", lambda: gnn.aggregate_plain(ex, h, src, dst))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        grads = torch.autograd.grad(out, (ex, h), g_out)
+        ev[2].record()
+        ev[2].synchronize()
+        runs[label] = (out.detach(), grads, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                       (torch.cuda.max_memory_allocated() - base) / 2**20)
+        del out, grads
+    (got, g_got, *t_c), (want, g_want, *t_u) = runs["chunked"], runs["unchunked"]
+    errs = [float((a - b).abs().max()) for a, b in ((got, want), *zip(g_got, g_want))]
+    ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5) and all(
+        torch.allclose(a, b, rtol=1e-5, atol=1e-5) for a, b in zip(g_got, g_want))
+    require(ok, f"the chunked aggregate != the unchunked form: max abs (msg, d ex, d h) {errs}")
+    print(f"aggregate at ogbn-products' nodes and widths ({n:,} nodes, {e:,} edges, {nh} heads x {d}): chunked "
+          f"({-(-e // chunk)} chunks of {chunk:,} edges) == unchunked within rtol 1e-5 / atol 1e-5 (max abs msg, "
+          f"d ex, d h: {[f'{x:.2e}' for x in errs]}); forward + backward ms, peak MiB: chunked {t_c[0]:.3f} + "
+          f"{t_c[1]:.3f}, {t_c[2]:.1f}; unchunked {t_u[0]:.3f} + {t_u[1]:.3f}, {t_u[2]:.1f}")
+    summary["aggregate_check"] = {"edges": e, "chunk": chunk, "max_abs": errs, "chunked_ms": t_c[:2],
+                                  "chunked_peak_mib": t_c[2], "unchunked_ms": t_u[:2], "unchunked_peak_mib": t_u[2]}
+    del runs, got, want, g_got, g_want, ex, h, g_out, src, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = phase("chunked aggregate vs the unchunked form (14c)", t14)
+
+    # ---- (d) the trainer CLI in a fresh process
+    t_cli = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RUN_MODULE, "repro_torch.launch.train", "--arch", GNN_ARCH,
+                           "--steps", "2", "--device", "cuda"],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    require(proc.returncode == 0, f"the gat-cora trainer exited {proc.returncode}: {proc.stderr[-3000:]}")
+    steps = [dict(kv.split("=") for kv in ln.split()[2:]) for ln in lines if ln.startswith("step ")]
+    require([int(ln.split()[1]) for ln in lines if ln.startswith("step ")] == [0, 1]
+            and lines[-1].startswith("done: 2 steps")
+            and all(math.isfinite(float(st[k])) for st in steps for k in ("loss", "acc")),
+            f"the gat-cora trainer printed {lines}")
+    print(f"python -m repro_torch.launch.train --arch {GNN_ARCH} --steps 2 (fresh process, "
+          f"{time.perf_counter() - t_cli:.1f} s): " + " | ".join(lines))
+    summary["cli"] = lines
+    phase("the gat-cora trainer CLI (14d)", t14)
+    return summary
+
+
+def cost_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 14e (see the module docstring); returns its summary."""
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost_analysis import CostCounter
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_map
+
+    t14 = time.perf_counter()
+    summary: dict = {}
+    for arch, shape in COST_CELLS:
+        spec = get_reduced_spec(arch)
+        cell = build_cell(spec, shape, make_smoke_mesh())
+        cpu_args = dryrun.cell_inputs(cell, spec.cfg_for(shape), device="cpu")
+        card_args = tree_map(lambda t: t.to(dev), cpu_args)
+        on_cpu, on_card = CostCounter(), CostCounter()
+        with on_cpu:
+            cell.fn(*cpu_args)
+        zero_counts()
+        with on_card:
+            cell.fn(*card_args)
+        torch.cuda.synchronize()
+        counts = read_counts(f"cost counter card vs cpu (phase 14e) {arch} {shape}")
+        a, b = on_card.cost, on_cpu.cost
+        if (a.flops, a.hbm_bytes) != (b.flops, b.hbm_bytes):
+            diff = {op: (on_card.by_op.get(op), on_cpu.by_op.get(op))
+                    for op in sorted(set(on_card.by_op) | set(on_cpu.by_op))
+                    if on_card.by_op.get(op) != on_cpu.by_op.get(op)}
+            require(False, f"{arch} {shape}: the card counts flops {a.flops:.6e}, bytes {a.hbm_bytes:.6e}; the cpu "
+                           f"{b.flops:.6e}, {b.hbm_bytes:.6e}; ops apart (card, cpu): {json.dumps(diff)[:3000]}")
+        print(f"cost of the reduced {arch} {shape} cell: card == cpu, flops {a.flops:.6e}, bytes "
+              f"{a.hbm_bytes:.6e}, collectives {a.collectives} ({len(on_card.by_op)} op kinds; kernel launches "
+              f"{counts})")
+        summary[f"{arch} {shape}"] = {"flops": a.flops, "hbm_bytes": a.hbm_bytes, "ops": len(on_card.by_op)}
+    phase("cost counted on the card == on the cpu, one reduced cell a family (14e)", t14)
+    return summary
+
+
 def new_families(phases: list[int], threads: int) -> dict:
-    """Phases 12 and 13, as selected, in this process (the card child of a
-    whole run): their summaries and their launch counts by path."""
+    """Phases 12, 13 and 14, as selected, in this process (the card child of
+    a whole run): their summaries and their launch counts by path."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -1265,33 +1490,36 @@ def new_families(phases: list[int], threads: int) -> dict:
         out["moe"] = moe_phase(torch, dev, zero_counts, read_counts)
     if 13 in phases:
         out["recsys"] = recsys_phase(torch, dev, zero_counts, read_counts)
+    if 14 in phases:
+        out["gnn"] = gnn_phase(torch, dev, zero_counts, read_counts)
+        out["cost"] = cost_phase(torch, dev, zero_counts, read_counts)
     out["launches_by_path"] = path_launches
     return out
 
 
 def card_child_start(procs: list, phases: list[int], threads: int):
-    """Phases 12 and 13 in a fresh process (jax and the reference package
-    blocked)."""
+    """Phases 12, 13 and 14 in a fresh process (jax and the reference
+    package blocked)."""
     # expandable segments: the train_4k cell's state is about 71 GB
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     proc = subprocess.Popen([sys.executable, "-c", CARD_CHILD, str(ROOT), ",".join(map(str, phases)), str(threads)],
                             cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     procs.append(proc)
-    return proc, time.perf_counter()
+    return proc, time.perf_counter(), phases
 
 
 def card_child_finish(child) -> dict:
     """Wait for the child of ``card_child_start``, print its lines and
     return what it reported."""
-    proc, t_start = child
+    proc, t_start, phases = child
     out, err = proc.communicate(timeout=1000)
     lines = out.splitlines()
     ok = proc.returncode == 0 and lines and lines[-1].startswith("card child: ")
     for line in lines[:-1] if ok else lines:
         print(line)
-    require(ok, f"phases 12-13 exited {proc.returncode}: {err[-4000:]}")
-    print(f"phases 12-13 process: {time.perf_counter() - t_start:.1f} s")
+    require(ok, f"phases {phases} exited {proc.returncode}: {err[-4000:]}")
+    print(f"phases {phases} process: {time.perf_counter() - t_start:.1f} s")
     return json.loads(lines[-1][len("card child: "):])
 
 
@@ -1327,14 +1555,14 @@ def parse_phases(text: str) -> set[int]:
     for part in text.split(","):
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    if not phases <= set(range(1, 14)):
-        raise argparse.ArgumentTypeError(f"phases are 1-13, not {sorted(phases - set(range(1, 14)))}")
+    if not phases <= ALL_PHASES:
+        raise argparse.ArgumentTypeError(f"phases are 1-14, not {sorted(phases - ALL_PHASES)}")
     return phases | (SEARCH_PHASES if phases & SEARCH_PHASES else set())
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", type=parse_phases, default=set(range(1, 14)),
+    ap.add_argument("--phases", type=parse_phases, default=ALL_PHASES,
                     help="the phases to run, e.g. 12,13 or 3-10 (default: all; see the module docstring)")
     phases = ap.parse_args(argv).phases
     procs: list = []  # every process the run starts beside its phases
@@ -1421,7 +1649,7 @@ def _main(procs: list, phases: set[int]) -> int:
 
     def search_phases():
         """Phases 3-10 (see the module docstring); phases 11e and 11f run
-        beside phases 3 and 7, and 12 and 13 beside phase 9, when selected."""
+        beside phases 3 and 7, and 12-14 beside phase 9, when selected."""
         nonlocal t0
 
         def slate_profile(make_fe, label, first_ms, cached_ms):
@@ -2662,8 +2890,9 @@ def _main(procs: list, phases: set[int]) -> int:
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
         try:
             durable_phase(work / "snapshot", work / "reference")
-            # phases 12 and 13 in a child process beside phase 9's host-bound
-            # launchers (no slate of phase 9 is timed against a device)
+            # phases 12, 13 and 14 in a child process beside phase 9's
+            # host-bound launchers (no slate of phase 9 is timed against a
+            # device)
             gc.collect()
             torch.cuda.empty_cache()
             child = card_child_start(procs, new, threads=CHILD_THREADS) if new else None
@@ -2683,7 +2912,7 @@ def _main(procs: list, phases: set[int]) -> int:
 
 
     kernels: list = []
-    new = [p for p in (12, 13) if p in phases]
+    new = [p for p in CHILD_PHASES if p in phases]
     if SEARCH_PHASES & phases:
         lm_cli, lm_ckpt, card = search_phases()
     else:
@@ -2700,10 +2929,10 @@ def _main(procs: list, phases: set[int]) -> int:
         lm = lm_phase(torch, dev, zero_counts, read_counts, lm_cli, lm_ckpt)
         print("lm phase: " + json.dumps(lm))
 
-    # ---- 12 and 13: what their child process reported -----------------------------
+    # ---- 12, 13 and 14: what their child process reported ------------------------
     if card is not None:
         path_launches.update(card.pop("launches_by_path"))
-        print("moe and recsys phases: " + json.dumps(card))
+        print("moe, recsys and gnn phases: " + json.dumps(card))
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

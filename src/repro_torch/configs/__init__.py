@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 The reference registers ten assigned architectures and the paper's own
-``paper_search`` system.  The port holds ``paper_search`` (the search
-system's fixed-shape device steps), the five LMs (three dense, two MoE) and
-the four recsys models.  ``gat-cora`` is known, and asking for its spec
-raises ``NotImplementedError`` naming what it needs and the port lacks: the
-GNN models.  An unknown id raises ``KeyError``.
+``paper_search`` system.  The port holds all of them: ``paper_search`` (the
+search system's fixed-shape device steps), the five LMs (three dense, two
+MoE), ``gat-cora`` (GNN) and the four recsys models.  An unknown id raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from . import (
     autoint,
     dcn_v2,
     fm,
+    gat_cora,
     llama4_maverick,
     mind,
     mistral_large_123b,
@@ -30,16 +30,12 @@ _MODULES = {
     "tinyllama-1.1b": tinyllama_1_1b,
     "llama4-maverick-400b-a17b": llama4_maverick,
     "olmoe-1b-7b": olmoe_1b_7b,
+    "gat-cora": gat_cora,
     "autoint": autoint,
     "mind": mind,
     "dcn-v2": dcn_v2,
     "fm": fm,
     "paper_search": paper_search,
-}
-
-# the reference's ids the port does not hold, and what each needs
-_NOT_PORTED = {
-    "gat-cora": "GNN models",
 }
 
 # the reference's registry order
@@ -60,18 +56,12 @@ ASSIGNED_ARCH_IDS = tuple(a for a in ARCH_IDS if a != "paper_search")
 PORTED_ARCH_IDS = tuple(a for a in ARCH_IDS if a in _MODULES)
 
 
-def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(f"{arch_id!r} needs {_NOT_PORTED[arch_id]}: not ported to repro_torch")
-    return _MODULES[arch_id]
-
-
 def get_spec(arch_id: str) -> ArchSpec:
-    return _module(arch_id).spec()
+    return _MODULES[arch_id].spec()
 
 
 def get_reduced_spec(arch_id: str) -> ArchSpec:
-    return _module(arch_id).reduced_spec()
+    return _MODULES[arch_id].reduced_spec()
 
 
 __all__ = [

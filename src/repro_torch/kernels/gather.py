@@ -11,7 +11,9 @@ the ``-1`` sentinel.  The kernel (``csrc/gather.cu``) is a plain indexed
 copy, one thread per 16-byte pair of rows; its bound is the bytes it moves.
 
 :func:`gather_blocks` runs the kernel for CUDA tensors and
-:func:`gather_blocks_plain` for CPU tensors only.
+:func:`gather_blocks_plain` for CPU tensors only; under
+``launch.cost_analysis.count_cost`` either charges the bound's figures
+(``_cost``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import functools
 
 import torch
 
+from ..launch.cost_analysis import kernel_cost
 from . import _build
 
 __all__ = ["ARENA_BLOCK", "gather_blocks", "gather_blocks_plain"]
@@ -60,6 +63,15 @@ def gather_blocks_plain(
     return torch.where(live[:, None], rows, -1).to(torch.int32)
 
 
+def _cost(src_block: torch.Tensor, n_valid: torch.Tensor, block: int) -> tuple[float, float]:
+    """(operations, bytes) of one gather, as its roofline bound counts them:
+    no arithmetic; 8 bytes per output row written, per live row read and
+    per output block's (``src_block``, ``n_valid``) pair."""
+    g = src_block.shape[0]
+    live = int(n_valid.clamp(0, block).sum())
+    return 0.0, float(8 * (g * block + live + g))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gather")
@@ -83,8 +95,13 @@ def gather_blocks(
     launches); CPU tensors take :func:`gather_blocks_plain`.
     """
     _check_shapes(arena, src_block, n_valid, block)
-    if arena.device.type == "cpu":
-        return gather_blocks_plain(arena, src_block, n_valid, block)
+    with kernel_cost(lambda: _cost(src_block, n_valid, block)):
+        if arena.device.type == "cpu":
+            return gather_blocks_plain(arena, src_block, n_valid, block)
+        return _launch(arena, src_block, n_valid, block)
+
+
+def _launch(arena: torch.Tensor, src_block: torch.Tensor, n_valid: torch.Tensor, block: int) -> torch.Tensor:
     if arena.device.type != "cuda" or src_block.device != arena.device or n_valid.device != arena.device:
         raise ValueError(
             f"arena, src_block and n_valid must share one cuda device, got "

@@ -21,19 +21,22 @@ the tiles do not cover a block's match span they under-report, and they
 never report a false positive.  :func:`intersect_sorted` (one pair) and
 :func:`intersect_sorted_segments` (a :class:`SegmentPack` of pairs) run the
 kernel for CUDA tensors and :func:`intersect_sorted_plain` per segment for
-CPU tensors only.
+CPU tensors only; under ``launch.cost_analysis.count_cost`` either charges
+the bound's figures (``_cost``, ``_segments_cost``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..launch.cost_analysis import kernel_cost
 from . import _build
 
 __all__ = [
@@ -194,6 +197,28 @@ def pack_segments(
     return buf, pack
 
 
+def _search_ops(na: int, nb: int, block_b: int, n_chunks: int) -> int:
+    """One binary search per ``a`` element over its block's window of
+    ``min(n_chunks, nb // block_b) * block_b`` sorted ``b`` elements."""
+    window = min(n_chunks, nb // block_b) * block_b
+    return na * math.ceil(math.log2(max(window, 1)))
+
+
+def _cost(na: int, nb: int, block_a: int, block_b: int, n_chunks: int) -> tuple[float, float]:
+    """(operations, bytes) of one pair, as its roofline bound counts them:
+    ``a``, ``b`` and the offsets read once, the mask written once; a binary
+    search per ``a`` element."""
+    return float(_search_ops(na, nb, block_b, n_chunks)), float(4 * (na + nb + na // block_a + na))
+
+
+def _segments_cost(pack: "SegmentPack") -> tuple[float, float]:
+    """(operations, bytes) of one segmented launch: the packed buffer read
+    once, the masks written once, a search per ``a`` element over its
+    segment's window."""
+    ops = sum(_search_ops(na, nb, pack.block_b, c) for na, nb, c in zip(pack.na, pack.nb, pack.n_chunks))
+    return float(ops), float(4 * (pack.size + sum(pack.na)))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("intersect")
@@ -237,8 +262,13 @@ def intersect_sorted(
     :func:`intersect_sorted_plain`.
     """
     _check_shapes(a.shape, b.shape, offsets.shape, block_a, block_b, n_chunks)
-    if a.device.type == "cpu":
-        return intersect_sorted_plain(a, b, offsets, block_a, block_b, n_chunks)
+    with kernel_cost(lambda: _cost(a.shape[0], b.shape[0], block_a, block_b, n_chunks)):
+        if a.device.type == "cpu":
+            return intersect_sorted_plain(a, b, offsets, block_a, block_b, n_chunks)
+        return _launch_pair(a, b, offsets, block_a, block_b, n_chunks)
+
+
+def _launch_pair(a, b, offsets, block_a, block_b, n_chunks):
     if a.device.type != "cuda" or b.device != a.device or offsets.device != a.device:
         raise ValueError(f"a, b and offsets must share one cuda device, got {a.device}, {b.device}, {offsets.device}")
     if not all(t.dtype == torch.int32 for t in (a, b, offsets)):
@@ -260,13 +290,18 @@ def intersect_sorted_segments(buf: torch.Tensor, pack: SegmentPack) -> torch.Ten
     """
     if buf.dim() != 1 or buf.shape[0] != pack.size or buf.dtype != torch.int32:
         raise ValueError(f"need a 1-D int32 buffer of {pack.size} elements, got {tuple(buf.shape)} {buf.dtype}")
-    if buf.device.type == "cpu":
-        if not pack.na:
-            return buf[:0]
-        return torch.cat([
-            intersect_sorted_plain(*pack.segment(buf, s), pack.block_a, pack.block_b, pack.n_chunks[s])
-            for s in range(len(pack.na))
-        ])
+    with kernel_cost(lambda: _segments_cost(pack)):
+        if buf.device.type == "cpu":
+            if not pack.na:
+                return buf[:0]
+            return torch.cat([
+                intersect_sorted_plain(*pack.segment(buf, s), pack.block_a, pack.block_b, pack.n_chunks[s])
+                for s in range(len(pack.na))
+            ])
+        return _launch_segments(buf, pack)
+
+
+def _launch_segments(buf: torch.Tensor, pack: SegmentPack) -> torch.Tensor:
     if buf.device.type != "cuda":
         raise ValueError(f"the packed buffer must lie on a cuda device or the cpu, got {buf.device}")
     buf = buf.contiguous()

@@ -15,7 +15,9 @@ emit/start rows it writes (the source's note says more; ``PERF.md`` has its
 times on the H100).
 
 :func:`proximity_window` runs the kernel for CUDA tensors and the plain
-version (``core.window.window_cover_batch``) for CPU tensors only.
+version (``core.window.window_cover_batch``) for CPU tensors only; under
+``launch.cost_analysis.count_cost`` either charges the bound's figures
+(``_cost``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import functools
 import torch
 
 from ..core.window import window_cover_batch
+from ..launch.cost_analysis import kernel_cost
 from . import _build
 
 __all__ = ["proximity_window", "proximity_window_plain", "COMPUTE_DTYPES"]
@@ -61,6 +64,17 @@ def proximity_window_plain(
     return window_cover_batch(occ.to(cdt), mult.to(cdt), window)
 
 
+def _cost(occ: torch.Tensor, mult: torch.Tensor, cdt: torch.dtype) -> tuple[float, float]:
+    """(operations, bytes) of one cover, as its roofline bound counts them:
+    one test per active (row, lemma) pair and position; the active pairs'
+    occupancy rows read once (an inactive row never changes the output),
+    ``mult`` read, ``emit`` and ``start`` written."""
+    b, l, n = occ.shape
+    item = torch.empty((), dtype=cdt).element_size()
+    n_active = int((mult > 0).sum())
+    return float(n_active * n), float(n_active * n * item + b * l * item + b * n * (1 + 4))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("proximity")
@@ -88,8 +102,13 @@ def proximity_window(
     cdt = _compute_dtype(compute_dtype, window)
     if occ.dim() != 3 or mult.shape != occ.shape[:2]:
         raise ValueError(f"need occ [B, L, N] and mult [B, L], got {tuple(occ.shape)} and {tuple(mult.shape)}")
-    if occ.device.type == "cpu":
-        return proximity_window_plain(occ, mult, max_distance, compute_dtype)
+    with kernel_cost(lambda: _cost(occ, mult, cdt)):
+        if occ.device.type == "cpu":
+            return proximity_window_plain(occ, mult, max_distance, compute_dtype)
+        return _launch(occ, mult, window, cdt)
+
+
+def _launch(occ: torch.Tensor, mult: torch.Tensor, window: int, cdt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     if occ.device.type != "cuda":
         raise ValueError(f"proximity_window runs on cuda or cpu, not {occ.device}")
     if window > MAX_WINDOW:

@@ -21,10 +21,21 @@ two, at least 1) at the cell's full sequence length and the config's full
 width and depth; its record keeps the global batch's ``model_flops_global``
 and adds the share's.  A recsys cell runs its whole global batch (MIND's
 loss takes its negatives from the whole batch, so a share would change it),
-on the trainer's batches (``recsys_batch``).  Records of cells that ran are
-cached in
-``--out`` and skipped on the next run; the exit code is 1 when any cell
-failed.
+on the trainer's batches (``recsys_batch``).  A GNN cell runs its whole
+graph on the trainer's batch (``gnn_batch``): ogbn-products' 2.45M nodes
+and 61.9M edges on one card, where the reference shards the nodes.
+
+Each record also carries the reference's per-device cost fields
+(``flops_per_device``, ``hbm_bytes_per_device``,
+``collective_bytes_per_device``, ``collective_total_per_device``), counted
+by ``launch/cost_analysis.count_cost`` on the cell's first, untimed call,
+so the timed calls run without the counter.  On one card they are the cost
+of the work the cell runs (an LM cell's data-rank share), beside
+``model_flops_share``; nothing is collective.  The reference's
+``xla_cost_flops_raw``, ``lower_s``, ``compile_s`` and XLA memory fields
+have no counterpart here and are not written.  Records of cells that ran
+are cached in ``--out`` and skipped on the next run; the exit code is 1
+when any cell failed.
 """
 
 from __future__ import annotations
@@ -39,15 +50,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..configs import PORTED_ARCH_IDS, ArchSpec, get_spec
+from ..configs import ARCH_IDS, ArchSpec, get_spec
 from ..data.pipeline import LMTokenPipeline, RecsysBatchPipeline
-from ..models import recsys, transformer
+from ..data.sampler import random_graph
+from ..models import gnn, recsys, transformer
 from ..optim import adamw_init
 from ..tree import tree_leaves
+from .cost_analysis import count_cost
 from .mesh import MeshLayout, make_production_mesh
 from .steps import Cell, build_cell
 
-__all__ = ["cell_inputs", "recsys_batch", "run_cell", "main"]
+__all__ = ["cell_inputs", "gnn_batch", "recsys_batch", "run_cell", "main"]
 
 # build cells: FL-numbers over a vocabulary of this many lemmas, the most
 # frequent STOP_LEMMAS of them stop lemmas (the serving smoke's sw_count)
@@ -122,6 +135,42 @@ def _recsys_inputs(cell: Cell, cfg: recsys.RecsysConfig, seed: int, dev: torch.d
     return params, bat
 
 
+def gnn_batch(cfg: gnn.GATConfig, n_nodes: int, n_edges: int, n_graphs: int = 1,
+              seed: int = 0) -> dict[str, np.ndarray]:
+    """The reference trainer's gnn batch (``_concrete_batch``), with its
+    numpy draws: features of ``random_graph(max(n, 8), 4, ...)``'s first
+    ``n`` nodes, uniform random ``src`` and ``dst``, all-ones edge and label
+    masks, uniform labels (one a node, or one a graph for the graph task)
+    and, for the graph task, ``n // n_graphs`` consecutive nodes a graph."""
+    rng = np.random.default_rng(seed)
+    n, e = n_nodes, n_edges
+    g = random_graph(max(n, 8), avg_degree=4, d_feat=cfg.d_feat, n_classes=cfg.n_classes, seed=seed)
+    batch = {
+        "x": g.features[:n],
+        "src": rng.integers(0, n, e).astype(np.int32),
+        "dst": rng.integers(0, n, e).astype(np.int32),
+        "edge_mask": np.ones(e, np.int32),
+    }
+    task_graph = cfg.task == "graph"
+    nl = n_graphs if task_graph else n
+    batch["labels"] = rng.integers(0, cfg.n_classes, nl).astype(np.int32)
+    batch["label_mask"] = np.ones(nl, np.int32)
+    if task_graph:
+        batch["graph_ids"] = np.repeat(np.arange(n_graphs), n // n_graphs).astype(np.int32)
+    return batch
+
+
+def _gnn_inputs(cell: Cell, cfg: gnn.GATConfig, seed: int, dev: torch.device) -> tuple:
+    """Params from the seed, their AdamW state, and ``gnn_batch`` at the
+    cell's node, edge and graph counts."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = gnn.init_gat_params(gen, cfg, device=dev)
+    shapes = cell.abstract_args[-1]
+    n_graphs = shapes["labels"].shape[0] if cfg.task == "graph" else 1
+    host = gnn_batch(cfg, shapes["x"].shape[0], shapes["src"].shape[0], n_graphs, seed)
+    return params, adamw_init(params), {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
 def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda", batch: int | None = None) -> tuple:
     """Seeded inputs at the cell's shapes on ``device``, dense enough that
     covers fire.
@@ -133,12 +182,14 @@ def cell_inputs(cell: Cell, cfg, *, seed: int = 0, device="cuda", batch: int | N
     range.  Build cells: log-uniform FL-numbers (frequent lemmas dominate, as
     in text), the smallest ``STOP_LEMMAS`` of them stop lemmas.  LM cells:
     see ``_lm_inputs``, at ``batch`` rows (default the cell's global batch).
-    Recsys cells: see ``_recsys_inputs``.  The same seed on the same device
-    gives the same inputs.
+    Recsys cells: see ``_recsys_inputs``; GNN cells: ``_gnn_inputs``.  The
+    same seed on the same device gives the same inputs.
     """
     dev = torch.device(device)
     if isinstance(cfg, recsys.RecsysConfig):
         return _recsys_inputs(cell, cfg, seed, dev)
+    if isinstance(cfg, gnn.GATConfig):
+        return _gnn_inputs(cell, cfg, seed, dev)
     if cell.step in ("train", "prefill", "decode"):
         if batch is None:  # the global batch: the tokens' leading extent
             tokens = cell.abstract_args[2] if cell.step == "decode" else cell.abstract_args[-1]["tokens"]
@@ -225,6 +276,8 @@ def _check_outputs(cell: Cell, cfg, out, args: tuple) -> dict:
     """The outputs' shapes and invariants; a summary for the record."""
     if isinstance(cfg, recsys.RecsysConfig):
         return _check_recsys_outputs(cell, args, out)
+    if isinstance(cfg, gnn.GATConfig):
+        return _check_train_outputs(args, out)
     if cell.step in ("train", "prefill", "decode"):
         return _check_lm_outputs(cell, cfg, args, out)
     if cell.step == "build":
@@ -256,8 +309,9 @@ def _shapes(x):
 def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = True, *, device="cuda",
              repeats: int = REPEATS, spec: ArchSpec | None = None) -> dict:
     """Run one cell on ``device`` at the layout's shard count: one call,
-    then ``repeats`` timed calls on inputs from seed 0.  ``spec`` replaces
-    the registry's (a config cut to fit one card)."""
+    counted (``cost_analysis.count_cost``), then ``repeats`` timed calls on
+    inputs from seed 0.  ``spec`` replaces the registry's (a config cut to
+    fit one card)."""
     spec = spec or get_spec(arch)
     cell_meta = spec.shapes[shape]
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -294,7 +348,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
             torch.cuda.synchronize(dev)
         t_inputs = time.perf_counter() - t0
         t_first = time.perf_counter()
-        summary = _check_outputs(cell, cfg, cell.fn(*args), args)
+        out, cost = count_cost(cell.fn, *args)
+        summary = _check_outputs(cell, cfg, out, args)
+        del out
         if on_card:
             torch.cuda.synchronize(dev)
         t_first = time.perf_counter() - t_first
@@ -320,6 +376,11 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
             peak_bytes=int(torch.cuda.max_memory_allocated(dev)) - base_bytes if on_card else None,
             calls=1 + repeats,
             input_shapes=[_shapes(a) for a in args],
+            # per card: the work this run does (an LM cell's data-rank share)
+            flops_per_device=cost.flops,
+            hbm_bytes_per_device=cost.hbm_bytes,
+            collective_bytes_per_device=dict(cost.collectives),
+            collective_total_per_device=cost.collective_bytes,
             model_flops_global=float(cell.model_flops_fn()),
             result=summary,
             notes=cell.notes,
@@ -337,7 +398,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
                     if lm and on_card else "")
             print(f"[dryrun] {arch} x {shape} ({rec['mesh']}, {rec['device_name']}): OK "
                   f"wall={min(wall_ms):.3f} ms (of {repeats}) peak={peak}{rate} "
-                  f"first={t_first:.2f}s {summary}")
+                  f"flops/dev={cost.flops:.3e} hbm/dev={cost.hbm_bytes:.3e} "
+                  f"coll/dev={cost.collective_bytes:.3e}B first={t_first:.2f}s {summary}")
     except Exception as e:  # a dry-run failure is a bug in the system
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -352,7 +414,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true",
-                    help="every shape of --arch, or of every ported architecture")
+                    help="every shape of --arch, or of every architecture")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
@@ -365,7 +427,7 @@ def main(argv: list[str] | None = None) -> None:
 
     targets: list[tuple[str, str]] = []
     if args.all:
-        for arch in (args.arch,) if args.arch else PORTED_ARCH_IDS:
+        for arch in (args.arch,) if args.arch else ARCH_IDS:
             targets.extend((arch, name) for name in get_spec(arch).shapes)
     else:
         if not (args.arch and args.shape):

@@ -1,15 +1,16 @@
 """Cell builder: (architecture, shape) -> step function + abstract inputs.
 
 The reference's ``launch/steps.py`` for the LM cells (train, prefill,
-decode; dense and MoE), the recsys cells (train, score, retrieval) and the
-``paper_search`` cells; the dry-run and the trainer share it.  The abstract
+decode; dense and MoE), the GNN train cells, the recsys cells (train,
+score, retrieval) and the ``paper_search`` cells; the dry-run and the
+trainer share it.  The abstract
 inputs are ``device="meta"`` tensors, which carry the reference's shapes and
 dtypes and allocate nothing (the counterpart of ``jax.ShapeDtypeStruct``);
 every cell's are at its global batch.  The reference also gives each cell
 partition specs over its device mesh; on one card there is no mesh, and the
 layout's size only sets the number of cluster shards a serve cell folds into
-one program (``search/serving_step.serve_step_sharded``).  The gnn family
-raises ``NotImplementedError``.
+one program (``search/serving_step.serve_step_sharded``); a GNN cell's
+``shard_nodes`` (the reference's node-sharded batch specs) has no effect.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Callable
 import torch
 
 from ..configs.common import ArchSpec, ShapeCell
-from ..models import recsys, transformer
+from ..models import gnn, recsys, transformer
 from ..optim import AdamWConfig, adamw_init, adamw_update, cast_like, global_norm
 from ..search.serving_step import build_step, serve_step_sharded
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -44,12 +45,12 @@ class Cell:
     notes: str = ""
 
 
-def _value_and_grad(loss_fn, params, batch, cfg):
+def _value_and_grad(loss_fn, params, batch, cfg, **kwargs):
     """``jax.value_and_grad(loss_fn, has_aux=True)``: (loss, metrics), and
     the gradients as a tree like ``params``; ``params`` is not modified."""
     leaves, treedef = tree_flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
-    loss, metrics = loss_fn(tree_unflatten(treedef, live), batch, cfg)
+    loss, metrics = loss_fn(tree_unflatten(treedef, live), batch, cfg, **kwargs)
     grads = torch.autograd.grad(loss, live)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(treedef, list(grads))
 
@@ -139,6 +140,51 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
         fn=decode_fn, abstract_args=args,
         model_flops_fn=lambda: flops,
         notes=f"sliding_window={cfg.sliding_window}",
+    )
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+
+def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+    cfg: gnn.GATConfig = spec.cfg_for(cell.name)
+    kw = cell.kwargs
+    n, e, f = kw["n_nodes"], kw["n_edges"], kw["d_feat"]
+    task_graph = kw["task"] == "graph"
+    n_graphs = kw.get("batch_graphs", 1)
+    p_shapes = gnn.gat_param_shapes(cfg)
+    opt_cfg = AdamWConfig(lr=5e-3, weight_decay=5e-4)
+    o_shapes = adamw_init(p_shapes)
+    n_labels = n_graphs if task_graph else n
+    b_shapes: dict[str, Any] = {
+        "x": _meta((n, f), torch.float32),
+        "src": _meta((e,), torch.int32),
+        "dst": _meta((e,), torch.int32),
+        "edge_mask": _meta((e,), torch.int32),
+        "labels": _meta((n_labels,), torch.int32),
+        "label_mask": _meta((n_labels,), torch.int32),
+    }
+    if task_graph:
+        b_shapes["graph_ids"] = _meta((n,), torch.int32)
+
+    def train_fn(params, opt_state, bat):
+        loss, metrics, grads = _value_and_grad(gnn.gat_loss, params, bat, cfg, n_graphs=n_graphs)
+        master, new_state = adamw_update(grads, opt_state, opt_cfg)
+        return cast_like(master, params), new_state, {"loss": loss, "acc": metrics["acc"]}
+
+    # SpMM-ish useful work: per edge per layer, gather+reduce over head dims
+    flops = 0.0
+    for fi, do in cfg.layer_dims():
+        flops += 2.0 * n * fi * cfg.n_heads * do  # dense projections
+        flops += 6.0 * e * cfg.n_heads * do  # edge score + weighted aggregate
+    flops *= 3  # fwd + bwd(2x)
+
+    return Cell(
+        arch_id=spec.arch_id, shape_name=cell.name, step="train",
+        fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
+        model_flops_fn=lambda: flops,
     )
 
 
@@ -278,19 +324,16 @@ def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
     )
 
 
-_NOT_PORTED = {"gnn": "GNN models"}
-
-
 def build_cell(spec: ArchSpec, shape_name: str, mesh: MeshLayout) -> Cell:
     cell = spec.shapes[shape_name]
     if spec.family == "lm":
         return _lm_cell(spec, cell, mesh)
     if spec.family == "recsys":
         return _recsys_cell(spec, cell, mesh)
+    if spec.family == "gnn":
+        return _gnn_cell(spec, cell, mesh)
     if spec.family == "search":
         return _search_cell(spec, cell, mesh)
-    if spec.family in _NOT_PORTED:
-        raise NotImplementedError(f"{spec.family} cells need {_NOT_PORTED[spec.family]}: not ported to repro_torch")
     raise ValueError(spec.family)
 
 

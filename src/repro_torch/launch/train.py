@@ -9,14 +9,15 @@ reduced config (CPU-sized) on the cell's batch; with it, the full config.
 An LM (dense or MoE) trains on one data rank's share of the cell's global
 batch (``global_batch // data``, ``data`` 16 on the single-pod layout), at
 the full sequence length; a recsys model on the whole batch, whose first
-batch is drawn as the reference draws it (``dryrun.recsys_batch``).
+batch is drawn as the reference draws it (``dryrun.recsys_batch``); the GNN
+on the cell's whole graph, drawn as the reference draws it
+(``dryrun.gnn_batch``), the same batch every step.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 6 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 6 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --steps 6 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora --steps 6 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --full-scale --steps 6
-
-The GNN architecture is refused by the registry with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..configs import get_reduced_spec, get_spec
 from ..data.pipeline import LMTokenPipeline
-from ..models import recsys, transformer
+from ..models import gnn, recsys, transformer
 from ..optim import adamw_init
-from .dryrun import data_share, recsys_batch
+from .dryrun import data_share, gnn_batch, recsys_batch
 from .mesh import make_production_mesh, make_smoke_mesh
 from .steps import build_cell
 
@@ -66,6 +67,10 @@ def main(argv: list[str] | None = None) -> None:
         params = transformer.init_params(0, cfg, device=device)
         pipe = LMTokenPipeline(cfg.vocab, kw["seq_len"], data_share(kw["global_batch"], mesh)[0], seed=0)
         batch = pipe.next_batch()
+    elif spec.family == "gnn":
+        params = gnn.init_gat_params(0, cfg, device=device)
+        n_graphs = kw.get("batch_graphs", 1)
+        batch, pipe = gnn_batch(cfg, kw["n_nodes"], kw["n_edges"], n_graphs), None
     else:
         params = recsys.init_recsys_params(0, cfg, device=device)
         batch, pipe = recsys_batch(cfg, kw["batch"])
@@ -75,7 +80,7 @@ def main(argv: list[str] | None = None) -> None:
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     t0 = time.time()
     for step in range(args.steps):
-        if step > 0:
+        if pipe is not None and step > 0:
             nb = pipe.next_batch()
             # a pipeline batch with the first batch's keys replaces it
             batch = _to_device(nb, device) if set(nb) == set(batch) else batch
@@ -85,7 +90,8 @@ def main(argv: list[str] | None = None) -> None:
             m = {k: float(metrics[k]) for k in sorted(metrics)}
             print(f"step {step:4d} " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
         if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save_async(step + 1, {"params": params, "opt": opt_state, "pipe": pipe.state.as_tree()})
+            mgr.save_async(step + 1, {"params": params, "opt": opt_state,
+                                      "pipe": pipe.state.as_tree() if pipe else {}})
     if mgr:
         mgr.wait()
     if device.type == "cuda":

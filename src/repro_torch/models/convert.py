@@ -5,7 +5,8 @@ The reference keeps its trees as jax arrays, which read as numpy arrays
 ``bfloat16``, or raw 2-byte words (void ``V2``) where they come from a
 checkpoint file.  ``from_reference`` turns any such tree into torch tensors
 on a device, bit for bit; ``to_reference`` turns a port tree back into numpy
-arrays.  Trees keep their structure: a parameter tree, an AdamW state
+arrays.  Trees keep their structure: a parameter tree (a dict of dicts, or
+the GAT's list of ``{w, a_src, a_dst}``, one a layer), an AdamW state
 (``m``, ``v``, ``master``, ``step``) or a trainer checkpoint payload.
 """
 

@@ -53,6 +53,7 @@ from ..core.postings import QueryStats, SearchResult
 from ..index.builder import POSTING_WIDTH, IndexSet, family_rows
 from ..index.incremental import IncrementalIndexer
 from ..kernels.gather import ARENA_BLOCK, gather_blocks
+from ..launch.cost_analysis import ProgramCost, count_cost
 from .fused import _assemble_fragments, bucket_pow2 as _bucket
 
 __all__ = [
@@ -63,6 +64,7 @@ __all__ = [
     "PostingArena",
     "plan_arena_batch",
     "arena_serve_batch",
+    "lower_arena_batch",
     "run_arena_batch",
 ]
 
@@ -974,6 +976,27 @@ def _static_kwargs(plan: ArenaBatchPlan, *, max_distance: int, top_k: int, use_k
         top_k=top_k,
         use_kernel=use_kernel,
     )
+
+
+def lower_arena_batch(
+    plan: ArenaBatchPlan,
+    *,
+    max_distance: int,
+    top_k: int = 16,
+    use_kernel: bool = False,
+) -> ProgramCost:
+    """The cost (``launch.cost_analysis.ProgramCost``: flops, HBM bytes) of
+    the exact arena program :func:`run_arena_batch` would run for the plan,
+    on the device of its resident buffers.  The reference lowers the
+    program without running it; the port cannot, so it runs it once under
+    ``count_cost`` (the descriptors' copies and the readout are not
+    counted)."""
+    args, _ = _device_args(plan, use_kernel, plan.buffers[0].device)
+    _, cost = count_cost(
+        arena_serve_batch, *args,
+        **_static_kwargs(plan, max_distance=max_distance, top_k=top_k, use_kernel=use_kernel),
+    )
+    return cost
 
 
 def run_arena_batch(

@@ -22,6 +22,7 @@ device program.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
 from typing import Sequence
@@ -49,6 +50,13 @@ def shard_documents(store: DocumentStore, n_shards: int) -> list[DocumentStore]:
     for doc in store.documents:
         shards[doc.doc_id % n_shards].append(doc)
     return [DocumentStore(documents=s, lemmatizer=store.lemmatizer) for s in shards]
+
+
+@dataclasses.dataclass
+class ShardStats:
+    postings_read: int
+    results: int
+    elapsed_sec: float
 
 
 class ShardedSearchService:

@@ -50,6 +50,7 @@ from ..core.postings import QueryStats, SearchResult
 from ..index.builder import POSTING_WIDTH, IndexSet
 from ..kernels.intersect import PAD, block_offsets, intersect_sorted_segments, pack_segments
 from ..kernels.proximity import COMPUTE_DTYPES, proximity_window
+from ..launch.cost_analysis import ProgramCost, count_cost
 
 __all__ = [
     "SegmentEvents",
@@ -63,6 +64,7 @@ __all__ = [
     "intersect_inputs",
     "plan_query_batch",
     "fused_serve_batch",
+    "lower_query_batch",
     "run_query_batch",
     "scatter_occupancy",
     "serve_query_batch",
@@ -927,6 +929,35 @@ def _split_result_buffer(
     np.cumsum(counts, out=offsets[1:])
     frag_rows = buf[: int(offsets[-1]), 1:4]
     return frag_rows, offsets
+
+
+def lower_query_batch(
+    plan: QueryBatchPlan,
+    *,
+    max_distance: int,
+    top_k: int = 16,
+    use_kernel: bool = False,
+    compute_dtype: str = "uint8",
+    device: str | torch.device = "cuda",
+) -> ProgramCost:
+    """The cost (``launch.cost_analysis.ProgramCost``: flops, HBM bytes) of
+    the exact device program :func:`run_query_batch` would run for the
+    plan on ``device``.  The reference lowers the program without running
+    it; the port cannot, so it copies the plan's arrays to ``device`` and
+    runs the program once under ``count_cost`` (the copies and the readout
+    are not counted)."""
+    inputs = [torch.from_numpy(a).to(device) for a in
+              (plan.events, plan.primary, plan.postab, plan.row_doc, plan.row_query, plan.mult)]
+    _, cost = count_cost(
+        fused_serve_batch, *inputs,
+        max_distance=max_distance,
+        query_budget=plan.query_budget,
+        window_len=plan.doc_len,
+        top_k=top_k,
+        compute_dtype=compute_dtype,
+        use_kernel=use_kernel,
+    )
+    return cost
 
 
 def run_query_batch(

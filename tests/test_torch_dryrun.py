@@ -2,8 +2,8 @@
 against the reference's, on the CPU: the same cells, shapes, dtypes, shard
 counts and useful-work models for ``paper_search`` and the dense LMs (whose
 cells run one data rank's share); ``run_cell`` and ``main`` on the reduced
-spec; the MoE and recsys architectures build and run; the GNN architecture
-and family refuse, naming their item.
+spec; every architecture id resolves, and the MoE, recsys and GNN
+families build and run.
 """
 
 import dataclasses
@@ -54,12 +54,14 @@ def _assert_same_args(port_args, ref_args):
 
 def test_configs_are_the_reference_configs():
     assert ARCH_IDS == REF_ARCH_IDS and ASSIGNED_ARCH_IDS == REF_ASSIGNED_ARCH_IDS
-    assert PORTED_ARCH_IDS == tuple(a for a in REF_ARCH_IDS if a != "gat-cora")
+    assert PORTED_ARCH_IDS == REF_ARCH_IDS
     for arch in PORTED_ARCH_IDS:
         for get, ref_get in ((get_spec, ref_get_spec), (get_reduced_spec, ref_get_reduced_spec)):
             spec, ref = get(arch), ref_get(arch)
             assert (spec.arch_id, spec.family, spec.source) == (ref.arch_id, ref.family, ref.source)
-            assert dataclasses.asdict(spec.model_cfg) == dataclasses.asdict(ref.model_cfg)
+            # a GNN config varies by cell (each cell is another graph)
+            for name in ref.shapes:
+                assert dataclasses.asdict(spec.cfg_for(name)) == dataclasses.asdict(ref.cfg_for(name))
             assert {k: dataclasses.asdict(v) for k, v in spec.shapes.items()} == {
                 k: dataclasses.asdict(v) for k, v in ref.shapes.items()}
 
@@ -160,41 +162,35 @@ def test_main_exits_one_when_a_cell_fails(tmp_path, monkeypatch):
     assert rec["status"] == "error" and "broken step" in rec["error"]
 
 
-# what each architecture the port does not hold needs; the others build
-_NEEDS = {"gat-cora": "GNN models"}
 _FAMILIES = {"stablelm-3b": "lm", "mistral-large-123b": "lm", "tinyllama-1.1b": "lm",
-             "llama4-maverick-400b-a17b": "lm", "olmoe-1b-7b": "lm", "autoint": "recsys", "mind": "recsys",
-             "dcn-v2": "recsys", "fm": "recsys"}
+             "llama4-maverick-400b-a17b": "lm", "olmoe-1b-7b": "lm", "gat-cora": "gnn", "autoint": "recsys",
+             "mind": "recsys", "dcn-v2": "recsys", "fm": "recsys"}
 
 
 @pytest.mark.parametrize("arch_id", REF_ASSIGNED_ARCH_IDS)
 def test_scaffolding_architectures_refuse(arch_id):
-    """Only the GNN architecture still refuses; every other id resolves to
-    its family, full and reduced."""
+    """No architecture refuses any more: every id resolves to its family,
+    full and reduced."""
     for get in (get_spec, get_reduced_spec):
-        if arch_id not in _NEEDS:
-            assert get(arch_id).family == _FAMILIES[arch_id] == ref_get_spec(arch_id).family
-            continue
-        with pytest.raises(NotImplementedError, match=_NEEDS[arch_id]):
-            get(arch_id)
+        assert get(arch_id).family == _FAMILIES[arch_id] == ref_get_spec(arch_id).family
 
 
 @pytest.mark.parametrize("family", ["lm", "gnn", "recsys"])
 def test_scaffolding_families_refuse_to_build_cells(family):
-    """gnn cells refuse; an lm cell of a config with MoE layers and a recsys
-    cell build and run."""
-    if family == "gnn":
-        spec = dataclasses.replace(get_spec("paper_search"), family=family)
-        with pytest.raises(NotImplementedError, match="GNN models"):
-            build_cell(spec, "serve_online", make_smoke_mesh())
-        return
-    arch, shape = ("olmoe-1b-7b", "prefill_32k") if family == "lm" else ("fm", "serve_p99")
+    """No family refuses any more: an lm cell of a config with MoE layers, a
+    reduced gnn cell and a recsys cell build and run."""
+    arch, shape = {"lm": ("olmoe-1b-7b", "prefill_32k"), "gnn": ("gat-cora", "molecule"),
+                   "recsys": ("fm", "serve_p99")}[family]
     spec = get_reduced_spec(arch)
     cell = build_cell(spec, shape, make_smoke_mesh())
-    args = dryrun.cell_inputs(cell, spec.model_cfg, device="cpu")
+    args = dryrun.cell_inputs(cell, spec.cfg_for(shape), device="cpu")
     out = cell.fn(*args)
     if family == "lm":
         assert spec.model_cfg.moe is not None and out[0].shape == (2, spec.model_cfg.vocab)
+    elif family == "gnn":
+        new_params, new_state, metrics = out
+        assert sorted(metrics) == ["acc", "loss"] and bool(torch.isfinite(metrics["loss"]))
+        assert int(new_state["step"]) == 1 and len(new_params) == spec.cfg_for(shape).n_layers
     else:
         assert out.shape == (spec.shapes[shape].kwargs["batch"],) and bool(torch.isfinite(out).all())
 

@@ -2,8 +2,10 @@
 at the serving path's shapes, and the port's serving path on the card (the
 host route and the posting arena, over a static index and over a mutated
 incremental service) against the host route on the CPU; the dense LM path
-(attention, prefill and decode, a float32 train step), the MoE FFN and the
-MoE and recsys train steps on the card at reduced sizes.
+(attention, prefill and decode, a float32 train step), the MoE FFN, the
+MoE, recsys and GNN train steps on the card at reduced sizes, the GNN's
+chunked aggregate against its unchunked form, and the cost counter's count
+on the card against the CPU's.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -547,3 +549,65 @@ def test_moe_and_recsys_float32_train_step_on_card_equals_cpu(cuda, arch):
         assert torch.allclose(card_m[k].cpu(), cpu_m[k], rtol=1e-4, atol=1e-6), k
     for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
         assert a.is_cuda and torch.allclose(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [None, 65_536])
+def test_gnn_chunked_aggregate_on_card_equals_unchunked(cuda, chunk):
+    """The GAT aggregate in edge chunks (from the card's memory, or forced)
+    against the unchunked form on the card, at ogbn-products' heads and
+    classes on a cut graph: values and both gradients."""
+    from repro_torch.models import gnn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, e, nh, d = 200_000, 1_000_000, 8, 47
+    src = torch.randint(0, n, (e,), generator=gen, device=cuda)
+    dst = torch.randint(0, n, (e,), generator=gen, device=cuda)
+    ex = torch.rand((e, nh), generator=gen, device=cuda).requires_grad_(True)
+    h = torch.randn((n, nh, d), generator=gen, device=cuda).requires_grad_(True)
+    g_out = torch.randn((n, nh, d), generator=gen, device=cuda)
+    got = gnn.aggregate(ex, h, src, dst, chunk)
+    want = gnn.aggregate_plain(ex, h, src, dst)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    for a, b in zip(torch.autograd.grad(got, (ex, h), g_out), torch.autograd.grad(want, (ex, h), g_out)):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", ["full_graph_sm", "molecule"])
+def test_gnn_float32_train_step_on_card_equals_cpu(cuda, shape):
+    """One step of each reduced gat-cora train cell on the card and on the
+    CPU: loss within rtol 1e-4, accuracy equal, params within atol 1e-5."""
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_leaves, tree_map
+
+    spec = get_reduced_spec("gat-cora")
+    cell = build_cell(spec, shape, make_smoke_mesh())
+    cpu_args = dryrun.cell_inputs(cell, spec.cfg_for(shape), device="cpu")
+    cpu_p, _, cpu_m = cell.fn(*cpu_args)
+    card_p, _, card_m = cell.fn(*tree_map(lambda t: t.to(cuda), cpu_args))
+    assert torch.allclose(card_m["loss"].cpu(), cpu_m["loss"], rtol=1e-4) and float(card_m["acc"]) == float(cpu_m["acc"])
+    for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)):
+        assert a.is_cuda and torch.allclose(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,shape", [("paper_search", "serve_online"), ("tinyllama-1.1b", "train_4k"),
+                                        ("fm", "train_batch"), ("gat-cora", "molecule")])
+def test_cost_counted_on_card_equals_cpu(cuda, arch, shape):
+    """A reduced cell of each family counts the same flops and bytes on the
+    card (the cover kernel's wrapper charging its figures) as on the CPU
+    (its plain version charging the same)."""
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost_analysis import count_cost
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import tree_map
+
+    spec = get_reduced_spec(arch)
+    cell = build_cell(spec, shape, make_smoke_mesh())
+    cpu_args = dryrun.cell_inputs(cell, spec.cfg_for(shape), device="cpu")
+    _, on_cpu = count_cost(cell.fn, *cpu_args)
+    _, on_card = count_cost(cell.fn, *tree_map(lambda t: t.to(cuda), cpu_args))
+    assert on_card == on_cpu and on_cpu.flops > 0

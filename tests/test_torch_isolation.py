@@ -5,9 +5,11 @@ Combiner, builds, logs, snapshots, mutates and warm-starts an incremental
 sharded service, serves it under a seeded fault schedule, runs the daemon
 behind its TCP transport, bulk-builds with two spawn workers, runs the
 launcher, runs reduced ``paper_search`` dry-run cells, trains the reduced
-tinyllama, olmoe and llama4-maverick (MoE) and fm and mind (recsys) for two
-steps through the training launcher, runs a reduced recsys cell and a MoE
-FFN, and resolves every architecture id but the GNN one."""
+tinyllama, olmoe and llama4-maverick (MoE), fm and mind (recsys) and
+gat-cora (GNN) for two steps through the training launcher, runs a reduced
+recsys cell, a reduced GNN cell and a MoE FFN, samples a subgraph, counts a
+program's cost and the search lowerings', and resolves every architecture
+id."""
 
 import os
 import re
@@ -104,19 +106,32 @@ for shape in ("serve_online", "build_chunk"):
 import repro_torch.models, repro_torch.optim, repro_torch.data
 from repro_torch.launch import train
 train.main(["--arch", "tinyllama-1.1b", "--steps", "2", "--device", "cpu"])
-for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "fm", "mind"):
+for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "fm", "mind", "gat-cora"):
     train.main(["--arch", arch, "--steps", "2", "--device", "cpu"])
 from repro_torch.configs import ARCH_IDS, get_spec
-from repro_torch.configs import autoint, dcn_v2, fm, llama4_maverick, mind, olmoe_1b_7b, recsys_common
+from repro_torch.configs import autoint, dcn_v2, fm, gat_cora, llama4_maverick, mind, olmoe_1b_7b, recsys_common
 from repro_torch.kernels.ref import embedding_bag_ref
-from repro_torch.models import moe, recsys
-for arch in ARCH_IDS:
-    try:
-        get_spec(arch)
-    except NotImplementedError as e:
-        assert arch == "gat-cora" and "GNN models" in str(e), (arch, e)
+from repro_torch.models import gnn, moe, recsys
+assert [get_spec(arch).arch_id for arch in ARCH_IDS] == list(ARCH_IDS)
 rec = dryrun.run_cell("dcn-v2", "retrieval_cand", verbose=False, device="cpu", repeats=1)
 assert rec["status"] == "ok", rec
+for shape in ("full_graph_sm", "molecule"):
+    rec = dryrun.run_cell("gat-cora", shape, verbose=False, device="cpu", repeats=1)
+    assert rec["status"] == "ok" and rec["flops_per_device"] > 0, rec
+from repro_torch.data.sampler import NeighborSampler, random_graph
+sample = NeighborSampler(random_graph(200, 4, 24, 5, seed=1), batch_nodes=8, fanout=(3, 2), seed=2).sample()
+gcfg = get_reduced_spec("gat-cora").cfg_for("full_graph_sm")
+logits = gnn.gat_forward(gnn.init_gat_params(0, gcfg, device="cpu"),
+                         {k: torch.as_tensor(v) for k, v in sample.items()}, gcfg, edge_chunk=5)
+assert logits.shape == (sample["x"].shape[0], gcfg.n_classes)
+from repro_torch.launch.cost_analysis import ProgramCost, count_cost
+assert count_cost(torch.mm, torch.ones(4, 3), torch.ones(3, 2))[1].flops == 2 * 4 * 3 * 2
+from repro_torch.search import fused
+from repro_torch.search.arena import lower_arena_batch
+from repro_torch.search.distributed import ShardStats
+plan = fused.plan_query_batch([[(s, index) for s in expand_subqueries(q, store.lemmatizer)] for q in queries],
+                              device="cpu")
+assert isinstance(fused.lower_query_batch(plan, max_distance=5, device="cpu"), ProgramCost)
 import torch
 cfg = moe.MoEConfig(n_experts=4, top_k=2, d_ff=8, dispatch="sort")
 p = moe.init_moe_params(torch.Generator().manual_seed(0), 8, cfg, torch.float32)
@@ -140,9 +155,9 @@ def test_serves_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "frontend: served 1 requests" in proc.stdout
     assert proc.stdout.splitlines()[-1].startswith("served ")
-    # tinyllama, olmoe, llama4-maverick, fm, mind: two steps each
+    # tinyllama, olmoe, llama4-maverick, fm, mind, gat-cora: two steps each
     assert [ln.split()[:2] for ln in proc.stdout.splitlines() if ln.startswith(("step ", "done: "))] == [
-        ["step", "0"], ["step", "1"], ["done:", "2"]] * 5
+        ["step", "0"], ["step", "1"], ["done:", "2"]] * 6
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)", re.MULTILINE)
@@ -162,7 +177,8 @@ def test_source_imports_neither_jax_nor_reference():
             "data/__init__.py", "data/pipeline.py", "configs/lm_common.py", "configs/tinyllama_1_1b.py",
             "configs/stablelm_3b.py", "configs/mistral_large_123b.py", "launch/train.py", "models/moe.py",
             "models/recsys.py", "configs/olmoe_1b_7b.py", "configs/llama4_maverick.py", "configs/recsys_common.py",
-            "configs/fm.py", "configs/autoint.py", "configs/dcn_v2.py", "configs/mind.py"} <= names
+            "configs/fm.py", "configs/autoint.py", "configs/dcn_v2.py", "configs/mind.py",
+            "models/gnn.py", "data/sampler.py", "configs/gat_cora.py", "launch/cost_analysis.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources

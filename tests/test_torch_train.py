@@ -141,13 +141,12 @@ def test_cli_checkpoints_in_the_reference_format(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch,item", [("gat-cora", "GNN models"), ("fm", None), ("olmoe-1b-7b", None)])
 def test_cli_refuses_the_families_not_ported(arch, item, capsys):
-    """The GNN family refuses; the recsys and MoE families train."""
-    argv = ["--arch", arch, "--steps", "1", "--device", "cpu"]
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            port_train.main(argv)
-        return
-    port_train.main(argv)
+    """No family refuses any more: the GNN (two steps), recsys and MoE
+    families train."""
+    steps = 2 if item is not None else 1
+    port_train.main(["--arch", arch, "--steps", str(steps), "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert len(out) == 2 and out[0].startswith("step    0 ") and out[1].startswith("done: 1 steps")
+    assert len(out) == steps + 1 and out[-1].startswith(f"done: {steps} steps")
+    assert [ln.split()[:2] for ln in out[:-1]] == [["step", str(i)] for i in range(steps)]
     assert ("aux=" in out[0]) == (arch == "olmoe-1b-7b") and "loss=" in out[0]
+    assert ("acc=" in out[0]) == (arch == "gat-cora")
