@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 12,13  # phases 1, 2, 12 and 13 only
     python3 chip_smoke.py --phases 14     # phases 1, 2 and 14 only
+    python3 chip_smoke.py --phases 15     # phases 1, 2 and 15 (worlds of ranks) only
 
 Phases, each printed with its seconds (``--phases`` selects some of them:
 phases 1 and 2 always run, and phases 3-10 run together or not at all; the
@@ -199,6 +200,31 @@ last line is the same either way):
    ``fm``'s ``train_batch``, ``gat-cora``'s ``molecule``), the cost counted
    on the card equal to the cost counted on the CPU, flops and bytes, op
    by op where they differ.
+
+15. the multi-device half, in the child process of phases 12-14, after
+   them: a world of one rank over NCCL (``make_device_mesh`` over a
+   one-rank process group) runs ``serve_online`` and tinyllama's cut
+   train_4k and prefill_32k bit for bit as the port without a mesh; then
+   ``python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
+   --world-worker`` starts a world of two over gloo on the card (NCCL
+   refuses two ranks of one communicator on one device), each rank
+   running (a) ``run_cell`` on ``serve_online`` and ``serve_bulk`` at NS
+   256 under ``--mesh 1x2`` — 128 shards a rank, one cover launch a rank a
+   call, the lists all-gathered; ``top_docs`` and ``n_fragments`` equal
+   the one-program fold's, ``top_scores`` within rtol 1e-5 — with its wall
+   ms, all-gather bytes and peak MiB; (b) tinyllama at full width, 2
+   layers, 4 rows, train_4k (bfloat16 and float32) and prefill_32k under
+   1x2 (tensor parallelism) and 2x1 with FSDP, against the unsharded run
+   on the same inputs (bfloat16 within 2e-2 relative, float32 metrics
+   within 1e-4 and params within 1e-5 relative), with wall ms, peak MiB
+   and the counted collectives; (c) one olmoe MoE layer at full width (64
+   experts, top 8, 4,096 tokens), ``local`` over model = 2 against
+   ``_moe_sort`` with no drops (float32 within 1e-5, bfloat16 2e-2), and
+   at the config's capacity its dropped pairs equal to the same world's on
+   the CPU; (d) ``compressed_grad_allreduce`` over ``pod`` = 2 on
+   tinyllama's 2-layer gradient tree, card equal to the CPU; and the
+   trainer's and the dry-run's own command lines under ``--mesh 1x2``.
+   Every rank's kernel launches go into the kernels line by path.
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -497,8 +523,21 @@ print("card child: " + json.dumps(out), flush=True)
 """
 CHILD_THREADS = 4
 SEARCH_PHASES = set(range(3, 11))
-CHILD_PHASES = (12, 13, 14)
-ALL_PHASES = set(range(1, 15))
+CHILD_PHASES = (12, 13, 14, 15)
+ALL_PHASES = set(range(1, 16))
+# phase 15: the multi-device half in worlds of ranks on the one card.  NCCL
+# refuses two ranks of one communicator on one device ("Duplicate GPU
+# detected"), so a world of two runs gloo on the card's tensors; a world of
+# one runs NCCL.  tinyllama at full width, depth cut to 2 layers and each
+# cell's world batch to 2 rows (train_4k at 4,096 tokens, prefill_32k at
+# 32,768), so that two ranks and the unsharded run fit the card together
+WORLD_BACKEND = "gloo"
+WORLD_SERVE = ("serve_online", "serve_bulk")
+WORLD_LM_CELLS = ("train_4k", "prefill_32k")
+WORLD_LM_LAYERS = 2
+WORLD_LM_ROWS = 4
+WORLD_MOE_TOKENS = 4096  # (c): one olmoe MoE layer's tokens
+WORLD_COMPRESS_LAYERS = 2  # (d): tinyllama's gradient tree at this depth
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -1460,6 +1499,348 @@ def cost_phase(torch, dev, zero_counts, read_counts) -> dict:
     return summary
 
 
+def world_lm_spec(shape: str, *, dtype: str | None = None, fsdp: bool = False):
+    """tinyllama's spec cut for phase 15: WORLD_LM_LAYERS layers, and the
+    cell's global batch set so that one production data rank's share (the
+    batch a world runs) is WORLD_LM_ROWS rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.dryrun import data_share
+    from repro_torch.launch.mesh import make_production_mesh
+
+    spec = get_spec(LM_ARCH)
+    cfg = dataclasses.replace(spec.model_cfg, n_layers=WORLD_LM_LAYERS, fsdp=fsdp,
+                              dtype=dtype or spec.model_cfg.dtype)
+    cell = spec.shapes[shape]
+    _, n_data = data_share(1, make_production_mesh())
+    kwargs = {**cell.kwargs, "global_batch": WORLD_LM_ROWS * n_data}
+    shapes = {**spec.shapes, shape: dataclasses.replace(cell, kwargs=kwargs)}
+    return dataclasses.replace(spec, model_cfg=cfg, shapes=shapes)
+
+
+def world_worker(out_dir: str) -> int:
+    """One rank of phase 15's world of two (``python -m
+    torch.distributed.run --nproc-per-node 2 chip_smoke.py --world-worker
+    DIR``): (a) the paper_search serve cells under ``--mesh 1x2``, (b) the
+    LM cells under 1x2 and 2x1 with FSDP against the unsharded run, (c) one
+    olmoe MoE layer's ``local`` dispatch over model = 2, (d) the int8
+    gradient all-reduce, card against the same world's CPU tensors.  Writes
+    its summary to ``DIR/rank<r>.json`` and rank 0's serve outputs to
+    ``DIR/serve_<shape>.pt``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels.proximity import proximity_window
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh, make_production_mesh, use_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import moe, transformer
+    from repro_torch.kernels.gather import gather_blocks
+    from repro_torch.kernels.intersect import intersect_sorted
+    from repro_torch.optim import compressed_grad_allreduce
+    from repro_torch.parallel.sharding import P, gather_tree, shard_tree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = Path(out_dir)
+    m12 = make_device_mesh((1, 2), ("data", "model"), backend=WORLD_BACKEND, device="cuda")
+    m21 = make_device_mesh((2, 1), ("data", "model"), backend=WORLD_BACKEND, device="cuda")
+    rank, dev = m12.rank, m12.device
+    res: dict = {"rank": rank, "backend": WORLD_BACKEND, "device": str(dev), "serve": {}, "lm": {}, "launches": {}}
+    counted = {"proximity_window": proximity_window, "intersect_sorted": intersect_sorted,
+               "gather_blocks": gather_blocks}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(path):
+        res["launches"][path] = {kname: fn.launches for kname, fn in counted.items()}
+        return res["launches"][path]
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / max(float(want.float().norm()), 1e-30))
+
+    # ---- (a) the document-sharded serve cells ----
+    t = time.perf_counter()
+    for shape in WORLD_SERVE:
+        zero_counts()
+        rec = dryrun.run_cell("paper_search", shape, verbose=False, dmesh=m12, keep_outputs=True)
+        launches = read_counts(f"world 1x2 paper_search {shape} (phase 15a), rank {rank}")["proximity_window"]
+        require(rec["status"] == "ok", f"rank {rank} {shape}: {rec.get('error')}\n{rec.get('traceback')}")
+        outs = {k: v.cpu() for k, v in rec.pop("outputs").items()}
+        if rank == 0:
+            torch.save(outs, out / f"serve_{shape}.pt")
+        res["serve"][shape] = {"wall_ms": rec["wall_ms"], "calls": rec["calls"], "cover_launches": launches,
+                               "collectives": rec["collective_bytes_per_device"], "peak_mib": rec["peak_bytes"] / 2**20,
+                               "input_shapes": rec["input_shapes"],
+                               "digest": hashlib.sha256(b"".join(outs[k].numpy().tobytes() for k in sorted(outs)))
+                               .hexdigest()}
+    res["serve_s"] = time.perf_counter() - t
+
+    # ---- (b) the LM cells: 1x2 (TP) and 2x1 with FSDP against no mesh ----
+    t = time.perf_counter()
+    layout = make_production_mesh()
+    zero_counts()
+    for shape in WORLD_LM_CELLS:
+        for dtype in ((None, "float32") if shape == "train_4k" else (None,)):
+            base = world_lm_spec(shape, dtype=dtype)
+            want = dryrun.run_cell(LM_ARCH, shape, verbose=False, device=dev, repeats=1, spec=base,
+                                   keep_outputs=True)
+            require(want["status"] == "ok", f"rank {rank} {shape} no mesh: {want.get('error')}")
+            want_out = want.pop("outputs")
+            for mesh, fsdp in ((m12, False), (m21, True)):
+                spec = world_lm_spec(shape, dtype=dtype, fsdp=fsdp)
+                torch.cuda.reset_peak_memory_stats(dev)
+                rec = dryrun.run_cell(LM_ARCH, shape, verbose=False, dmesh=mesh, repeats=1, spec=spec,
+                                      keep_outputs=True)
+                require(rec["status"] == "ok", f"rank {rank} {shape} {mesh}: {rec.get('error')}\n{rec.get('traceback')}")
+                got = rec.pop("outputs")
+                cell = build_cell(spec, shape, layout, mesh)
+                key = f"{shape} {dtype or 'bfloat16'} {mesh}{' fsdp' if fsdp else ''}"
+                entry = {"wall_ms": rec["wall_ms"], "wall_ms_unsharded": want["wall_ms"],
+                         "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+                         "collectives": rec["collective_bytes_per_device"], "batch": rec["input_shapes"][-1]}
+                if shape == "train_4k":
+                    params = gather_tree(got[0], cell.in_specs[0], mesh)
+                    entry["params_rel"] = max(rel(a, b) for a, b in zip(tree_leaves(params), tree_leaves(want_out[0])))
+                    entry["metrics"] = {k: float(v) for k, v in got[2].items()}
+                    entry["metrics_want"] = {k: float(v) for k, v in want_out[2].items()}
+                    entry["metrics_rel"] = max(abs(entry["metrics"][k] - entry["metrics_want"][k])
+                                               / max(abs(entry["metrics_want"][k]), 1e-30) for k in entry["metrics"])
+                else:
+                    logits, cache = got
+                    b0 = mesh.coord("data") * logits.shape[0]
+                    entry["logits_rel"] = rel(logits, want_out[0][b0:b0 + logits.shape[0]])
+                    entry["cache_rel"] = max(rel(cache[k], want_out[1][k][:, b0:b0 + logits.shape[0]]) for k in "kv")
+                res["lm"][key] = entry
+                del got
+            del want_out
+            torch.cuda.empty_cache()
+    res["lm_s"] = time.perf_counter() - t
+    read_counts(f"world 1x2 and 2x1 LM cells (phase 15b), rank {rank}")
+
+    # ---- (c) one olmoe MoE layer, `local` over model = 2 ----
+    t = time.perf_counter()
+    mspec = get_spec(MOE_ARCH)
+    mcfg = mspec.model_cfg.moe
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    res["moe"] = {}
+    zero_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        full = tree_map(lambda a: a.to(dev), moe.init_moe_params(gen.manual_seed(7), mspec.model_cfg.d_model, mcfg,
+                                                                 dtype))
+        # a direction every token shares skews the routing, so the config's
+        # capacity drops pairs
+        x = torch.randn((1, WORLD_MOE_TOKENS, mspec.model_cfg.d_model), generator=gen.manual_seed(8))
+        x = (x + 2.0 * torch.randn((mspec.model_cfg.d_model,), generator=gen)).to(dev, dtype)
+        specs = {"router": P(), "w_gate": P("model"), "w_up": P("model"), "w_down": P("model")}
+        local = shard_tree(full, specs, m12)
+        nodrop = dataclasses.replace(mcfg, capacity_factor=MOE_NO_DROP, dispatch="local")
+        want_y, want_aux = moe._moe_sort(x.reshape(-1, x.shape[-1]), full, nodrop)
+        with use_mesh(m12):
+            y, aux = moe.moe_ffn(x, local, nodrop)
+            dropped = moe.dropped_slots(x, local, dataclasses.replace(mcfg, dispatch="local"))
+            dropped_cpu = moe.dropped_slots(x.cpu(), {"router": local["router"].cpu()},
+                                            dataclasses.replace(mcfg, dispatch="local"))
+            y_cap, _ = moe.moe_ffn(x, local, dataclasses.replace(mcfg, dispatch="local"))
+        name = str(dtype).replace("torch.", "")
+        res["moe"][name] = {"y_rel": rel(y.reshape(want_y.shape), want_y), "aux": float(aux), "aux_want": float(want_aux),
+                            "dropped": int(dropped.sum()), "dropped_equal_cpu": bool(torch.equal(dropped.cpu(), dropped_cpu)),
+                            "y_cap_finite": bool(torch.isfinite(y_cap).all())}
+        del full, local
+    res["moe_s"] = time.perf_counter() - t
+    read_counts(f"world 1x2 olmoe MoE layer (phase 15c), rank {rank}")
+
+    # ---- (d) the int8 gradient all-reduce over `pod` ----
+    t = time.perf_counter()
+    mpod = make_device_mesh((2, 1, 1), ("pod", "data", "model"), backend=WORLD_BACKEND, device="cuda")
+    cspec = get_spec(LM_ARCH)
+    shapes = transformer.param_shapes(dataclasses.replace(cspec.model_cfg, n_layers=WORLD_COMPRESS_LAYERS))
+    gen = torch.Generator(device="cpu").manual_seed(1000 + rank)
+    grads_cpu = tree_map(lambda m: torch.randn(m.shape, generator=gen) * 1e-3, shapes)
+    err_cpu = tree_map(lambda g: torch.randn(g.shape, generator=gen) * 1e-5, grads_cpu)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    g_dev, e_dev = tree_map(lambda a: a.to(dev), grads_cpu), tree_map(lambda a: a.to(dev), err_cpu)
+    torch.cuda.synchronize(dev)
+    ev0.record()
+    out_dev, err_dev = compressed_grad_allreduce(g_dev, e_dev, mpod, "pod")
+    ev1.record()
+    ev1.synchronize()
+    out_cpu, err_new_cpu = compressed_grad_allreduce(grads_cpu, err_cpu, mpod, "pod")
+    res["compress"] = {
+        "leaves": len(tree_leaves(grads_cpu)), "elements": sum(g.numel() for g in tree_leaves(grads_cpu)),
+        "ms": ev0.elapsed_time(ev1),
+        "out_equal": all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(out_dev), tree_leaves(out_cpu))),
+        "err_equal": all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(err_dev), tree_leaves(err_new_cpu))),
+        "s": time.perf_counter() - t}
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def world_start(procs: list, argv: list[str], out: Path | None = None):
+    """``python -m torch.distributed.run --standalone --nproc-per-node N
+    <argv>`` (the world's processes import torch and the port only)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "4"}
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", *argv], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs.append(proc)
+    return proc, time.perf_counter()
+
+
+def world_finish(started, label: str, timeout: float = 600) -> str:
+    proc, t_start = started
+    out, err = proc.communicate(timeout=timeout)
+    require(proc.returncode == 0, f"{label} exited {proc.returncode}: {out[-2000:]}\n{err[-4000:]}")
+    print(f"{label}: {time.perf_counter() - t_start:.1f} s (process wall)")
+    return out
+
+
+def world_phase(torch, dev, path_launches: dict) -> dict:
+    """Phase 15 (see the module docstring), its worlds' launch counts added
+    to ``path_launches``; returns its summary."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.proximity import proximity_window
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.tree import tree_leaves
+
+    t15 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary: dict = {"backend_world2": WORLD_BACKEND, "backend_world1": "nccl"}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_world_"))
+    procs: list = []
+    try:
+        # ---- a world of one over NCCL: bit for bit the port without a mesh ----
+        dist.init_process_group("nccl", init_method=f"file://{work / 'nccl1'}", rank=0, world_size=1)
+        m1 = make_device_mesh((1, 1), ("data", "model"), backend="nccl", device="cuda")
+        same = {}
+        for arch, shape, spec in [("paper_search", "serve_online", None)] + [
+                (LM_ARCH, s, world_lm_spec(s)) for s in WORLD_LM_CELLS]:
+            a = dryrun.run_cell(arch, shape, verbose=False, device=dev, repeats=0, spec=spec, keep_outputs=True)
+            b = dryrun.run_cell(arch, shape, verbose=False, dmesh=m1, repeats=0, spec=spec, keep_outputs=True)
+            require(a["status"] == "ok" and b["status"] == "ok", f"{shape}: {a.get('error')} {b.get('error')}")
+            la, lb = tree_leaves(a["outputs"]), tree_leaves(b["outputs"])
+            same[shape] = len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+            require(same[shape], f"world of one (nccl) {shape} != no mesh")
+            require(b["collective_total_per_device"] == 0, f"world of one counted collectives {b['collective_bytes_per_device']}")
+        dist.destroy_process_group()
+        print(f"world of one over nccl == no mesh, bit for bit: {same}")
+        summary["world1_equal"] = same
+        # the one-program fold of the serve cells, for the world of two
+        fold = {}
+        for shape in WORLD_SERVE:
+            rec = dryrun.run_cell("paper_search", shape, verbose=False, device=dev, keep_outputs=True)
+            require(rec["status"] == "ok", f"{shape}: {rec.get('error')}")
+            fold[shape] = {k: v.cpu() for k, v in rec.pop("outputs").items()}
+            print(f"15a {shape}, the one-program fold of 256 shards (no mesh): wall "
+                  f"{[round(x, 3) for x in rec['wall_ms']]} ms, peak {rec['peak_bytes'] / 2**20:.1f} MiB")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t15 = phase("world of one over nccl, the one-program fold (15)", t15)
+
+        world = world_start(procs, ["--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--world-worker", str(work)])
+        world_finish(world, "world of two (gloo on the card, chip_smoke.py --world-worker)")
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        # ---- (a) serving ----
+        for shape in WORLD_SERVE:
+            got = torch.load(work / f"serve_{shape}.pt")
+            want = fold[shape]
+            require(torch.equal(got["top_docs"], want["top_docs"]), f"{shape}: world top_docs != the fold's")
+            require(torch.equal(got["n_fragments"], want["n_fragments"]), f"{shape}: world n_fragments != the fold's")
+            require(torch.allclose(got["top_scores"], want["top_scores"], rtol=1e-5, atol=0),
+                    f"{shape}: world top_scores != the fold's")
+            require(ranks[0]["serve"][shape]["digest"] == ranks[1]["serve"][shape]["digest"],
+                    f"{shape}: the ranks returned different results")
+            for r in ranks:
+                e = r["serve"][shape]
+                require(e["cover_launches"] == e["calls"], f"rank {r['rank']} {shape}: {e['cover_launches']} cover "
+                                                           f"launches in {e['calls']} calls")
+                print(f"15a {shape} rank {r['rank']} ({WORLD_BACKEND}, mesh 1x2): wall {[round(x, 3) for x in e['wall_ms']]}"
+                      f" ms, cover launches {e['cover_launches']} in {e['calls']} calls, all-gather "
+                      f"{json.dumps(e['collectives'])} B, peak {e['peak_mib']:.1f} MiB, inputs {e['input_shapes'][:2]}")
+            print(f"15a {shape}: top_docs and n_fragments == the one-program fold, top_scores within rtol 1e-5")
+        summary["serve"] = {shape: [r["serve"][shape] for r in ranks] for shape in WORLD_SERVE}
+        for r in ranks:
+            path_launches.update(r["launches"])
+            for path, counts in r["launches"].items():
+                if "15a" not in path:
+                    require(all(v == 0 for v in counts.values()), f"{path} launched a search kernel: {counts}")
+        # ---- (b) the LM cells ----
+        for key, e in ranks[0]["lm"].items():
+            f32 = "float32" in key
+            for r in ranks:
+                ee = r["lm"][key]
+                print(f"15b {key} rank {r['rank']} ({WORLD_BACKEND}): batch {json.dumps(ee['batch'])}, wall "
+                      f"{[round(x, 1) for x in ee['wall_ms']]} ms (unsharded on this rank "
+                      f"{[round(x, 1) for x in ee['wall_ms_unsharded']]} ms), peak {ee['peak_mib']:.1f} MiB, "
+                      f"collectives {json.dumps(ee['collectives'])} B")
+            if "train_4k" in key:
+                tol_p = 1e-5 if f32 else LM_BF16_REL
+                tol_m = 1e-4 if f32 else LM_BF16_REL
+                print(f"15b {key}: metrics {e['metrics']} vs no mesh {e['metrics_want']} (rel {e['metrics_rel']:.2e}), "
+                      f"params rel {e['params_rel']:.2e}")
+                require(e["metrics_rel"] <= tol_m and e["params_rel"] <= tol_p, f"15b {key}: beyond tolerance")
+            else:
+                for r in ranks:
+                    ee = r["lm"][key]
+                    print(f"15b {key} rank {r['rank']}: logits rel {ee['logits_rel']:.2e}, cache rel {ee['cache_rel']:.2e}")
+                    require(ee["logits_rel"] <= LM_BF16_REL and ee["cache_rel"] <= LM_BF16_REL, f"15b {key}: beyond 2e-2")
+        summary["lm"] = {key: [r["lm"][key] for r in ranks] for key in ranks[0]["lm"]}
+        # ---- (c) MoE and (d) compression ----
+        for r in ranks:
+            for name, e in r["moe"].items():
+                tol = 1e-5 if name == "float32" else LM_BF16_REL
+                print(f"15c olmoe layer {name} rank {r['rank']}: local (1x2) vs sort, no drops: y rel {e['y_rel']:.2e}, "
+                      f"aux {e['aux']:.6f} vs {e['aux_want']:.6f}; at the config's capacity {e['dropped']} pairs dropped, "
+                      f"== the same world on the CPU: {e['dropped_equal_cpu']}")
+                require(e["y_rel"] <= tol and e["dropped_equal_cpu"] and e["y_cap_finite"], f"15c {name} rank {r['rank']}")
+                require(abs(e["aux"] - e["aux_want"]) <= 1e-4 * abs(e["aux_want"]), f"15c {name}: aux")
+            c = r["compress"]
+            print(f"15d compressed_grad_allreduce rank {r['rank']}: {c['leaves']} leaves, {c['elements']:,} elements, "
+                  f"{c['ms']:.1f} ms on the card; output == cpu {c['out_equal']}, residual == cpu {c['err_equal']}")
+            require(c["out_equal"] and c["err_equal"], f"15d rank {r['rank']}: card != cpu")
+        summary["moe"] = [r["moe"] for r in ranks]
+        summary["compress"] = [r["compress"] for r in ranks]
+        summary["worker_s"] = {k: [r[k] for r in ranks] for k in ("serve_s", "lm_s", "moe_s")}
+        t15 = phase("world of two: serving, LM, MoE, compression (15a-d)", t15)
+
+        # ---- the entry points' own command lines in worlds of two ----
+        dry = world_start(procs, ["--nproc-per-node", "2", "-m", "repro_torch.launch.dryrun", "--arch", "paper_search",
+                                  "--shape", "serve_online", "--mesh", "1x2", "--backend", WORLD_BACKEND,
+                                  "--out", str(work / "dryrun")])
+        train = world_start(procs, ["--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                                    "--steps", "2", "--mesh", "1x2", "--backend", WORLD_BACKEND])
+        dry_out = world_finish(dry, "python -m torch.distributed.run -m repro_torch.launch.dryrun --mesh 1x2")
+        rec = json.loads(next((work / "dryrun").glob("*.json")).read_text())
+        require(rec["status"] == "ok" and rec["device_mesh"] == "1x2" and rec["backend"] == WORLD_BACKEND,
+                f"the dry-run CLI's record: {rec.get('status')} {rec.get('device_mesh')}")
+        print("  " + " | ".join(ln for ln in dry_out.splitlines() if ln.startswith("[dryrun]")))
+        train_out = world_finish(train, "python -m torch.distributed.run -m repro_torch.launch.train --mesh 1x2")
+        steps = [ln for ln in train_out.splitlines() if ln.startswith(("step", "done"))]
+        print("  " + " | ".join(steps))
+        require(len(steps) == 3, f"the trainer printed {steps}")
+        phase("the dry-run and trainer command lines in worlds of two (15)", t15)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
 def new_families(phases: list[int], threads: int) -> dict:
     """Phases 12, 13 and 14, as selected, in this process (the card child of
     a whole run): their summaries and their launch counts by path."""
@@ -1493,6 +1874,8 @@ def new_families(phases: list[int], threads: int) -> dict:
     if 14 in phases:
         out["gnn"] = gnn_phase(torch, dev, zero_counts, read_counts)
         out["cost"] = cost_phase(torch, dev, zero_counts, read_counts)
+    if 15 in phases:
+        out["world"] = world_phase(torch, dev, path_launches)
     out["launches_by_path"] = path_launches
     return out
 
@@ -1556,7 +1939,7 @@ def parse_phases(text: str) -> set[int]:
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
     if not phases <= ALL_PHASES:
-        raise argparse.ArgumentTypeError(f"phases are 1-14, not {sorted(phases - ALL_PHASES)}")
+        raise argparse.ArgumentTypeError(f"phases are 1-15, not {sorted(phases - ALL_PHASES)}")
     return phases | (SEARCH_PHASES if phases & SEARCH_PHASES else set())
 
 
@@ -1564,7 +1947,11 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", type=parse_phases, default=ALL_PHASES,
                     help="the phases to run, e.g. 12,13 or 3-10 (default: all; see the module docstring)")
-    phases = ap.parse_args(argv).phases
+    ap.add_argument("--world-worker", default=None, help=argparse.SUPPRESS)  # one rank of phase 15's world
+    parsed = ap.parse_args(argv)
+    if parsed.world_worker is not None:
+        return world_worker(parsed.world_worker)
+    phases = parsed.phases
     procs: list = []  # every process the run starts beside its phases
     try:
         return _main(procs, phases)

@@ -15,6 +15,13 @@ bfloat16 leaf is stored as raw 2-byte words under the reference's header
 is the reference's byte for byte and no ml_dtypes is needed to read it back.
 Unlike the reference, whose restore returns such leaves as raw ``V2`` arrays,
 ``restore_checkpoint`` reads ``leaf_dtypes`` and returns ``torch.bfloat16``.
+
+Checkpoints are layout-free (elastic resume, DESIGN.md §12.4).  A save in a
+world of ranks (``mesh=`` and ``specs=``, the payload's partition specs)
+gathers every leaf whole (``parallel.sharding.gather_tree``) and rank 0
+writes it, so the files are those a one-rank save of the same state
+writes; a restore with ``mesh=`` and ``specs=`` gives each rank its slices
+of the leaves under the current mesh, whatever the world that saved them.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.convert import leaf_from_numpy, leaf_to_numpy
+from ..parallel.sharding import gather_tree, shard_tree
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten, treedef_str
 
 __all__ = [
@@ -150,10 +158,35 @@ def _savez(path: Path, leaves: list[np.ndarray], bf16: list[bool]) -> None:
                 fid.write(leaf.tobytes(order="C"))
 
 
-def save_checkpoint(directory: str | Path, step: int, payload: Any, keep: int = 3) -> Path:
+def _whole(payload: Any, mesh, specs: Any) -> Any:
+    """Every tensor leaf of ``payload`` gathered whole under ``specs``."""
+    if mesh is None or mesh.size == 1:
+        return payload
+    return tree_map(lambda x, s: gather_tree(x, s, mesh) if isinstance(x, torch.Tensor) else x, payload, specs)
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group(mesh.axis_names))
+
+
+def save_checkpoint(directory: str | Path, step: int, payload: Any, keep: int = 3, *, mesh=None,
+                    specs: Any = None) -> Path:
     """Atomic synchronous save of a tree ``payload`` of tensors and numpy
     arrays (DESIGN.md §12.4 write protocol: tmp dir -> manifest fsync ->
-    rename)."""
+    rename).  In a world (``mesh``), ``payload`` is this rank's shards
+    under ``specs`` (a tree like it): every rank calls it, the leaves are
+    gathered and rank 0 writes them; every rank returns once they are
+    durable."""
+    if mesh is not None and mesh.size > 1:
+        whole = _whole(payload, mesh, specs)
+        path = Path(directory) / f"step_{step}"
+        if mesh.rank == 0:
+            path = save_checkpoint(directory, step, whole, keep)
+        _barrier(mesh)
+        return path
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"step_{step}.tmp"
@@ -190,10 +223,14 @@ def restore_checkpoint(
     step: int | None = None,
     *,
     device="cuda",
+    mesh=None,
+    specs: Any = None,
 ) -> tuple[Any, int] | None:
     """Restore the checkpoint at ``step`` (default the latest) into the
     structure of ``template``, every leaf a tensor on ``device`` (bfloat16
-    where the manifest says so); ``None`` when there is none."""
+    where the manifest says so); ``None`` when there is none.  With
+    ``mesh`` and ``specs`` (a tree like ``template``), each leaf is this
+    rank's slice of it under the current mesh (elastic resume)."""
     directory = Path(directory)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -211,7 +248,10 @@ def restore_checkpoint(
         if (dtype == "bfloat16") != (a.dtype.kind == "V" and a.dtype.itemsize == 2):
             raise ValueError(f"{path}: a leaf of dtype {a.dtype} named {dtype} in the manifest")
         leaves.append(leaf_from_numpy(a, device))
-    return tree_unflatten(treedef, leaves), step
+    tree = tree_unflatten(treedef, leaves)
+    if mesh is not None and mesh.size > 1:
+        tree = shard_tree(tree, specs, mesh)
+    return tree, step
 
 
 class CheckpointManager:
@@ -224,10 +264,15 @@ class CheckpointManager:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
-    def save_async(self, step: int, payload: Any) -> None:
+    def save_async(self, step: int, payload: Any, *, mesh=None, specs: Any = None) -> None:
         """Copy ``payload`` to host memory on the calling thread, then write
-        it on a background thread."""
+        it on a background thread.  In a world (``mesh``, ``specs`` as for
+        ``save_checkpoint``), every rank calls it: the leaves are gathered
+        on the calling thread and rank 0 writes them."""
         self.wait()  # one in flight at a time (double buffering)
+        payload = _whole(payload, mesh, specs)
+        if mesh is not None and mesh.size > 1 and mesh.rank != 0:
+            return
         host = tree_map(
             lambda x: x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else np.array(x), payload)
 
@@ -248,5 +293,5 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, template: Any, *, device="cuda"):
-        return restore_checkpoint(self.directory, template, device=device)
+    def restore_latest(self, template: Any, *, device="cuda", mesh=None, specs: Any = None):
+        return restore_checkpoint(self.directory, template, device=device, mesh=mesh, specs=specs)

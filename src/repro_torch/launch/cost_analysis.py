@@ -33,8 +33,15 @@ such a copy does not happen.  The three hand-written kernels are ``ctypes``
 launches, which the mode cannot see: each wrapper charges its own bytes and
 work (the figures its roofline bound is computed from) through
 :func:`kernel_cost`, and the mode charges nothing inside it, so the plain
-version a CPU tensor takes counts the same as the kernel.  The port runs on
-one card: nothing is collective, and ``collectives`` stays empty.
+version a CPU tensor takes counts the same as the kernel.
+
+A collective (a ``c10d`` op, as ``torch.distributed`` dispatches it on
+gloo and NCCL alike) is charged, besides its bytes, to ``collectives`` by
+its result bytes under the reference's names (``analyze_hlo``):
+``allreduce_`` as ``all-reduce``, ``_allgather_base_`` as ``all-gather``, ``_reduce_scatter_base_`` as ``reduce-scatter``,
+``alltoall_base_`` as ``all-to-all``.  Only a group of more than one rank is
+charged, as XLA elides a one-device collective; with no mesh, nothing is
+collective and ``collectives`` stays empty.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["ProgramCost", "CostCounter", "count_cost", "kernel_cost", "op_cost"]
+__all__ = ["ProgramCost", "CostCounter", "collective_cost", "count_cost", "kernel_cost", "op_cost"]
 
 
 @dataclasses.dataclass
@@ -89,6 +96,34 @@ _FREE = {"detach", "alias", "lift_fresh", "_unsafe_view", "_reshape_alias", "emp
          "empty_strided", "new_empty", "new_empty_strided", "_local_scalar_dense", "_pin_memory", "set",
          "resize", "record_stream", "_conj", "_neg_view", "is_pinned"}
 _COPIES = {"clone", "copy", "lift_fresh_copy", "_to_copy"}
+
+
+_COLLECTIVES = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather",
+                "_reduce_scatter_base_": "reduce-scatter", "alltoall_base_": "all-to-all"}
+
+
+def collective_cost(func, args: tuple) -> tuple[str, float] | None:
+    """(the reference's name, result bytes) of a ``c10d`` collective over a
+    group of more than one rank; None for anything else."""
+    if func.namespace != "c10d":
+        return None
+    name = func.overloadpacket.__name__
+    if name not in _COLLECTIVES:
+        return None
+    import torch.distributed as dist
+
+    size = None
+    for a in args:
+        if isinstance(a, torch._C.ScriptObject):
+            try:
+                size = dist.ProcessGroup.unbox(a).size()
+                break
+            except RuntimeError:  # another custom class (a ReduceOp)
+                continue
+    if size is None or size <= 1:
+        return None
+    # each writes its result into its first argument
+    return _COLLECTIVES[name], float(_nbytes(_tensors(args[0])))
 
 
 def _nbytes(ts) -> int:
@@ -208,6 +243,9 @@ class CostCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not self.suspended:
             self.charge(str(func), *op_cost(func, args, kwargs, out))
+            coll = collective_cost(func, args)
+            if coll is not None:
+                self.cost.collectives[coll[0]] = self.cost.collectives.get(coll[0], 0.0) + coll[1]
         return out
 
 

@@ -29,13 +29,24 @@ Each record also carries the reference's per-device cost fields
 (``flops_per_device``, ``hbm_bytes_per_device``,
 ``collective_bytes_per_device``, ``collective_total_per_device``), counted
 by ``launch/cost_analysis.count_cost`` on the cell's first, untimed call,
-so the timed calls run without the counter.  On one card they are the cost
-of the work the cell runs (an LM cell's data-rank share), beside
-``model_flops_share``; nothing is collective.  The reference's
+so the timed calls run without the counter.  They are the cost of the work
+the cell runs on this rank (an LM cell's data-rank share), beside
+``model_flops_share``; with no world, nothing is collective.  The reference's
 ``xla_cost_flops_raw``, ``lower_s``, ``compile_s`` and XLA memory fields
 have no counterpart here and are not written.  Records of cells that ran
 are cached in ``--out`` and skipped on the next run; the exit code is 1
 when any cell failed.
+
+Started by ``python -m torch.distributed.run --nproc-per-node N`` (or with
+``--mesh``), the run is one world of ranks on a ``DeviceMesh`` of
+``--mesh DATAxMODEL`` (default: the whole world on ``data``) over
+``--backend`` (default ``nccl`` on the card, ``gloo`` on the CPU): every
+rank draws the same inputs from the seed and keeps its slice of each under
+the cell's ``in_specs`` (``parallel.sharding.shard_tree``); an LM cell's
+data-rank share is split again over the world's data axes, and a serve
+cell's NS shards over all of its ranks.  The record adds ``device_mesh``,
+``backend`` and the collectives the first call ran, counted per rank; only
+rank 0 prints and writes it.
 """
 
 from __future__ import annotations
@@ -49,15 +60,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..configs import ARCH_IDS, ArchSpec, get_spec
 from ..data.pipeline import LMTokenPipeline, RecsysBatchPipeline
 from ..data.sampler import random_graph
 from ..models import gnn, recsys, transformer
 from ..optim import adamw_init
+from ..parallel.sharding import sanitize_specs, shard_tree
 from ..tree import tree_leaves
 from .cost_analysis import count_cost
-from .mesh import MeshLayout, make_production_mesh
+from .mesh import DeviceMesh, MeshLayout, make_device_mesh, make_production_mesh, parse_mesh, world_from_env
 from .steps import Cell, build_cell
 
 __all__ = ["cell_inputs", "gnn_batch", "recsys_batch", "run_cell", "main"]
@@ -286,7 +299,7 @@ def _check_outputs(cell: Cell, cfg, out, args: tuple) -> dict:
             raise AssertionError(f"build outputs: histogram {tuple(hist.shape)} summing to "
                                  f"{int(hist.sum())}, n_postings {int(total)}")
         return {"n_postings": int(total)}
-    ns, b = cell.abstract_args[0].shape[:2]
+    ns, b = cell.abstract_args[0].shape[:2]  # every shard, whatever the world
     c_loc = cell.abstract_args[1].shape[2]
     k = min(cfg.top_k, ns * min(cfg.top_k, c_loc))
     docs, scores, nfrag = out["top_docs"], out["top_scores"], out["n_fragments"]
@@ -307,16 +320,20 @@ def _shapes(x):
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = True, *, device="cuda",
-             repeats: int = REPEATS, spec: ArchSpec | None = None) -> dict:
+             repeats: int = REPEATS, spec: ArchSpec | None = None, dmesh: DeviceMesh | None = None,
+             keep_outputs: bool = False) -> dict:
     """Run one cell on ``device`` at the layout's shard count: one call,
     counted (``cost_analysis.count_cost``), then ``repeats`` timed calls on
     inputs from seed 0.  ``spec`` replaces the registry's (a config cut to
-    fit one card)."""
+    fit one card).  ``dmesh`` runs it in a world of ranks, each on its
+    slices of the inputs (every rank calls it).  ``keep_outputs`` keeps
+    the first call's outputs under ``"outputs"`` (not JSON)."""
     spec = spec or get_spec(arch)
     cell_meta = spec.shapes[shape]
     mesh = make_production_mesh(multi_pod=multi_pod)
-    dev = torch.device(device)
+    dev = torch.device(device) if dmesh is None else dmesh.device
     on_card = dev.type == "cuda"
+    verbose = verbose and (dmesh is None or dmesh.rank == 0)
     rec: dict = {
         "arch": arch, "shape": shape, "step": cell_meta.step,
         "mesh": "x".join(str(s) for s in mesh.shape),
@@ -325,13 +342,15 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
         "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if on_card else "cpu",
     }
+    if dmesh is not None:
+        rec.update(device_mesh=str(dmesh), backend=dmesh.backend, world=dmesh.size, rank=dmesh.rank)
     if cell_meta.skip_reason is not None:
         rec["status"] = "skipped"
         rec["skip_reason"] = cell_meta.skip_reason
         return rec
     t0 = time.perf_counter()
     try:
-        cell = build_cell(spec, shape, mesh)
+        cell = build_cell(spec, shape, mesh, dmesh)
         cfg = spec.cfg_for(shape)
         lm = spec.family == "lm"
         share = None
@@ -344,12 +363,17 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
             torch.cuda.reset_peak_memory_stats(dev)
             base_bytes = torch.cuda.memory_allocated(dev)
         args = cell_inputs(cell, cfg, device=dev, batch=share)
+        if dmesh is not None:
+            # every rank drew the same inputs: keep this rank's slices
+            args = tuple(shard_tree(a, sanitize_specs(s, a, dmesh), dmesh) for a, s in zip(args, cell.in_specs))
         if on_card:
             torch.cuda.synchronize(dev)
         t_inputs = time.perf_counter() - t0
         t_first = time.perf_counter()
         out, cost = count_cost(cell.fn, *args)
         summary = _check_outputs(cell, cfg, out, args)
+        if keep_outputs:
+            rec["outputs"] = out
         del out
         if on_card:
             torch.cuda.synchronize(dev)
@@ -396,7 +420,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, verbose: bool = Tru
             peak = f"{rec['peak_bytes'] / 2**20:.1f} MiB" if on_card else "not measured"
             rate = (f" share {rec['model_flops_share'] / min(wall_ms) / 1e9:.1f} model TFLOP/s"
                     if lm and on_card else "")
-            print(f"[dryrun] {arch} x {shape} ({rec['mesh']}, {rec['device_name']}): OK "
+            world = f", world {dmesh} {dmesh.backend}" if dmesh is not None else ""
+            print(f"[dryrun] {arch} x {shape} ({rec['mesh']}{world}, {rec['device_name']}): OK "
                   f"wall={min(wall_ms):.3f} ms (of {repeats}) peak={peak}{rate} "
                   f"flops/dev={cost.flops:.3e} hbm/dev={cost.hbm_bytes:.3e} "
                   f"coll/dev={cost.collective_bytes:.3e}B first={t_first:.2f}s {summary}")
@@ -419,7 +444,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL (or PODxDATAxMODEL) of the world's ranks; default: the whole world on data")
+    ap.add_argument("--backend", default=None, help="the world's process group: nccl (default on cuda) or gloo")
     args = ap.parse_args(argv)
+
+    dmesh = None
+    world = world_from_env()
+    if world > 1 or args.mesh is not None:
+        shape, names = parse_mesh(args.mesh, world)
+        backend = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+        dmesh = make_device_mesh(shape, names, backend=backend, device=args.device)
+    lead = dmesh is None or dmesh.rank == 0
 
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -438,18 +474,26 @@ def main(argv: list[str] | None = None) -> None:
     for multi_pod in meshes:
         for arch, shape in targets:
             tag = "multipod" if multi_pod else "singlepod"
+            if dmesh is not None:
+                tag += f"__world{dmesh}"
             safe_shape = shape.replace("[", "_").replace("]", "")
             path = outdir / f"{arch}__{safe_shape}__{tag}.json"
-            if path.exists():
+            if dmesh is None and path.exists():
                 prev = json.loads(path.read_text())
                 if prev.get("status") in ("ok", "skipped"):
                     print(f"[dryrun] {arch} x {shape} ({tag}): cached")
                     continue
-            rec = run_cell(arch, shape, multi_pod, device=args.device)
-            path.write_text(json.dumps(rec, indent=2))
+            rec = run_cell(arch, shape, multi_pod, device=args.device, dmesh=dmesh)
+            if lead:
+                path.write_text(json.dumps(rec, indent=2))
             if rec["status"] == "error":
                 n_fail += 1
-    print(f"[dryrun] done; {n_fail} failures")
+                if not lead:  # rank 0 prints only its own
+                    print(f"[dryrun] rank {dmesh.rank}: {arch} x {shape}: FAIL {rec['error'][:200]}")
+    if lead:
+        print(f"[dryrun] done; {n_fail} failures")
+    if dmesh is not None:
+        torch.distributed.destroy_process_group()
     raise SystemExit(1 if n_fail else 0)
 
 

@@ -1,16 +1,26 @@
-"""Cell builder: (architecture, shape) -> step function + abstract inputs.
+"""Cell builder: (architecture, shape) -> step function + abstract inputs +
+partition specs.
 
 The reference's ``launch/steps.py`` for the LM cells (train, prefill,
 decode; dense and MoE), the GNN train cells, the recsys cells (train,
 score, retrieval) and the ``paper_search`` cells; the dry-run and the
-trainer share it.  The abstract
-inputs are ``device="meta"`` tensors, which carry the reference's shapes and
-dtypes and allocate nothing (the counterpart of ``jax.ShapeDtypeStruct``);
-every cell's are at its global batch.  The reference also gives each cell
-partition specs over its device mesh; on one card there is no mesh, and the
-layout's size only sets the number of cluster shards a serve cell folds into
-one program (``search/serving_step.serve_step_sharded``); a GNN cell's
-``shard_nodes`` (the reference's node-sharded batch specs) has no effect.
+trainer share it.  The abstract inputs are ``device="meta"`` tensors,
+which carry the reference's shapes and dtypes and allocate nothing (the
+counterpart of ``jax.ShapeDtypeStruct``); every cell's are at its global
+batch.  Each cell carries the reference's ``in_specs`` (``sanitize_specs``
+of the rules in ``parallel/sharding.py``) over the mesh it runs under.
+
+``mesh`` is the production layout, whose size is the number of cluster
+shards (NS) a serve cell folds into one program.  ``dmesh``, a
+``DeviceMesh``, runs the cell in a world of ranks: every argument of
+``fn`` is then this rank's slice under ``in_specs`` (``shard_tree``).  A
+serve cell's ranks each cover their NS/W shards and all-gather the top-k
+lists; an LM train or prefill cell runs data, tensor and expert
+parallelism, with FSDP where the config asks (``models/transformer.py``),
+the gradients of every leaf replicated over a data axis all-reduced over
+it, AdamW on the shards.  An LM decode cell under a model axis of more than
+one rank, and every recsys and GNN cell under more than one rank, raise
+``NotImplementedError``: their sharded layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,11 +33,22 @@ import torch
 from ..configs.common import ArchSpec, ShapeCell
 from ..models import gnn, recsys, transformer
 from ..optim import AdamWConfig, adamw_init, adamw_update, cast_like, global_norm
+from ..parallel.collectives import all_reduce
+from ..parallel.sharding import (
+    P,
+    batch_specs,
+    data_axes,
+    gnn_specs,
+    lm_param_specs,
+    recsys_param_specs,
+    sanitize_specs,
+    spec_axes,
+)
 from ..search.serving_step import build_step, serve_step_sharded
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-from .mesh import MeshLayout
+from .mesh import DeviceMesh, MeshLayout, use_mesh
 
-__all__ = ["Cell", "build_cell", "input_specs"]
+__all__ = ["Cell", "build_cell", "input_specs", "sanitize_specs", "sync_grads"]
 
 
 def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
@@ -43,6 +64,31 @@ class Cell:
     abstract_args: tuple
     model_flops_fn: Callable[[], float]  # useful-work model
     notes: str = ""
+    in_specs: tuple = ()  # one spec tree per argument, over the mesh it runs under
+
+
+def _rep_like(tree: Any) -> Any:
+    return tree_map(lambda _: P(), tree)
+
+
+def sync_grads(grads: Any, specs: Any, mesh: DeviceMesh | None) -> Any:
+    """Each leaf's gradient summed over the data axes (``pod``, ``data``)
+    that do not shard it: those ranks ran other rows of the batch on the
+    same weights.  A leaf sharded over ``data`` (FSDP) got its sum from the
+    gather's reduce-scatter."""
+    if mesh is None or mesh.size == 1:
+        return grads
+    da = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+    def one(g, spec):
+        axes = tuple(a for a in da if a not in spec_axes(spec))
+        return all_reduce(g, mesh, axes) if axes else g
+
+    return tree_map(one, grads, specs)
+
+
+def _world(dmesh: DeviceMesh | None) -> DeviceMesh | None:
+    return dmesh if dmesh is not None and dmesh.size > 1 else None
 
 
 def _value_and_grad(loss_fn, params, batch, cfg, **kwargs):
@@ -55,7 +101,7 @@ def _value_and_grad(loss_fn, params, batch, cfg, **kwargs):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(treedef, list(grads))
 
 
-def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
     cfg: transformer.TransformerConfig = spec.cfg_for(cell.name)
     if "sliding_window" in cell.kwargs:
         cfg = dataclasses.replace(cfg, sliding_window=cell.kwargs["sliding_window"])
@@ -64,44 +110,57 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
     p_shapes = transformer.param_shapes(cfg)
     n_tok = batch * seq
     n_active = cfg.active_param_count()
+    m = dmesh if dmesh is not None else mesh
+    da = data_axes(m)
+    tp = dict(zip(m.axis_names, m.shape))["model"]
+    p_specs = sanitize_specs(lm_param_specs(p_shapes, kv_shardable=(cfg.n_kv_heads % tp == 0), fsdp=cfg.fsdp),
+                             p_shapes, m)
+    world = _world(dmesh)
 
     if cell.step == "train":
         opt_cfg = AdamWConfig()
         o_shapes = adamw_init(p_shapes)
+        o_specs = {"m": p_specs, "v": p_specs, "master": p_specs, "step": P()}
         b_shapes = {k: _meta((batch, seq), torch.int32) for k in ("tokens", "targets", "mask")}
+        b_specs = sanitize_specs(batch_specs(b_shapes, m), b_shapes, m)
         n_micro = max(1, cfg.microbatches)
 
         def train_fn(params, opt_state, bat):
-            if n_micro > 1:
-                # gradient accumulation over contiguous row blocks: peak
-                # activation memory scales with B/n_micro instead of B
-                mbs = [{k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i] for k, v in bat.items()}
-                       for i in range(n_micro)]
-                gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-                dev = next(iter(bat.values())).device
-                nll = torch.zeros((), dtype=torch.float32, device=dev)
-                aux = torch.zeros((), dtype=torch.float32, device=dev)
-                for mb in mbs:
-                    _, metrics, grads = _value_and_grad(transformer.loss_fn, params, mb, cfg)
-                    for a, g in zip(tree_leaves(gacc), tree_leaves(grads)):
-                        a.add_(g)  # in float32: the accumulator is this step's own
-                    del grads
-                    nll = nll + metrics["nll"]
-                    aux = aux + metrics["aux"]
-                grads = tree_map(lambda g: g / n_micro, gacc)
-                nll, aux = nll / n_micro, aux / n_micro
-                loss = nll + cfg.aux_loss_weight * aux
-            else:
-                loss, metrics, grads = _value_and_grad(transformer.loss_fn, params, bat, cfg)
-                nll, aux = metrics["nll"], metrics["aux"]
-            master, new_state = adamw_update(grads, opt_state, opt_cfg)
-            out_metrics = {"loss": loss, "nll": nll, "aux": aux, "grad_norm": global_norm(grads)}
-            return cast_like(master, params), new_state, out_metrics
+            with use_mesh(dmesh):
+                if n_micro > 1:
+                    # gradient accumulation over contiguous row blocks (of
+                    # this rank's rows): peak activation memory scales with
+                    # B/n_micro instead of B
+                    mbs = [{k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i] for k, v in bat.items()}
+                           for i in range(n_micro)]
+                    gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+                    dev = next(iter(bat.values())).device
+                    nll = torch.zeros((), dtype=torch.float32, device=dev)
+                    aux = torch.zeros((), dtype=torch.float32, device=dev)
+                    for mb in mbs:
+                        _, metrics, grads = _value_and_grad(transformer.loss_fn, params, mb, cfg)
+                        for a, g in zip(tree_leaves(gacc), tree_leaves(grads)):
+                            a.add_(g)  # in float32: the accumulator is this step's own
+                        del grads
+                        nll = nll + metrics["nll"]
+                        aux = aux + metrics["aux"]
+                    grads = tree_map(lambda g: g / n_micro, gacc)
+                    nll, aux = nll / n_micro, aux / n_micro
+                    loss = nll + cfg.aux_loss_weight * aux
+                else:
+                    loss, metrics, grads = _value_and_grad(transformer.loss_fn, params, bat, cfg)
+                    nll, aux = metrics["nll"], metrics["aux"]
+                grads = sync_grads(grads, p_specs, world)
+                master, new_state = adamw_update(grads, opt_state, opt_cfg, specs=p_specs, mesh=world)
+                out_metrics = {"loss": loss, "nll": nll, "aux": aux,
+                               "grad_norm": global_norm(grads, specs=p_specs, mesh=world)}
+                return cast_like(master, params), new_state, out_metrics
 
         return Cell(
             arch_id=spec.arch_id, shape_name=cell.name, step="train",
             fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
             model_flops_fn=lambda: 6.0 * n_active * n_tok,
+            in_specs=(p_specs, o_specs, b_specs),
         )
 
     if cell.step == "prefill":
@@ -109,15 +168,19 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
 
         @torch.no_grad()
         def prefill_fn(params, bat):
-            return transformer.prefill_step(params, bat["tokens"], cfg)
+            with use_mesh(dmesh):
+                return transformer.prefill_step(params, bat["tokens"], cfg)
 
         return Cell(
             arch_id=spec.arch_id, shape_name=cell.name, step="prefill",
             fn=prefill_fn, abstract_args=(p_shapes, tok),
             model_flops_fn=lambda: 2.0 * n_active * n_tok,
+            in_specs=(p_specs, sanitize_specs(batch_specs(tok, m), tok, m)),
         )
 
     # decode (decode_32k / long_500k)
+    if world is not None and tp > 1:
+        raise NotImplementedError("sequence-sharded decode cache")
     dh = cfg.d_head
     cache_shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, dh)
     args = (
@@ -126,10 +189,20 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
         _meta((batch, 1), torch.int32),
         _meta((), torch.int32),
     )
+    # context-parallel decode in the reference: the cache's sequence dim
+    # over `model`
+    cache_spec = P(None, da, "model", None, None)
+    in_specs = (
+        p_specs,
+        sanitize_specs({"k": cache_spec, "v": cache_spec}, args[1], m),
+        sanitize_specs(P(da, None), args[2], m),
+        P(),
+    )
 
     @torch.no_grad()
     def decode_fn(params, cache, tokens, cache_len):
-        return transformer.decode_step(params, cache, tokens, cache_len, cfg)
+        with use_mesh(dmesh):
+            return transformer.decode_step(params, cache, tokens, cache_len, cfg)
 
     # useful work for one decoded token: active params + KV reads
     attended = min(seq, cfg.sliding_window or seq)
@@ -140,6 +213,7 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
         fn=decode_fn, abstract_args=args,
         model_flops_fn=lambda: flops,
         notes=f"sliding_window={cfg.sliding_window}",
+        in_specs=in_specs,
     )
 
 
@@ -148,7 +222,9 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
 # ---------------------------------------------------------------------------
 
 
-def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
+    if _world(dmesh) is not None:
+        raise NotImplementedError("GNN edge and node sharding")
     cfg: gnn.GATConfig = spec.cfg_for(cell.name)
     kw = cell.kwargs
     n, e, f = kw["n_nodes"], kw["n_edges"], kw["d_feat"]
@@ -181,10 +257,17 @@ def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
         flops += 6.0 * e * cfg.n_heads * do  # edge score + weighted aggregate
     flops *= 3  # fwd + bwd(2x)
 
+    m = dmesh if dmesh is not None else mesh
+    b_specs = gnn_specs(b_shapes, m, shard_nodes=kw.get("shard_nodes", False))
+    if task_graph:
+        b_specs["labels"] = P()
+        b_specs["label_mask"] = P()
     return Cell(
         arch_id=spec.arch_id, shape_name=cell.name, step="train",
         fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
         model_flops_fn=lambda: flops,
+        # GAT params are tiny: replicate
+        in_specs=(_rep_like(p_shapes), _rep_like(o_shapes), sanitize_specs(b_specs, b_shapes, m)),
     )
 
 
@@ -226,10 +309,15 @@ def _recsys_flops(cfg: recsys.RecsysConfig, batch: int) -> float:
     return per * batch
 
 
-def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
+    if _world(dmesh) is not None:
+        raise NotImplementedError("recsys row-sharded tables")
     cfg: recsys.RecsysConfig = spec.cfg_for(cell.name)
+    m = dmesh if dmesh is not None else mesh
     p_shapes = recsys.recsys_param_shapes(cfg)
+    p_specs = sanitize_specs(recsys_param_specs(p_shapes), p_shapes, m)
     b_shapes = _recsys_batch_shapes(cfg, cell)
+    b_specs = sanitize_specs(batch_specs(b_shapes, m), b_shapes, m)
 
     if cell.step == "train":
         opt_cfg = AdamWConfig(lr=1e-3, weight_decay=1e-5)
@@ -241,10 +329,12 @@ def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
             return cast_like(master, params), new_state, {"loss": loss}
 
         bsz = cell.kwargs["batch"]
+        o_specs = {"m": p_specs, "v": p_specs, "master": p_specs, "step": P()}
         return Cell(
             arch_id=spec.arch_id, shape_name=cell.name, step="train",
             fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
             model_flops_fn=lambda: 3.0 * _recsys_flops(cfg, bsz),
+            in_specs=(p_specs, o_specs, b_specs),
         )
 
     if cell.step == "score":
@@ -257,6 +347,7 @@ def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
             arch_id=spec.arch_id, shape_name=cell.name, step="score",
             fn=score_fn, abstract_args=(p_shapes, b_shapes),
             model_flops_fn=lambda: _recsys_flops(cfg, bsz),
+            in_specs=(p_specs, b_specs),
         )
 
     # retrieval: one context vs n_candidates
@@ -271,15 +362,20 @@ def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
         chunks = bat["cand_ids"].split(RETRIEVAL_CHUNK)
         return torch.cat([recsys.recsys_retrieval_score(params, {**bat, "cand_ids": ch}, cfg) for ch in chunks])
 
+    r_specs = {k: P() for k in b_shapes}
+    r_specs["cand_ids"] = P(data_axes(m))
     return Cell(
         arch_id=spec.arch_id, shape_name=cell.name, step="retrieval",
         fn=retrieval_fn, abstract_args=(p_shapes, b_shapes),
         model_flops_fn=lambda: _recsys_flops(cfg, c),
+        in_specs=(p_specs, sanitize_specs(r_specs, b_shapes, m)),
     )
 
 
-def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
+def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
     cfg = spec.model_cfg
+    m = dmesh if dmesh is not None else mesh
+    world = _world(dmesh)
     if cell.step == "serve":
         b = cell.kwargs["batch"]
         p = cell.kwargs["postings"]
@@ -296,45 +392,53 @@ def _search_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout) -> Cell:
             _meta((b, l), torch.int32),
         )
 
+        # the cluster-shard axis over every axis of the mesh the cell runs
+        # under: a rank covers its NS/W shards
+        shard_axes = tuple(m.axis_names)
+        in_specs = (P(shard_axes, None, None, None), P(shard_axes, None, None), P())
+
         def fn(postings, cluster_doc, mult):
             return serve_step_sharded(
                 postings, cluster_doc, mult,
-                max_distance=d, n_clusters=c_loc, window_len=n, top_k=cfg.top_k,
+                max_distance=d, n_clusters=c_loc, window_len=n, top_k=cfg.top_k, mesh=world,
             )
 
         # useful work: the window cover — (2D+1) window steps x L lemmas x N
         flops = float(b) * ns * c_loc * (2 * d + 1) * l * n * 4.0
         return Cell(
             arch_id=spec.arch_id, shape_name=cell.name, step="serve",
-            fn=fn, abstract_args=args, model_flops_fn=lambda: flops,
+            fn=fn, abstract_args=args, model_flops_fn=lambda: flops, in_specs=in_specs,
         )
 
     docs, doc_len = cell.kwargs["docs"], cell.kwargs["doc_len"]
     d = cfg.max_distance
     args = (_meta((docs, doc_len), torch.int32), _meta((docs, doc_len), torch.bool))
 
+    da = data_axes(m)
+    in_specs = (sanitize_specs(P(da, None), args[0], m), sanitize_specs(P(da, None), args[1], m))
+    # documents over the data axes: each rank's histogram, summed
+    sum_axes = in_specs[0][0] if world is not None else None
+
     def fn(tokens, is_stop):
-        return build_step(tokens, is_stop, max_distance=d, n_buckets=cfg.build_buckets)
+        out = build_step(tokens, is_stop, max_distance=d, n_buckets=cfg.build_buckets)
+        if sum_axes is None:
+            return out
+        return {k: all_reduce(v, world, sum_axes) for k, v in out.items()}
 
     n_off = d * (2 * d - 1)
     flops = float(docs) * doc_len * n_off * 6.0
     return Cell(
         arch_id=spec.arch_id, shape_name=cell.name, step="build",
-        fn=fn, abstract_args=args, model_flops_fn=lambda: flops,
+        fn=fn, abstract_args=args, model_flops_fn=lambda: flops, in_specs=in_specs,
     )
 
 
-def build_cell(spec: ArchSpec, shape_name: str, mesh: MeshLayout) -> Cell:
+def build_cell(spec: ArchSpec, shape_name: str, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
     cell = spec.shapes[shape_name]
-    if spec.family == "lm":
-        return _lm_cell(spec, cell, mesh)
-    if spec.family == "recsys":
-        return _recsys_cell(spec, cell, mesh)
-    if spec.family == "gnn":
-        return _gnn_cell(spec, cell, mesh)
-    if spec.family == "search":
-        return _search_cell(spec, cell, mesh)
-    raise ValueError(spec.family)
+    build = {"lm": _lm_cell, "recsys": _recsys_cell, "gnn": _gnn_cell, "search": _search_cell}.get(spec.family)
+    if build is None:
+        raise ValueError(spec.family)
+    return build(spec, cell, mesh, dmesh)
 
 
 def input_specs(arch_id: str, shape_name: str, mesh: MeshLayout | None = None) -> tuple[Any, ...]:

@@ -7,13 +7,21 @@ The reference's ``repro/models/moe.py`` as torch ops:
 * ``sort``    — scatter dispatch: a stable argsort of the flattened ``[T*k]``
   experts, position-in-expert from segment arithmetic, unique-destination
   scatter into expert buffers; each expert's slots fill token-major.
-* ``local``   — in the reference, a ``shard_map`` over the mesh's ``model``
-  axis where each column packs only its own experts' tokens
-  (``_pack_local``) and the partial outputs are summed.  On one card every
-  expert is local, and the reference's own single-device fallback,
-  ``_moe_sort``, runs.  ``_pack_local`` takes its column index and column
-  count as arguments; its partial outputs summed over the columns equal
-  ``_moe_sort``'s.
+* ``local``   — replicated-activation expert parallelism over the mesh's
+  ``model`` axis: activations are data-sharded and replicated across
+  ``model``, so the column that owns an expert already holds every token;
+  each column routes its tokens locally, packs only its own experts' tokens
+  (``_pack_local``) and the partial outputs are all-reduced over ``model``
+  (the one collective).  The aux loss comes from each rank's own tokens,
+  averaged over the data ranks, and the capacity is a column's, from its
+  rank's token count, so drops depend on the mesh, as in the reference.
+  With no mesh, a mesh of one rank, or the reference's other fall-back
+  conditions, it is ``_moe_sort``.
+
+Under a mesh of more than one rank, ``einsum`` and ``sort`` compute what
+GSPMD computes for the reference: over every rank's tokens (gathered over
+the data axes; each rank keeps its own rows, the gradient of the gathered
+tokens reduce-scattered) with every expert (gathered over ``model``).
 
 All share capacity semantics: per-expert buffer ``C = ceil(T*k/E * cf)``
 (rounded up to a multiple of 8, at least 8); overflow tokens are dropped.
@@ -27,11 +35,14 @@ Products of the model dtype with float32 results follow
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Any, Literal, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import current_mesh
+from ..parallel.collectives import all_gather, all_reduce, copy_to, fsdp_gather, gather_from, reduce_from
+from ..parallel.sharding import data_axes
 from .layers import _dot_f32, dense_init
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_ffn", "dropped_slots"]
@@ -213,43 +224,156 @@ def _pack_local(x_loc, w_gate, w_up, w_down, gates, cfg: MoEConfig, col: int, n_
     return _sorted_pass(x_loc, tok_flat[order], w_topk.reshape(-1)[order], valid, dest, w_gate, w_up, w_down, c)
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Forward identity, backward the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _Mesh(NamedTuple):
+    mesh: Any
+    da: Any  # the data axes
+    n_data: int
+    n_cols: int  # the model axis's size
+
+
+def _mesh_of() -> _Mesh | None:
+    """The current mesh and its data and model sizes; None with no mesh or
+    a mesh of one rank."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    da = data_axes(mesh)
+    n_cols = mesh.axis_size("model") if "model" in mesh.axis_names else 1
+    return _Mesh(mesh, da, mesh.axis_size(da), n_cols)
+
+
+def _local_columns(cfg: MoEConfig, m) -> bool:
+    """The reference's conditions for the ``shard_map`` path: a ``model``
+    axis, and experts that tile it.  (Its third, tokens that tile the data
+    axes, always holds here: a rank's tokens are its share of a batch the
+    step splits evenly.)"""
+    if m is None or "model" not in m.mesh.axis_names:
+        return False
+    return cfg.n_experts % m.n_cols == 0
+
+
 def _moe_local(x2d: torch.Tensor, params, cfg: MoEConfig):
-    """Replicated-activation expert parallelism on one card: every expert is
-    local, so this is the reference's single-device fallback."""
-    return _moe_sort(x2d, params, cfg)
+    """Replicated-activation EP: route locally, all-reduce the partial
+    outputs over ``model``."""
+    m = _mesh_of()
+    if m is None:
+        return _moe_sort(x2d, params, cfg)  # single-device fallback
+    if not _local_columns(cfg, m):
+        return _global(_moe_sort, x2d, params, cfg, m)
+    mesh, da, n_data, n_cols = m
+    col = mesh.coord("model") if n_cols > 1 else 0
+    gates = torch.softmax(x2d.float() @ params["router"], dim=-1)
+    # the column's work differs along `model`: its inputs' gradients are
+    # summed over the columns
+    y = _pack_local(copy_to(x2d, mesh, "model"), params["w_gate"], params["w_up"], params["w_down"],
+                    copy_to(gates, mesh, "model"), cfg, col, n_cols)
+    # the ONLY collective: combine per-column partial outputs
+    y = reduce_from(y, mesh, "model")
+    # Switch aux loss from local statistics (identical in expectation); the
+    # columns' are equal (replicated activations), so its mean over `model`
+    # is itself, and it is averaged over the data ranks
+    me = gates.mean(dim=0)
+    _, e_topk = _top_k(gates, cfg.top_k)
+    ce = torch.bincount(e_topk.reshape(-1), minlength=cfg.n_experts).float() / (x2d.shape[0] * cfg.top_k)
+    aux = cfg.n_experts * torch.sum(me * ce)
+    aux = reduce_from(aux, mesh, da) / n_data
+    return y.to(x2d.dtype), aux
+
+
+def _global(fn, x2d: torch.Tensor, params, cfg: MoEConfig, m):
+    """``fn`` (``_moe_sort`` or ``_moe_einsum``) as GSPMD runs it for the
+    reference under a mesh: over every data rank's tokens with every
+    expert; this rank's rows of the output.  The aux loss, computed alike on
+    every data rank, has its gradient divided among them."""
+    mesh, da, n_data, n_cols = m
+    if params["w_gate"].shape[0] < cfg.n_experts:  # experts split over `model`
+        params = {**params, **{k: gather_from(params[k], mesh, "model", 0) for k in ("w_gate", "w_up", "w_down")}}
+    if n_data == 1:
+        return fn(x2d, params, cfg)
+    t = x2d.shape[0]
+    y, aux = fn(fsdp_gather(x2d, mesh, da, 0), params, cfg)
+    return y[mesh.coord(da) * t:(mesh.coord(da) + 1) * t], _ScaleGrad.apply(aux, 1.0 / n_data)
 
 
 def dropped_slots(x: torch.Tensor, params, cfg: MoEConfig) -> torch.Tensor:
     """The (token, slot) pairs ``moe_ffn`` drops for overflowing their
     expert's capacity: a [B*S, k] bool, True where dropped, in the order
-    ``cfg.dispatch`` fills the slots (``local``: ``sort``'s)."""
+    ``cfg.dispatch`` fills the slots (``local``: ``sort``'s, per column
+    under a mesh).  Under a mesh, of this rank's tokens, for the mesh it
+    runs under."""
     x2d = x.reshape(-1, x.shape[-1])
+    m = _mesh_of()
+    with torch.no_grad():
+        if cfg.dispatch == "local" and _local_columns(cfg, m):
+            mesh, _, _, n_cols = m
+            t, k = x2d.shape[0], cfg.top_k
+            e_loc = cfg.n_experts // n_cols
+            lo = (mesh.coord("model") if n_cols > 1 else 0) * e_loc
+            _, e_topk = _top_k(_router(x2d, params)[0], k)
+            e_flat = e_topk.reshape(-1)
+            mine = (e_flat >= lo) & (e_flat < lo + e_loc)
+            c = max(8, int(t * k / cfg.n_experts * cfg.capacity_factor + 7) // 8 * 8)
+            order, valid, _ = _sort_slots(torch.where(mine, e_flat - lo, e_loc), e_loc, c)
+            dropped = torch.empty_like(valid)
+            dropped[order] = ~valid
+            # each pair is its expert's column's to judge
+            mine_dropped = (dropped & mine).to(torch.int32)
+            return all_reduce(mine_dropped, mesh, "model").bool().view(t, k)
+        if m is not None and m.n_data > 1:
+            mesh, da = m.mesh, m.da
+            t = x2d.shape[0]
+            full = _dropped_single(all_gather(x2d, mesh, da, 0), params, cfg)
+            return full[mesh.coord(da) * t:(mesh.coord(da) + 1) * t]
+        return _dropped_single(x2d, params, cfg)
+
+
+def _dropped_single(x2d: torch.Tensor, params, cfg: MoEConfig) -> torch.Tensor:
     t = x2d.shape[0]
     c = _capacity(t, cfg)
-    with torch.no_grad():
-        _, e_topk = _top_k(_router(x2d, params)[0], cfg.top_k)
-        if cfg.dispatch == "einsum":
-            return torch.stack([pos >= c for _, _, pos in _einsum_slots(e_topk, cfg.n_experts)], dim=1)
-        order, valid, _ = _sort_slots(e_topk.reshape(-1), cfg.n_experts, c)
-        dropped = torch.empty_like(valid)
-        dropped[order] = ~valid
-        return dropped.view(t, cfg.top_k)
+    _, e_topk = _top_k(_router(x2d, params)[0], cfg.top_k)
+    if cfg.dispatch == "einsum":
+        return torch.stack([pos >= c for _, _, pos in _einsum_slots(e_topk, cfg.n_experts)], dim=1)
+    order, valid, _ = _sort_slots(e_topk.reshape(-1), cfg.n_experts, c)
+    dropped = torch.empty_like(valid)
+    dropped[order] = ~valid
+    return dropped.view(t, cfg.top_k)
+
+
+def _shared(x2d: torch.Tensor, sp, cfg: MoEConfig, m) -> torch.Tensor:
+    """The shared experts' output (float32): column- then row-split over
+    ``model`` when their hidden dim is split."""
+    tp = m is not None and sp["w_gate"].shape[-1] < cfg.d_ff * cfg.n_shared_experts
+    xin = copy_to(x2d, m.mesh, "model") if tp else x2d
+    g = _dot_f32(xin, sp["w_gate"])
+    u = _dot_f32(xin, sp["w_up"])
+    h = (F.silu(g) * u).to(x2d.dtype)
+    y = _dot_f32(h, sp["w_down"])
+    return reduce_from(y, m.mesh, "model") if tp else y
 
 
 def moe_ffn(x: torch.Tensor, params, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss)."""
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
+    m = _mesh_of()
     if cfg.dispatch == "local":
         y, aux = _moe_local(x2d, params, cfg)
-    elif cfg.dispatch == "sort":
-        y, aux = _moe_sort(x2d, params, cfg)
     else:
-        y, aux = _moe_einsum(x2d, params, cfg)
+        fn = _moe_sort if cfg.dispatch == "sort" else _moe_einsum
+        y, aux = fn(x2d, params, cfg) if m is None else _global(fn, x2d, params, cfg, m)
     if cfg.n_shared_experts:
-        sp = params["shared"]
-        g = _dot_f32(x2d, sp["w_gate"])
-        u = _dot_f32(x2d, sp["w_up"])
-        h = (F.silu(g) * u).to(x2d.dtype)
-        y = y + _dot_f32(h, sp["w_down"]).to(x2d.dtype)
+        y = y + _shared(x2d, params["shared"], cfg, m).to(x2d.dtype)
     return y.reshape(b, s, d), aux

@@ -17,19 +17,39 @@ place of the dense one; with ``moe_interleave`` 2 as well, the stack is one
 of blocks, each a dense sublayer then an MoE sublayer (``{"dense_sub",
 "moe_sub"}``, stacked over ``n_layers // moe_interleave`` blocks), and cache
 layer ``2i`` is block i's dense sublayer, ``2i + 1`` its MoE sublayer.
-``fsdp`` shards parameters over a device mesh in the reference; on one card
-it changes nothing.
+Under a device mesh (``launch.mesh.use_mesh``) of more than one rank, the
+parameters are this rank's shards by ``parallel.sharding.lm_param_specs``
+and the batch its ``data`` share, and the collectives GSPMD inserts for the
+reference are written out (``parallel.collectives``): Megatron tensor
+parallelism over ``model`` — ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+column-split behind ``copy_to``, ``wo``/``w_down`` row-split into
+``reduce_from`` (the bf16 payload), ``embed`` split on D (gathered after
+the lookup), ``unembed`` on V (vocab-parallel logits: the max and the sum
+of ``logsumexp`` all-reduced, the gold logit from the rank that owns it);
+``wk``/``wv`` replicated when ``n_kv_heads`` does not divide the model
+axis, each rank taking the kv heads of its own q heads.  With ``fsdp``
+each layer's weights, sharded over ``data`` on a second dim, are gathered
+inside its checkpoint (``fsdp_gather_layer``: the backward re-gathers and
+reduce-scatters the gradient), and so are ``embed`` and ``unembed``.  The
+loss is the global masked mean.  A mesh of one rank runs the ops of no
+mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+import torch.distributed as dist
+
+from ..launch.mesh import current_mesh
+from ..parallel.collectives import all_gather, all_reduce, copy_to, fsdp_gather, gather_from, reduce_from
+from ..parallel.sharding import P, data_axes, fsdp_gather_layer, lm_param_specs, sanitize_specs
 from ..tree import tree_flatten, tree_unflatten
 from .layers import _dot_f32, decode_attention, dense_init, flash_attention, rms_norm, rope
 from .moe import MoEConfig, moe_ffn, moe_layout
@@ -63,7 +83,7 @@ class TransformerConfig:
     remat: bool = True
     remat_block: int = 1  # sqrt-remat: checkpoint every `remat_block` layers
     microbatches: int = 1  # gradient-accumulation chunks per train step
-    fsdp: bool = False  # ZeRO-3 over a mesh's `data` axis; no effect on one card
+    fsdp: bool = False  # ZeRO-3: params+opt sharded over `data`, gathered per layer
     q_chunk: int = 1024
     kv_chunk: int = 1024
     aux_loss_weight: float = 0.01
@@ -196,44 +216,167 @@ def param_shapes(cfg: TransformerConfig) -> dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Par:
+    """How the current mesh shards a config: the model axis's size ``tp``
+    and this rank's index on it, the data axes and their size, and the
+    param specs (``sanitize_specs`` of ``lm_param_specs``)."""
+
+    mesh: Any
+    tp: int
+    col: int
+    da: Any
+    n_data: int
+    kv_split: bool
+    specs: dict
+
+    def split(self, spec: P, dim: int, axis: str) -> bool:
+        dims = list(spec)
+        return dim < len(dims) and dims[dim] == axis
+
+
+def _tp_size(mesh=None) -> int:
+    """The model axis's size of ``mesh`` (default the current one); 1 with
+    no mesh."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.axis_size("model")
+
+
+@functools.lru_cache(maxsize=32)
+def _par_for(cfg: TransformerConfig, mesh) -> _Par:
+    tp = _tp_size(mesh)
+    kv_shardable = cfg.n_kv_heads % tp == 0
+    hq_loc, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_heads % tp or not (kv_shardable or hq_loc % group == 0 or group % hq_loc == 0):
+        raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} q heads ({cfg.n_kv_heads} kv) over a model axis of {tp}")
+    shapes = param_shapes(cfg)
+    specs = sanitize_specs(lm_param_specs(shapes, kv_shardable=kv_shardable, fsdp=cfg.fsdp), shapes, mesh)
+    if tp > 1:
+        # tensor parallelism needs every column- and row-split the rule names
+        for path, dim in (("embed", 1), ("unembed", 1)):
+            if specs[path][dim] != "model":
+                raise NotImplementedError(f"{cfg.name}: {path} does not split over a model axis of {tp}")
+    da = data_axes(mesh)
+    return _Par(mesh, tp, mesh.coord("model") if tp > 1 else 0, da, mesh.axis_size(da),
+                kv_shardable and tp > 1, specs)
+
+
+def _par(cfg: TransformerConfig) -> _Par | None:
+    """The current mesh's sharding of ``cfg``; None with no mesh or a mesh
+    of one rank (which runs the ops of no mesh)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    return _par_for(cfg, mesh)
+
+
+def _layer_specs(par: _Par | None, cfg: TransformerConfig) -> list:
+    """The specs of one entry of the stack with its L dim dropped: one tree
+    per sublayer (``_sublayers``' order)."""
+    if par is None:
+        return [None, None] if _interleaved(cfg) else [None]
+
+    def drop(tree):
+        return {k: drop(v) if isinstance(v, dict) else P(*v.dims[1:]) for k, v in tree.items()}
+
+    layers = par.specs["layers"]
+    return [drop(layers["dense_sub"]), drop(layers["moe_sub"])] if _interleaved(cfg) else [drop(layers)]
+
+
+def _gathered(w: torch.Tensor, spec: P | None, par: _Par | None) -> torch.Tensor:
+    """A top-level weight FSDP-sharded over ``data`` on dim 0, gathered."""
+    if par is None or not par.split(spec, 0, "data"):
+        return w
+    return fsdp_gather(w, par.mesh, "data", 0)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 
-def _qkv(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor):
+def _kv_slice(cfg: TransformerConfig, par: _Par) -> tuple[int, int]:
+    """The kv heads this rank's q heads read when ``wk``/``wv`` are
+    replicated over the model axis."""
+    hq_loc, group = cfg.n_heads // par.tp, cfg.n_heads // cfg.n_kv_heads
+    lo = par.col * hq_loc // group
+    return lo, (par.col * hq_loc + hq_loc - 1) // group + 1
+
+
+def _qkv(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor, par: _Par | None = None):
+    """(q, k, v) of the heads this rank attends with, and the layer's
+    cache entries (k, v) of the heads it holds."""
     b, s, _ = h.shape
     dh = cfg.d_head
     x = rms_norm(h, layer["ln1"])
-    q = (x @ layer["wq"]).view(b, s, cfg.n_heads, dh)
-    k = (x @ layer["wk"]).view(b, s, cfg.n_kv_heads, dh)
-    v = (x @ layer["wv"]).view(b, s, cfg.n_kv_heads, dh)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    if par is None or par.tp == 1:
+        q = (x @ layer["wq"]).view(b, s, -1, dh)
+        k = (x @ layer["wk"]).view(b, s, -1, dh)
+        v = (x @ layer["wv"]).view(b, s, -1, dh)
+        k = rope(k, positions, cfg.rope_theta)
+        return rope(q, positions, cfg.rope_theta), k, v, (k, v)
+    x = copy_to(x, par.mesh, "model")
+    q = rope((x @ layer["wq"]).view(b, s, -1, dh), positions, cfg.rope_theta)
+    if par.kv_split:
+        k = rope((x @ layer["wk"]).view(b, s, -1, dh), positions, cfg.rope_theta)
+        v = (x @ layer["wv"]).view(b, s, -1, dh)
+        return q, k, v, (k, v)
+    # replicated kv projections: every rank computes every kv head (the
+    # cache's) and attends with those of its q heads; the weights' gradient
+    # is summed over the model axis
+    wk, wv = copy_to(layer["wk"], par.mesh, "model"), copy_to(layer["wv"], par.mesh, "model")
+    k = rope((x @ wk).view(b, s, -1, dh), positions, cfg.rope_theta)
+    v = (x @ wv).view(b, s, -1, dh)
+    lo, hi = _kv_slice(cfg, par)
+    return q, k[:, :, lo:hi], v[:, :, lo:hi], (k, v)
 
 
-def _ffn(x: torch.Tensor, layer, cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _ffn(x: torch.Tensor, layer, cfg: TransformerConfig, par: _Par | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN and its MoE aux loss (0 for a dense FFN)."""
     if "moe" in layer:
         return moe_ffn(x, layer["moe"], cfg.moe)
     f = layer["ffn"]
-    g = _dot_f32(x, f["w_gate"])
-    u = _dot_f32(x, f["w_up"])
-    return (F.silu(g) * u).to(x.dtype) @ f["w_down"], torch.zeros((), dtype=torch.float32, device=x.device)
+    tp = par is not None and par.tp > 1
+    xin = copy_to(x, par.mesh, "model") if tp else x
+    g = _dot_f32(xin, f["w_gate"])
+    u = _dot_f32(xin, f["w_up"])
+    # w_down crosses the TP boundary: the all-reduce payload is bf16
+    y = (F.silu(g) * u).to(x.dtype) @ f["w_down"]
+    if tp:
+        y = reduce_from(y, par.mesh, "model")
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _layer_fwd(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor):
+def _attn_out(attn: torch.Tensor, layer, h: torch.Tensor, par: _Par | None) -> torch.Tensor:
+    out = attn @ layer["wo"]
+    if par is not None and par.tp > 1:
+        out = reduce_from(out, par.mesh, "model")
+    return h + out.to(h.dtype)
+
+
+def _layer_fwd(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor,
+               par: _Par | None = None, spec=None):
     b, s, _ = h.shape
-    q, k, v = _qkv(h, layer, cfg, positions)
+    if par is not None and cfg.fsdp:
+        layer = fsdp_gather_layer(layer, spec, par.mesh)
+    q, k, v, kv = _qkv(h, layer, cfg, positions, par)
     attn = flash_attention(
         q, k, v,
         causal=True,
         q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk,
         sliding_window=cfg.sliding_window,
-    ).reshape(b, s, cfg.n_heads * cfg.d_head)
-    h = h + (attn @ layer["wo"]).to(h.dtype)
+    ).reshape(b, s, -1)
+    h = _attn_out(attn, layer, h, par)
     x = rms_norm(h, layer["ln2"])
-    y, aux = _ffn(x, layer, cfg)
-    return h + y, (k, v), aux
+    y, aux = _ffn(x, layer, cfg, par)
+    return h + y, kv, aux
 
 
 def _sublayers(layer, cfg: TransformerConfig) -> list:
@@ -250,12 +393,22 @@ def _unstack(layers: dict[str, Any]) -> list[dict[str, Any]]:
     return [tree_unflatten(treedef, [p[i] for p in per_leaf]) for i in range(len(per_leaf[0]))]
 
 
+def _embed(params, tokens: torch.Tensor, par: _Par | None) -> torch.Tensor:
+    spec = par.specs["embed"] if par is not None else None
+    h = F.embedding(tokens, _gathered(params["embed"], spec, par))
+    if par is not None and par.tp > 1:
+        h = gather_from(h, par.mesh, "model", -1)  # D was split over the model axis
+    return h
+
+
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, collect_cache: bool = False):
     """tokens [B, S] -> (hidden [B, S, D], aux, optional cache [L,B,S,Hkv,Dh]x2)."""
+    par = _par(cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    h = F.embedding(tokens, params["embed"])
+    h = _embed(params, tokens, par)
     layers = _unstack(params["layers"])
+    specs = _layer_specs(par, cfg)
     n_stack = len(layers)
     rb = max(1, cfg.remat_block)
     if not (cfg.remat and rb > 1 and n_stack % rb == 0):
@@ -265,8 +418,8 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, collect_cache:
         kvs, aux = [], torch.zeros((), dtype=torch.float32, device=hh.device)
         for layer in block_layers:
             a = 0.0
-            for sub in _sublayers(layer, cfg):
-                hh, kv, a_sub = _layer_fwd(hh, sub, cfg, positions)
+            for sub, spec in zip(_sublayers(layer, cfg), specs):
+                hh, kv, a_sub = _layer_fwd(hh, sub, cfg, positions, par, spec)
                 kvs.append(kv)
                 a = a + a_sub
             aux = aux + a
@@ -292,15 +445,44 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, collect_cache:
     return h, aux, cache
 
 
+def _logits(h: torch.Tensor, params, par: _Par | None) -> torch.Tensor:
+    """``h @ unembed`` in float32: this rank's vocabulary slice under a
+    model axis."""
+    spec = par.specs["unembed"] if par is not None else None
+    un = _gathered(params["unembed"], spec, par)
+    if par is not None and par.tp > 1:
+        h = copy_to(h, par.mesh, "model")
+    return _dot_f32(h, un)
+
+
 def loss_fn(params, batch: dict[str, torch.Tensor], cfg: TransformerConfig) -> tuple[torch.Tensor, dict]:
-    """Next-token cross-entropy; ``batch`` = {"tokens", "targets", "mask"}."""
+    """Next-token cross-entropy; ``batch`` = {"tokens", "targets", "mask"}.
+    Under a mesh, the masked mean over the global batch (every rank's
+    share)."""
+    par = _par(cfg)
     h, aux, _ = forward(params, batch["tokens"], cfg)
-    logits = _dot_f32(h, params["unembed"])
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    logits = _logits(h, params, par)
+    targets = batch["targets"].long()
+    if par is None or par.tp == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:
+        # vocab-parallel: the max and the sum over every rank's slice
+        m = all_reduce(logits.detach().amax(dim=-1), par.mesh, "model", dist.ReduceOp.MAX)
+        se = reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1), par.mesh, "model")
+        logz = m + torch.log(se)
+        v_loc = logits.shape[-1]
+        local = targets - par.col * v_loc
+        own = (local >= 0) & (local < v_loc)
+        gold_loc = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+        gold = reduce_from(torch.where(own, gold_loc, 0.0), par.mesh, "model")
     nll = logz - gold
     mask = batch["mask"].float()
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    num, den = (nll * mask).sum(), mask.sum()
+    if par is not None and par.n_data > 1:
+        num = reduce_from(num, par.mesh, par.da)
+        den = all_reduce(den, par.mesh, par.da)
+    loss = num / torch.clamp(den, min=1.0)
     total = loss + cfg.aux_loss_weight * aux
     return total, {"nll": loss, "aux": aux}
 
@@ -310,18 +492,30 @@ def loss_fn(params, batch: dict[str, torch.Tensor], cfg: TransformerConfig) -> t
 # ---------------------------------------------------------------------------
 
 
+def _full_logits(h: torch.Tensor, params, par: _Par | None) -> torch.Tensor:
+    logits = _logits(h, params, par)
+    if par is not None and par.tp > 1:
+        logits = all_gather(logits, par.mesh, "model", -1)
+    return logits
+
+
 def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
-    """Full-sequence forward; returns (last-token logits [B,V], kv cache)."""
+    """Full-sequence forward; returns (last-token logits [B,V], kv cache).
+    Under a mesh, of this rank's batch share, the logits and the cache
+    whole over the model axis."""
+    par = _par(cfg)
     h, _, (k_cache, v_cache) = forward(params, tokens, cfg, collect_cache=True)
-    logits = _dot_f32(h[:, -1], params["unembed"])
-    return logits, {"k": k_cache, "v": v_cache}
+    if par is not None and par.kv_split:
+        k_cache = all_gather(k_cache, par.mesh, "model", 3)
+        v_cache = all_gather(v_cache, par.mesh, "model", 3)
+    return _full_logits(h[:, -1], params, par), {"k": k_cache, "v": v_cache}
 
 
 def _sublayer_decode(hh, layer, kc, vc, cfg: TransformerConfig, positions, cache_len: int):
     """One layer of ``decode_step``; writes the token's K and V into ``kc``
     and ``vc`` (this layer's [B, S, Hkv, Dh] views of the new cache)."""
     b = hh.shape[0]
-    q, k, v = _qkv(hh, layer, cfg, positions)
+    q, k, v, _ = _qkv(hh, layer, cfg, positions)
     s_cache = kc.shape[1]
     # lax.dynamic_update_slice: the start is clamped so the update fits
     row = min(max(cache_len, 0), s_cache - 1)
@@ -349,15 +543,22 @@ def decode_step(
     cfg: TransformerConfig,
 ):
     """One new token with a KV cache of length ``cache_len``; returns (logits
-    [B, V], the new cache).  The input cache is not written to."""
+    [B, V], the new cache).  The input cache is not written to.  Under a
+    mesh, of this rank's batch share; a model axis of more than one rank
+    needs the reference's sequence-sharded cache, which the port lacks."""
+    par = _par(cfg)
+    if par is not None and par.tp > 1:
+        raise NotImplementedError("sequence-sharded decode cache")
     n = int(cache_len)
     b = tokens.shape[0]
     positions = torch.full((b, 1), n, dtype=torch.int32, device=tokens.device)
-    h = F.embedding(tokens, params["embed"])  # [B, 1, D]
+    h = _embed(params, tokens, par)  # [B, 1, D]
     k_new, v_new = cache["k"].clone(), cache["v"].clone()
-    subs = [sub for layer in _unstack(params["layers"]) for sub in _sublayers(layer, cfg)]
-    for i, sub in enumerate(subs):
+    specs = _layer_specs(par, cfg)
+    subs = [(sub, spec) for layer in _unstack(params["layers"]) for sub, spec in zip(_sublayers(layer, cfg), specs)]
+    for i, (sub, spec) in enumerate(subs):
+        if par is not None and cfg.fsdp:
+            sub = fsdp_gather_layer(sub, spec, par.mesh)
         h = _sublayer_decode(h, sub, k_new[i], v_new[i], cfg, positions, n)
     h = rms_norm(h, params["final_norm"])
-    logits = _dot_f32(h[:, -1], params["unembed"])
-    return logits, {"k": k_new, "v": v_new}
+    return _full_logits(h[:, -1], params, par), {"k": k_new, "v": v_new}

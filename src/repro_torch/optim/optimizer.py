@@ -7,6 +7,12 @@ Weight decay applies to every leaf, gradients are clipped by their pre-clip
 global norm, bias correction reads the int32 step, and the new params are
 the new master cast to each param's dtype.  ``adamw_update`` returns new
 tensors and leaves its inputs as they were.
+
+On a mesh every leaf is this rank's shard (``parallel.sharding``): the
+moments and the master copy live on the param shards
+(``opt_state_specs``), the update is elementwise, and only the global norm
+that sets the clip scale needs the other ranks (``global_norm(...,
+specs=, mesh=)``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Any
 
 import torch
 
+from ..parallel.collectives import all_reduce
+from ..parallel.sharding import spec_axes
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "global_norm", "cast_like"]
@@ -46,12 +54,28 @@ def cosine_schedule(step: torch.Tensor | int, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, *, specs: Any = None, mesh=None) -> torch.Tensor:
     """sqrt of the sum, over the leaves in tree order, of each leaf's sum of
-    squares in float32."""
-    total = None
-    for leaf in tree_leaves(tree):
+    squares in float32.
+
+    With ``mesh`` (and ``specs``, the leaves' partition specs), the leaves
+    are shards: the sums of the leaves sharded over the same axes are
+    all-reduced over those axes alone, so a leaf replicated on an axis is
+    counted once, not once for each of its copies."""
+    if mesh is None or mesh.size == 1:
+        total = None
+        for leaf in tree_leaves(tree):
+            sq = torch.sum(leaf.float() ** 2)
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    by_axes: dict[tuple[str, ...], torch.Tensor] = {}
+    for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = tuple(a for a in mesh.axis_names if a in spec_axes(spec))
         sq = torch.sum(leaf.float() ** 2)
+        by_axes[axes] = sq if axes not in by_axes else by_axes[axes] + sq
+    total = None
+    for axes, sq in by_axes.items():
+        sq = all_reduce(sq, mesh, axes) if axes else sq
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -65,11 +89,13 @@ def adamw_init(params: Any) -> dict[str, Any]:
     }
 
 
-def adamw_update(grads: Any, state: dict[str, Any], cfg: AdamWConfig) -> tuple[Any, dict[str, Any]]:
-    """Returns (new fp32 master weights, new state)."""
+def adamw_update(grads: Any, state: dict[str, Any], cfg: AdamWConfig, *, specs: Any = None,
+                 mesh=None) -> tuple[Any, dict[str, Any]]:
+    """Returns (new fp32 master weights, new state); on a mesh, of this
+    rank's shards (``specs`` the params')."""
     step = state["step"] + 1
     lr = cosine_schedule(step, cfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs=specs, mesh=mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1c = 1.0 - torch.pow(cfg.beta1, step.to(torch.float32))

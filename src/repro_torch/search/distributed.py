@@ -3,9 +3,10 @@ in DESIGN.md §4), on torch.
 
 The proximity-search workload is embarrassingly document-parallel: every
 shard owns a document subset's §3 indexes; a query fans out to all shards,
-each answers it locally, and the per-shard results merge.  On one card the
-shards are a list: a fused batch packs the whole (query x subquery x shard)
-cross product into one device program on ``device``.
+each answers it locally, and the per-shard results merge.  Here the shards
+are a list: a fused batch packs the whole (query x subquery x shard) cross
+product into one device program on ``device``.  ``device_topk_merge`` also
+merges per-rank lists under a device mesh (``launch/mesh.py``).
 
 Exactness contract: shards hold disjoint documents indexed under ONE
 corpus-global FL-list, so the cross-shard fragment union is identical to a
@@ -37,6 +38,8 @@ from ..index.builder import IndexSet, build_indexes
 from ..index.corpus import DocumentStore
 from ..index.incremental import IncrementalIndexer
 from ..index.store import FORMAT_VERSION, SNAPSHOT_PREFIX, _load_manifest
+from ..launch.mesh import DeviceMesh
+from ..parallel.collectives import all_gather
 from .engine import ALGORITHMS, QueryResponse, RankedDoc
 from .fused import serve_query_batch
 from .relevance import rank_documents
@@ -645,11 +648,17 @@ def device_topk_merge(
 
     Ties keep the lower flat index first, as ``jax.lax.top_k`` does: a
     stable descending sort, not ``torch.topk``, whose tie order is
-    unspecified.  On one card the shards are rows of one tensor, so there is
-    no mesh: ``mesh`` must be ``None``.
+    unspecified.  With no mesh the shards are rows of one tensor.  Under a
+    mesh (``launch.mesh.DeviceMesh``) each rank passes its own shards'
+    rows; they are all-gathered over every mesh axis, in shard (rank)
+    order, and every rank returns the global top-k.
     """
     if mesh is not None:
-        raise ValueError("device_topk_merge runs on one card: mesh must be None")
+        if not isinstance(mesh, DeviceMesh):
+            raise ValueError(f"mesh must be a launch.mesh.DeviceMesh, not {type(mesh).__name__}")
+        axes = mesh.axis_names
+        scores = all_gather(scores.contiguous(), mesh, axes, 0)
+        doc_ids = all_gather(doc_ids.contiguous(), mesh, axes, 0)
     flat_scores = scores.reshape(-1)
     flat_docs = doc_ids.reshape(-1)
     top_scores, idx = torch.sort(flat_scores, descending=True, stable=True)

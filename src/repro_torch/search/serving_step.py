@@ -29,6 +29,8 @@ from typing import Callable
 import torch
 
 from ..kernels.proximity import COMPUTE_DTYPES, proximity_window, proximity_window_plain
+from ..launch.mesh import current_mesh
+from ..parallel.collectives import all_gather
 
 __all__ = [
     "serve_step",
@@ -191,6 +193,7 @@ def _serve_sharded(
     window_len: int,
     top_k: int,
     compute_dtype: str,
+    mesh,
 ) -> dict[str, torch.Tensor]:
     ns, b, p_loc, _ = postings.shape
     kk = min(top_k, n_clusters)
@@ -203,14 +206,27 @@ def _serve_sharded(
         max_distance=max_distance, n_clusters=n_clusters,
         window_len=window_len, top_k=kk, compute_dtype=compute_dtype,
     )
+    docs = out["top_docs"].reshape(ns, b, kk)
+    scores = out["top_scores"].reshape(ns, b, kk)
+    nfrag = out["n_fragments"].reshape(ns, b)
+    if mesh is not None and mesh.size > 1:
+        # the tiny all-gather: every rank's [NS/W, B, K] lists (scores as
+        # their bits) and fragment counts, in shard order, in one collective
+        packed = torch.cat([docs.to(torch.int32), scores.contiguous().view(torch.int32),
+                            nfrag.to(torch.int32)[..., None]], dim=-1)
+        packed = all_gather(packed, mesh, mesh.axis_names, 0).contiguous()
+        ns = packed.shape[0]
+        docs = packed[..., :kk].to(out["top_docs"].dtype)
+        scores = packed[..., kk:2 * kk].contiguous().view(scores.dtype)
+        nfrag = packed[..., 2 * kk]
     # tree merge: [NS, B, K] -> global top-k per query
-    docs_t = out["top_docs"].reshape(ns, b, kk).transpose(0, 1).reshape(b, ns * kk)
-    scores_t = out["top_scores"].reshape(ns, b, kk).transpose(0, 1).reshape(b, ns * kk)
+    docs_t = docs.transpose(0, 1).reshape(b, ns * kk)
+    scores_t = scores.transpose(0, 1).reshape(b, ns * kk)
     top_scores, idx = _top_k(scores_t, min(top_k, ns * kk))
     return {
         "top_docs": torch.gather(docs_t, 1, idx),
         "top_scores": top_scores,
-        "n_fragments": out["n_fragments"].reshape(ns, b).sum(dim=0, dtype=torch.int32),
+        "n_fragments": nfrag.sum(dim=0, dtype=torch.int32),
     }
 
 
@@ -224,17 +240,23 @@ def serve_step_sharded(
     window_len: int,
     top_k: int = 16,
     compute_dtype: str = "uint8",
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """Document-sharded serving (§Perf-3 iteration 3, the deployed layout).
 
     Each shard owns one cluster shard's postings end-to-end: local scatter,
     local cover, local top-k, then a tree merge of the per-shard top-k
-    lists.  The reference maps shards onto a device mesh; on one card the
-    shard axis is folded into the batch axis, so every shard runs in one
-    :func:`serve_step` (one cover launch), with the reference's results.
+    lists.  The shard axis is folded into the batch axis, so a program's
+    shards run in one :func:`serve_step` (one cover launch).  Under a mesh
+    of W ranks (``mesh``, default the current one), ``postings`` and
+    ``cluster_doc`` are this rank's block of NS/W shards (the reference's
+    ``in_specs``: the shard axis over every mesh axis), and the per-shard
+    lists of every rank are all-gathered in shard order before the merge —
+    the reference's "tiny all-gather"; every rank returns the whole result.
     """
+    mesh = current_mesh() if mesh is None else mesh
     return _serve_sharded(serve_step, postings, cluster_doc, mult, max_distance,
-                          n_clusters, window_len, top_k, compute_dtype)
+                          n_clusters, window_len, top_k, compute_dtype, mesh)
 
 
 def serve_step_sharded_plain(
@@ -247,10 +269,12 @@ def serve_step_sharded_plain(
     window_len: int,
     top_k: int = 16,
     compute_dtype: str = "uint8",
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """:func:`serve_step_sharded` with the cover's plain version."""
+    mesh = current_mesh() if mesh is None else mesh
     return _serve_sharded(serve_step_plain, postings, cluster_doc, mult, max_distance,
-                          n_clusters, window_len, top_k, compute_dtype)
+                          n_clusters, window_len, top_k, compute_dtype, mesh)
 
 
 def _mul_u32(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,0 +1,171 @@
+"""The port's side of the multi-rank LM tests, run in each rank of a gloo
+world (``_torch_worlds.run_world``); this module imports neither jax nor
+the reference, so a rank starts with torch and the port alone."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_reduced_spec
+from repro_torch.launch.mesh import make_device_mesh, make_smoke_mesh, use_mesh
+from repro_torch.launch.steps import _value_and_grad, build_cell, sync_grads
+from repro_torch.models import moe, transformer
+from repro_torch.models.convert import from_reference
+from repro_torch.optim import adamw_init, global_norm
+from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.sharding import P, gather_tree, sanitize_specs, shard_tree
+from repro_torch.tree import tree_map
+
+
+def _np(tree):
+    return tree_map(lambda t: t.detach().float().numpy() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def lm_case(payload):
+    """For each case ``(arch, mesh shape, fsdp, cfg changes)``: the loss,
+    metrics and gathered gradients of one step on the payload's first
+    batch, and the gathered params and metrics of three train steps (one a
+    batch), under a mesh of the world; numpy trees."""
+    out = {}
+    for key, (arch, shape, fsdp, changes) in payload["cases"].items():
+        mesh = make_device_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+        spec = get_reduced_spec(arch)
+        changes = dict(changes)
+        if "moe" in changes:
+            changes["moe"] = moe.MoEConfig(**changes["moe"])
+        cfg = dataclasses.replace(spec.model_cfg, dtype="float32", fsdp=fsdp, **changes)
+        spec = dataclasses.replace(spec, model_cfg=cfg)
+        cell = build_cell(spec, "train_4k", make_smoke_mesh(), mesh)
+        p_specs, _, b_specs = cell.in_specs
+        full = from_reference(payload["params"][payload["params_of"][key]], device="cpu")
+        params = shard_tree(full, p_specs, mesh)
+        batches = [shard_tree({k: torch.from_numpy(v) for k, v in b.items()},
+                              sanitize_specs(b_specs, {k: torch.from_numpy(v) for k, v in b.items()}, mesh), mesh)
+                   for b in payload["batches"]]
+        with use_mesh(mesh):
+            loss, metrics, grads = _value_and_grad(transformer.loss_fn, params, batches[0], cfg)
+            grads = sync_grads(grads, p_specs, mesh)
+        res = {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+               "grads": _np(gather_tree(grads, p_specs, mesh)), "steps": []}
+        opt = adamw_init(params)
+        for b in batches:
+            params, opt, m = cell.fn(params, opt, b)
+            res["steps"].append({k: float(v) for k, v in m.items()})
+        res["params"] = _np(gather_tree(params, p_specs, mesh))
+        res["opt_step"] = int(opt["step"])
+        out[key] = res
+    return out
+
+
+def global_norm_case(payload):
+    """``global_norm`` of a tree's shards under every mesh of the payload,
+    against the norm of the whole tree; each leaf's spec shards it over
+    some axes and replicates it over the others."""
+    rng = np.random.default_rng(0)
+    tree = {"a": torch.from_numpy(rng.normal(size=(4, 6)).astype(np.float32)),
+            "b": torch.from_numpy(rng.normal(size=(8,)).astype(np.float32)),
+            "c": torch.from_numpy(rng.normal(size=(2, 4, 2)).astype(np.float32)),
+            "d": torch.from_numpy(rng.normal(size=(3,)).astype(np.float32))}
+    specs = {"a": P("data", "model"), "b": P("model"), "c": P(None, "data"), "d": P()}
+    out = {"whole": float(global_norm(tree))}
+    for shape in payload["meshes"]:
+        mesh = make_device_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+        local = shard_tree(tree, specs, mesh)
+        # what summing every rank's squares would give: replicated copies
+        # counted once for each rank that holds one
+        squares = sum((x.float() ** 2).sum() for x in local.values())
+        out[shape] = {"sharded": float(global_norm(local, specs=specs, mesh=mesh)),
+                      "naive": float(torch.sqrt(all_reduce(squares, mesh, mesh.axis_names)))}
+    return out
+
+
+def moe_local_case(payload):
+    """``moe_ffn`` with the ``local`` dispatch under the payload's mesh, for
+    each capacity factor: the whole output (gathered over the data axes),
+    the aux loss, and the dropped pairs (gathered)."""
+    from repro_torch.parallel.collectives import all_gather
+
+    mesh = make_device_mesh(payload["mesh"], ("data", "model"), backend="gloo", device="cpu")
+    full = from_reference(payload["params"], device="cpu")
+    local = shard_tree(full, {"router": P(), "w_gate": P("model"), "w_up": P("model"), "w_down": P("model")}, mesh)
+    x = torch.from_numpy(payload["x"])
+    rows = x.shape[0] // mesh.axis_size("data")
+    x_loc = x[mesh.coord("data") * rows:(mesh.coord("data") + 1) * rows]
+    out = {}
+    for cf in payload["capacity_factors"]:
+        cfg = moe.MoEConfig(**{**payload["cfg"], "capacity_factor": cf})
+        with use_mesh(mesh):
+            y, aux = moe.moe_ffn(x_loc, local, cfg)
+            dropped = moe.dropped_slots(x_loc, local, cfg)
+        out[cf] = {"y": all_gather(y, mesh, "data", 0).numpy(), "aux": float(aux),
+                   "dropped": all_gather(dropped.view(x_loc.shape[0], x_loc.shape[1], -1), mesh, "data", 0).numpy()}
+    return out
+
+
+def collectives_case(payload):
+    """The collective bytes the cost counter charges one rank for the
+    reduced cells' first call under the payload's mesh."""
+    from repro_torch.launch.cost_analysis import count_cost
+
+    mesh = make_device_mesh(payload["mesh"], ("data", "model"), backend="gloo", device="cpu")
+    out = {}
+    for arch, shape in payload["cells"]:
+        spec = get_reduced_spec(arch)
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32"))
+        cell = build_cell(spec, shape, make_smoke_mesh(), mesh)
+        full = from_reference(payload["params"][arch], device="cpu")
+        args = [full]
+        if cell.step == "train":
+            args.append(adamw_init(full))
+        args.append({k: torch.from_numpy(v) for k, v in payload["batch"][shape].items()})
+        local = [shard_tree(a, sanitize_specs(s, a, mesh), mesh) for a, s in zip(args, cell.in_specs)]
+        _, cost = count_cost(cell.fn, *local)
+        out[(arch, shape)] = dict(cost.collectives)
+    return out
+
+
+def checkpoint_case(payload):
+    """Save this world's shards of a train state (params and AdamW state
+    of the reduced tinyllama under FSDP, after one step) to
+    ``payload["save"]``, and restore ``payload["restore"]`` (written by
+    another world) into this mesh's slices: whether they equal the slices
+    of the whole state."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    mesh = make_device_mesh(payload["mesh"], ("data", "model"), backend="gloo", device="cpu")
+    spec = get_reduced_spec("tinyllama-1.1b")
+    spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, fsdp=True))
+    cell = build_cell(spec, "train_4k", make_smoke_mesh(), mesh)
+    specs = {"params": cell.in_specs[0], "opt": cell.in_specs[1]}
+    whole = {"params": from_reference(payload["params"], device="cpu"),
+             "opt": from_reference(payload["opt"], device="cpu")}
+    mine = shard_tree(whole, specs, mesh)
+    out = {}
+    if payload.get("save"):
+        out["saved"] = str(save_checkpoint(payload["save"], 1, mine, mesh=mesh, specs=specs))
+    if payload.get("restore"):
+        got, step = restore_checkpoint(payload["restore"], whole, device="cpu", mesh=mesh, specs=specs)
+        from repro_torch.tree import tree_leaves
+
+        out["restored_step"] = step
+        out["restored_equal"] = all(a.dtype == b.dtype and torch.equal(a, b)
+                                    for a, b in zip(tree_leaves(got), tree_leaves(mine)))
+    return out
+
+
+def train_cli_case(payload):
+    """``python -m repro_torch.launch.train --mesh ...`` in this rank (the
+    world's process group is up, over the backend the flags name): what it
+    printed, and the checkpoint directory it wrote."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(payload["argv"])
+    return {"stdout": buf.getvalue()}

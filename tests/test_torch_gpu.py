@@ -4,8 +4,10 @@ host route and the posting arena, over a static index and over a mutated
 incremental service) against the host route on the CPU; the dense LM path
 (attention, prefill and decode, a float32 train step), the MoE FFN, the
 MoE, recsys and GNN train steps on the card at reduced sizes, the GNN's
-chunked aggregate against its unchunked form, and the cost counter's count
-on the card against the CPU's.
+chunked aggregate against its unchunked form, the cost counter's count
+on the card against the CPU's, and worlds of ranks on the card: a world of
+one over NCCL against no mesh, bit for bit, and a world of two (gloo: NCCL
+refuses two ranks of one communicator on one card) against one rank.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -611,3 +613,61 @@ def test_cost_counted_on_card_equals_cpu(cuda, arch, shape):
     _, on_cpu = count_cost(cell.fn, *cpu_args)
     _, on_card = count_cost(cell.fn, *tree_map(lambda t: t.to(cuda), cpu_args))
     assert on_card == on_cpu and on_cpu.flops > 0
+
+
+def _world_case(payload):
+    """One rank of a world on the card: a reduced tinyllama float32 train
+    step and a reduced paper_search serve step under each mesh of
+    ``payload["meshes"]``, against the same rank without a mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_reduced_spec("tinyllama-1.1b")
+    spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32"))
+    serve = get_reduced_spec("paper_search")
+    out = {}
+    for shape, fsdp in payload["meshes"]:
+        mesh = make_device_mesh(shape, ("data", "model"), backend=payload["backend"], device="cuda")
+        lm = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, fsdp=fsdp))
+        row = {}
+        for arch, cell_name, sp in (("tinyllama-1.1b", "train_4k", lm), ("paper_search", "serve_online", serve)):
+            want = dryrun.run_cell(arch, cell_name, verbose=False, device=mesh.device, repeats=0, spec=sp,
+                                   keep_outputs=True)
+            got = dryrun.run_cell(arch, cell_name, verbose=False, dmesh=mesh, repeats=0, spec=sp, keep_outputs=True)
+            assert want["status"] == "ok" and got["status"] == "ok", (want.get("traceback"), got.get("traceback"))
+            g, w = got["outputs"], want["outputs"]
+            if cell_name == "train_4k":
+                cell = build_cell(sp, cell_name, dryrun.make_production_mesh(), mesh)
+                g = (gather_tree(g[0], cell.in_specs[0], mesh), g[2])
+                w = (w[0], w[2])
+            pairs = list(zip(tree_leaves(g), tree_leaves(w)))
+            row[cell_name] = {"equal": all(torch.equal(a, b) for a, b in pairs),
+                              "rel": max(float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+                                         for a, b in pairs)}
+        out[f"{shape}{' fsdp' if fsdp else ''}"] = row
+    return out
+
+
+def test_world_of_one_over_nccl_equals_no_mesh(cuda, tmp_path):
+    from _torch_worlds import run_world
+
+    (res,) = run_world(1, "test_torch_gpu:_world_case", {"backend": "nccl", "meshes": [((1, 1), False)]},
+                       tmp_path, backend="nccl")
+    assert res["(1, 1)"]["train_4k"]["equal"] and res["(1, 1)"]["serve_online"]["equal"], res
+
+
+def test_world_of_two_on_card_equals_one_rank(cuda, tmp_path):
+    from _torch_worlds import run_world
+
+    meshes = [((1, 2), False), ((2, 1), True)]
+    for res in run_world(2, "test_torch_gpu:_world_case", {"backend": "gloo", "meshes": meshes}, tmp_path):
+        for key, row in res.items():
+            assert row["serve_online"]["equal"], (key, row)
+            assert row["train_4k"]["rel"] <= 1e-5, (key, row)

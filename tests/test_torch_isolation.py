@@ -8,8 +8,9 @@ launcher, runs reduced ``paper_search`` dry-run cells, trains the reduced
 tinyllama, olmoe and llama4-maverick (MoE), fm and mind (recsys) and
 gat-cora (GNN) for two steps through the training launcher, runs a reduced
 recsys cell, a reduced GNN cell and a MoE FFN, samples a subgraph, counts a
-program's cost and the search lowerings', and resolves every architecture
-id."""
+program's cost and the search lowerings', resolves every architecture
+id, and, on a one-rank gloo mesh, runs a sharded serve step and a reduced
+LM train step and plans an ``ElasticTopology``."""
 
 import os
 import re
@@ -137,6 +138,20 @@ cfg = moe.MoEConfig(n_experts=4, top_k=2, d_ff=8, dispatch="sort")
 p = moe.init_moe_params(torch.Generator().manual_seed(0), 8, cfg, torch.float32)
 y, aux = moe.moe_ffn(torch.randn(1, 6, 8), p, cfg)
 assert y.shape == (1, 6, 8) and embedding_bag_ref(torch.ones(3, 2), torch.tensor([[0, -1]])).tolist() == [[1.0, 1.0]]
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_device_mesh
+from repro_torch.optim import compressed_grad_allreduce, init_error_feedback
+from repro_torch.parallel import lm_param_specs, shard_tree
+from repro_torch.runtime import ElasticTopology
+dist.init_process_group("gloo", init_method="file://" + tempfile.mkdtemp() + "/rendezvous", rank=0, world_size=1)
+mesh = make_device_mesh((1, 1), ("data", "model"), backend="gloo", device="cpu")
+for arch, shape in (("paper_search", "serve_online"), ("tinyllama-1.1b", "train_4k")):
+    rec = dryrun.run_cell(arch, shape, verbose=False, dmesh=mesh, repeats=1)
+    assert rec["status"] == "ok" and rec["device_mesh"] == "1x1" and rec["backend"] == "gloo", rec
+g = {"w": torch.ones(3)}
+assert torch.equal(compressed_grad_allreduce(g, init_error_feedback(g), mesh, "data")[0]["w"], g["w"])
+dist.destroy_process_group()
+assert ElasticTopology().plan(2)["mesh_shape"] == (2, 16, 16)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
@@ -178,7 +193,9 @@ def test_source_imports_neither_jax_nor_reference():
             "configs/stablelm_3b.py", "configs/mistral_large_123b.py", "launch/train.py", "models/moe.py",
             "models/recsys.py", "configs/olmoe_1b_7b.py", "configs/llama4_maverick.py", "configs/recsys_common.py",
             "configs/fm.py", "configs/autoint.py", "configs/dcn_v2.py", "configs/mind.py",
-            "models/gnn.py", "data/sampler.py", "configs/gat_cora.py", "launch/cost_analysis.py"} <= names
+            "models/gnn.py", "data/sampler.py", "configs/gat_cora.py", "launch/cost_analysis.py",
+            "parallel/__init__.py", "parallel/sharding.py", "parallel/collectives.py",
+            "optim/grad_compression.py", "runtime/elastic.py", "runtime/__init__.py"} <= names
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in sources
