@@ -126,7 +126,8 @@ last line is the same either way):
    ``se2.4`` and ``rank_documents``; and ``python -m
    repro_torch.launch.dryrun --arch paper_search --all`` in a fresh process
    (jax and the reference package blocked), which must exit 0 with four
-   ``ok`` records under ``artifacts/``.
+   ``ok`` records under ``artifacts/``.  The CLI and the build corpus's
+   host-side construction start when phase 9 ends, beside the card child.
 
 11. the dense LM training path (``tinyllama-1.1b`` at its full width): (a)
    ``repro_torch.launch.dryrun.run_cell`` on the four runnable cells at one
@@ -154,9 +155,10 @@ last line is the same either way):
    params equal bit for bit; the checkpoint files are deleted after.
 
 12. the MoE LM family, in one child process (torch and the port only) with
-   phase 13, run beside phase 9's host-bound launchers: (a) ``run_cell`` on
+   phases 13-15, run beside phases 8 and 9 (host-bound; phase 15 first,
+   so that 12's largest cell meets phase 9): (a) ``run_cell`` on
    ``olmoe-1b-7b`` at full width and one data rank's share (prefill_32k at
-   all 16 layers, train_4k at 4 in 4 microbatches, decode_32k and
+   8 of 16 layers, train_4k at 4 in 4 microbatches, decode_32k and
    long_500k[swa] at 6) and on ``llama4-maverick-400b-a17b`` at full width
    cut to one (dense, MoE) block (prefill_32k, decode_32k), each with its
    wall ms, peak MiB, model TFLOP/s of the share and its launch counters set
@@ -180,7 +182,7 @@ last line is the same either way):
    card against CPU.
 
 14. the GNN family and the cost counters, in the child process of phases
-   12 and 13, after them: (a) ``run_cell`` on all four ``gat-cora`` cells at
+   12, 13 and 15, after them: (a) ``run_cell`` on all four ``gat-cora`` cells at
    full shape, each graph whole (``full_graph_sm`` Cora's 2,708 nodes;
    ``minibatch_lg`` the 169,984-node sampled budget at 602 features;
    ``ogb_products`` 2,449,029 nodes, 61,859,140 edges, 100 features, 47
@@ -201,8 +203,8 @@ last line is the same either way):
    on the card equal to the cost counted on the CPU, flops and bytes, op
    by op where they differ.
 
-15. the multi-device half, in the child process of phases 12-14, after
-   them: a world of one rank over NCCL (``make_device_mesh`` over a
+15. the multi-device half, in the child process of phases 12-14, before
+   them (beside phase 8): a world of one rank over NCCL (``make_device_mesh`` over a
    one-rank process group) runs ``serve_online`` and tinyllama's cut
    train_4k and prefill_32k bit for bit as the port without a mesh; then
    ``python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
@@ -213,8 +215,8 @@ last line is the same either way):
    call, the lists all-gathered; ``top_docs`` and ``n_fragments`` equal
    the one-program fold's, ``top_scores`` within rtol 1e-5 — with its wall
    ms, all-gather bytes and peak MiB; (b) tinyllama at full width, 2
-   layers, 4 rows, train_4k (bfloat16 and float32) and prefill_32k under
-   1x2 (tensor parallelism) and 2x1 with FSDP, against the unsharded run
+   layers, train_4k (4 rows; bfloat16 and float32) and prefill_32k (2 rows)
+   under 1x2 (tensor parallelism) and 2x1 with FSDP, against the unsharded run
    on the same inputs (bfloat16 within 2e-2 relative, float32 metrics
    within 1e-4 and params within 1e-5 relative), with wall ms, peak MiB
    and the counted collectives; (c) one olmoe MoE layer at full width (64
@@ -222,9 +224,23 @@ last line is the same either way):
    ``_moe_sort`` with no drops (float32 within 1e-5, bfloat16 2e-2), and
    at the config's capacity its dropped pairs equal to the same world's on
    the CPU; (d) ``compressed_grad_allreduce`` over ``pod`` = 2 on
-   tinyllama's 2-layer gradient tree, card equal to the CPU; and the
-   trainer's and the dry-run's own command lines under ``--mesh 1x2``.
-   Every rank's kernel launches go into the kernels line by path.
+   tinyllama's 2-layer gradient tree, card equal to the CPU; (e) tinyllama
+   at full width and all 22 layers, decode_32k (4 rows on 32,768) and
+   long_500k[swa] (1 row on 524,288, window 4,096) context-parallel: each
+   rank holds half of every layer's cache; at cache_len 0, mid-slice, the
+   last row of rank 0's slice, the first of rank 1's, windows across the
+   262,144 boundary and S - 1, each rank's logits, the written row (from
+   the rank that holds it) and the rest of its slice (bit for bit) against
+   the unsharded ``decode_step`` on the same rank, bfloat16 within 2e-2,
+   with wall ms, peak MiB and collective bytes a rank; and the trainer's
+   and the dry-run's own command lines under ``--mesh 1x2`` (the dry-run's
+   on ``serve_online`` and on decode_32k at full size); (f) beside those
+   command lines, a world of three (1x3) in which nothing of tinyllama
+   splits over ``model`` (32 heads, 2,048 ``wq`` columns, 32,000 entries
+   and 32,768 positions do not divide 3): decode_32k at all 22 layers, as
+   (e), and one train_4k step at 2 layers, 4 rows, against the unsharded
+   run on each rank.  Every rank's kernel launches go into the kernels line
+   by path.
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -477,8 +493,10 @@ print("digest", int(opt["step"]), len(tree_leaves({"params": params, "opt": opt}
 
 # phase 12: the MoE LM family.  olmoe-1b-7b at full width (6.92e9 params,
 # 13.8 GB in bfloat16; 16 layers of 64 experts, top 8) at one data rank's
-# share of each cell: prefill_32k at all 16 layers; the others cut in depth
-# to fit one card:
+# share of each cell, cut in depth: prefill_32k at 8 of 16 layers (at all 16
+# it took 23 s of the card child's run, first call and one timed, on an
+# NVIDIA H100 80GB HBM3 at 700 W, when phase 15's worlds grew); the others to
+# fit one card:
 #  - train_4k: params, the float32 master, m and v, the gradient accumulator
 #    and the update's new state come to about 37.6 B a parameter when the
 #    update runs: 4 layers (1.88e9 params) about 71 GB, 5 about 87 GB;
@@ -488,7 +506,7 @@ print("digest", int(opt["step"]), len(tree_leaves({"params": params, "opt": opt}
 # of its 48 layers, 128 experts of top 1, 1.84e10 params, 36.9 GB in
 # bfloat16; prefill_32k and decode_32k.
 MOE_ARCH = "olmoe-1b-7b"
-MOE_CELL_LAYERS = {"train_4k": 4, "prefill_32k": 16, "decode_32k": 6, "long_500k[swa]": 6, "long_500k": 16}
+MOE_CELL_LAYERS = {"train_4k": 4, "prefill_32k": 8, "decode_32k": 6, "long_500k[swa]": 6, "long_500k": 16}
 MAVERICK_ARCH = "llama4-maverick-400b-a17b"
 MAVERICK_CELL_LAYERS = {"prefill_32k": 2, "decode_32k": 2}
 MOE_NO_DROP = 8.0  # (b) and (c): a capacity factor at which no expert overflows
@@ -509,11 +527,16 @@ AGG_EDGES = 4_000_000
 # this machine's CPU
 COST_CELLS = (("paper_search", "serve_online"), ("tinyllama-1.1b", "train_4k"), ("fm", "train_batch"),
               ("gat-cora", "molecule"))
-# phases 12, 13 and 14 run in one child process (torch and the port only);
-# beside phase 9's launcher processes its CPU work (the CPU halves of 12d,
-# 13, 14b and 14e) keeps to a few threads
+# phases 15, 12, 13 and 14 run in one child process (torch and the port
+# only); beside phases 8 and 9 its CPU work (the CPU halves of 12d, 13, 14b
+# and 14e, the gloo worlds of 15) keeps to a few threads at a lower CPU
+# priority (CHILD_NICE): phase 9c's launcher client waits for the daemon's
+# first answer after a failover within the launcher's 60 s socket timeout,
+# and the child's load had pushed that answer past it (52-68 s of client
+# wall where it passed; NVIDIA H100 80GB HBM3 machine, 8 host cores)
 CARD_CHILD = """
-import json, sys
+import json, os, sys
+os.nice(int(sys.argv[4]))
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 sys.path.insert(0, sys.argv[1])
@@ -522,22 +545,52 @@ out = chip_smoke.new_families([int(p) for p in sys.argv[2].split(",")], int(sys.
 print("card child: " + json.dumps(out), flush=True)
 """
 CHILD_THREADS = 4
+CHILD_NICE = 10
 SEARCH_PHASES = set(range(3, 11))
 CHILD_PHASES = (12, 13, 14, 15)
 ALL_PHASES = set(range(1, 16))
 # phase 15: the multi-device half in worlds of ranks on the one card.  NCCL
 # refuses two ranks of one communicator on one device ("Duplicate GPU
-# detected"), so a world of two runs gloo on the card's tensors; a world of
-# one runs NCCL.  tinyllama at full width, depth cut to 2 layers and each
-# cell's world batch to 2 rows (train_4k at 4,096 tokens, prefill_32k at
-# 32,768), so that two ranks and the unsharded run fit the card together
+# detected"), so worlds of two and three run gloo on the card's tensors; a
+# world of one runs NCCL.  tinyllama at full width, depth cut to 2 layers and each
+# cell's world batch to WORLD_LM_ROWS rows (train_4k at 4,096 tokens,
+# prefill_32k at 32,768), so that two ranks and the unsharded run fit the card
+# together; prefill_32k at 2 rows since phase 15 grew (at 4 its six runs took
+# 32 s of the card child's run; NVIDIA H100 80GB HBM3, 700 W)
 WORLD_BACKEND = "gloo"
 WORLD_SERVE = ("serve_online", "serve_bulk")
 WORLD_LM_CELLS = ("train_4k", "prefill_32k")
 WORLD_LM_LAYERS = 2
-WORLD_LM_ROWS = 4
+WORLD_LM_ROWS = {"train_4k": 4, "prefill_32k": 2}
 WORLD_MOE_TOKENS = 4096  # (c): one olmoe MoE layer's tokens
 WORLD_COMPRESS_LAYERS = 2  # (d): tinyllama's gradient tree at this depth
+# (e): tinyllama's decode cells at full width and depth (22 layers) in the
+# world of two, context-parallel (each rank holds half of every layer's
+# cache: 1.47 GB of decode_32k's 2.95, 5.9 of long_500k[swa]'s 11.8), held
+# at these cache_len values: 0, mid-slice, the last row of rank 0's slice,
+# the first of rank 1's, windows across the 262,144 boundary, and S - 1
+WORLD_DECODE = {"decode_32k": (4, (0, 8192, 16383, 16384, 32767)),
+                "long_500k[swa]": (1, (0, 262143, 262144, 264191, 524287))}
+# the holds of (e), each (dtype, layers, bound on the relative error): float32
+# (TF32 off) is the exact check, at all 22 layers for decode_32k and at 4
+# for long_500k[swa] (its float32 cache is 23.6 GB at 22, and the unsharded
+# step on each rank needs it twice); bfloat16 within the usual 2e-2 at 2
+# layers, and at all 22 within phase 11c's bound for two bfloat16 paths
+# through 22 layers (LM_DECODE_BF16_REL): the sharded step rounds its
+# row-split sums and its merged attention per rank, and 22 bfloat16 layers
+# carry those roundings apart as they carry 11c's decode from its prefill.
+# Where the float32 step fits beside it (WORLD_DECODE_EXACT), the witness
+# for that cause: both bfloat16 steps against the float32 step on the same
+# (bfloat16) weights and cache, the sharded one no farther from it than the
+# unsharded one plus LM_BF16_REL
+WORLD_DECODE_HOLDS = {"decode_32k": (("float32", 22, 1e-4), ("bfloat16", 2, 2e-2), ("bfloat16", 22, 5e-2)),
+                      "long_500k[swa]": (("float32", 4, 1e-4), ("bfloat16", 2, 2e-2), ("bfloat16", 22, 5e-2))}
+WORLD_DECODE_EXACT = {("decode_32k", "bfloat16", 22)}
+# (f): a world of three (1x3): nothing of tinyllama divides 3 (32 heads,
+# 2,048 wq columns, a 5,632-wide FFN, 32,000 entries, 32,768 positions), so
+# every rank runs the whole model: decode_32k at full depth and a train_4k
+# step at WORLD_LM_LAYERS layers, WORLD_LM_ROWS["train_4k"] rows
+WORLD3_DECODE = ("decode_32k", 4, (0, 16384, 32767))
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -584,14 +637,48 @@ def numpy_build_count(toks, stop, d: int, n_buckets: int):
     return hist, total
 
 
-def paper_search_phase(torch, dev, index, subqueries, kernels, zero_counts, read_counts) -> None:
-    """Phase 10 (see the module docstring)."""
+def build_corpus_tokens():
+    """Phase 10b's build corpus on the host: each position's most frequent
+    lemma's FL-number over ``synthesize_corpus(n_docs=BUILD_DOCS,
+    doc_len=BUILD_DOC_LEN)``, stop lemmas at the smoke's sw_count; (tokens,
+    stop mask, seconds)."""
+    import numpy as np
+
+    from repro_torch.core.lemma import FLList
+    from repro_torch.index import synthesize_corpus
+
+    t_c = time.perf_counter()
+    bstore = synthesize_corpus(n_docs=BUILD_DOCS, doc_len=BUILD_DOC_LEN, seed=SEED)
+    bfl = FLList.from_frequencies(bstore.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
+    docs = bstore.documents[-BUILD_DOCS:]
+    require(min(len(x) for x in docs) >= BUILD_DOC_LEN, "a build document is shorter than the cell")
+    toks = np.array([[min(bfl.fl_number[x] for x in lemmas) for lemmas in doc.lemma_stream[:BUILD_DOC_LEN]]
+                     for doc in docs], np.int32)
+    return toks, toks < SW_COUNT, time.perf_counter() - t_c
+
+
+def paper_search_early(procs: list):
+    """Phase 10b's host-bound parts, started while the card child finishes
+    phases 12-15: the dry-run CLI over the four cells in a fresh process
+    (jax and the reference package blocked) and the build corpus on a
+    thread."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    cli = subprocess.Popen(
+        [sys.executable, "-c", RUN_MODULE, "repro_torch.launch.dryrun", "--arch", "paper_search", "--all", "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    procs.append(cli)
+    return cli, Background(build_corpus_tokens)
+
+
+def paper_search_phase(torch, dev, index, subqueries, kernels, zero_counts, read_counts, early) -> None:
+    """Phase 10 (see the module docstring); ``early`` is what
+    ``paper_search_early`` started."""
     import numpy as np
 
     from repro_torch.configs import get_spec
     from repro_torch.core.combiner import se24_combiner
-    from repro_torch.core.lemma import FLList
-    from repro_torch.index import synthesize_corpus
     from repro_torch.kernels.proximity import proximity_window
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
@@ -677,14 +764,8 @@ def paper_search_phase(torch, dev, index, subqueries, kernels, zero_counts, read
         del post, cd, mult, got, plain, occ, m2, emit, start, p_emit, p_start
     t10 = phase("paper_search dry-run cells on the card (10a)", t10)
 
-    # the same four cells through the CLI, in a fresh process with jax and
-    # the reference package blocked, beside the host work below
-    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
-    cli = subprocess.Popen(
-        [sys.executable, "-c", RUN_MODULE, "repro_torch.launch.dryrun", "--arch", "paper_search", "--all", "--out", str(DRYRUN_OUT)],
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    )
+    # the same four cells through the CLI, started beside the card child
+    cli, corpus = early
     try:
         (post, cd, mult), kw, got = serve_online
         # the CPU's whole ranking (its first top_k are its top-k list)
@@ -697,18 +778,10 @@ def paper_search_phase(torch, dev, index, subqueries, kernels, zero_counts, read
                        cpu["top_docs"][q], cpu["top_scores"][q])
         print(f"serve_online on the card == the port's CPU run ({got['top_docs'].shape[0]} queries)")
 
-        # build_chunk's shape over a corpus: each position's most frequent
-        # lemma's FL-number, stop lemmas at the smoke's sw_count
-        t_c = time.perf_counter()
-        bstore = synthesize_corpus(n_docs=BUILD_DOCS, doc_len=BUILD_DOC_LEN, seed=SEED)
-        bfl = FLList.from_frequencies(bstore.lemma_frequencies(), sw_count=SW_COUNT, fu_count=FU_COUNT)
-        docs = bstore.documents[-BUILD_DOCS:]
-        require(min(len(x) for x in docs) >= BUILD_DOC_LEN, "a build document is shorter than the cell")
-        toks = np.array([[min(bfl.fl_number[x] for x in lemmas) for lemmas in doc.lemma_stream[:BUILD_DOC_LEN]]
-                         for doc in docs], np.int32)
-        stop = toks < SW_COUNT
-        print(f"build corpus: {toks.shape}, {100 * stop.mean():.1f}% stop positions, "
-              f"{time.perf_counter() - t_c:.1f} s")
+        # build_chunk's shape over a corpus
+        toks, stop, t_c = corpus.result()
+        print(f"build corpus: {toks.shape}, {100 * stop.mean():.1f}% stop positions, {t_c:.1f} s (built beside "
+              "the card child)")
         tok_d, stop_d = torch.from_numpy(toks).to(dev), torch.from_numpy(stop).to(dev)
         bkw = dict(max_distance=d, n_buckets=cfg.build_buckets)
         card = ss.build_step(tok_d, stop_d, **bkw)
@@ -1499,10 +1572,11 @@ def cost_phase(torch, dev, zero_counts, read_counts) -> dict:
     return summary
 
 
-def world_lm_spec(shape: str, *, dtype: str | None = None, fsdp: bool = False):
-    """tinyllama's spec cut for phase 15: WORLD_LM_LAYERS layers, and the
-    cell's global batch set so that one production data rank's share (the
-    batch a world runs) is WORLD_LM_ROWS rows."""
+def world_lm_spec(shape: str, *, dtype: str | None = None, fsdp: bool = False, layers: int = WORLD_LM_LAYERS,
+                  rows: int | None = None):
+    """tinyllama's spec cut for phase 15: ``layers`` layers, and the cell's
+    global batch set so that one production data rank's share (the batch a
+    world runs) is ``rows`` rows (default ``WORLD_LM_ROWS``')."""
     import dataclasses
 
     from repro_torch.configs import get_spec
@@ -1510,13 +1584,160 @@ def world_lm_spec(shape: str, *, dtype: str | None = None, fsdp: bool = False):
     from repro_torch.launch.mesh import make_production_mesh
 
     spec = get_spec(LM_ARCH)
-    cfg = dataclasses.replace(spec.model_cfg, n_layers=WORLD_LM_LAYERS, fsdp=fsdp,
-                              dtype=dtype or spec.model_cfg.dtype)
+    cfg = dataclasses.replace(spec.model_cfg, n_layers=layers, fsdp=fsdp, dtype=dtype or spec.model_cfg.dtype)
     cell = spec.shapes[shape]
     _, n_data = data_share(1, make_production_mesh())
-    kwargs = {**cell.kwargs, "global_batch": WORLD_LM_ROWS * n_data}
+    kwargs = {**cell.kwargs, "global_batch": (rows or WORLD_LM_ROWS[shape]) * n_data}
     shapes = {**spec.shapes, shape: dataclasses.replace(cell, kwargs=kwargs)}
     return dataclasses.replace(spec, model_cfg=cfg, shapes=shapes)
+
+
+def decode_record(torch, dev, mesh, shape: str, rows: int) -> dict:
+    """One rank of a world: ``run_cell`` on tinyllama's ``shape`` (bfloat16)
+    at full width and depth and ``rows`` rows under ``mesh``: wall ms, peak
+    MiB, collective bytes and this rank's slice of the cache."""
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    spec = world_lm_spec(shape, layers=get_lm_layers(), rows=rows)
+    rec = dryrun.run_cell(LM_ARCH, shape, verbose=False, dmesh=mesh, spec=spec)
+    require(rec["status"] == "ok", f"rank {mesh.rank} {shape} {mesh}: {rec.get('error')}\n{rec.get('traceback')}")
+    return {"wall_ms": rec["wall_ms"], "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+            "collectives": rec["collective_bytes_per_device"], "first_call_s": rec["first_call_s"],
+            "cache_local": rec["input_shapes"][1]["k"]}
+
+
+def decode_holds(torch, dev, mesh, shape: str, rows: int, lens, rel, *, dtype: str, layers: int,
+                 exact: bool = False) -> list:
+    """One rank of a world: tinyllama's ``shape`` cell in ``dtype`` at
+    ``layers`` layers under ``mesh``, at each ``cache_len`` of ``lens`` on
+    this rank's slices of one seeded input, held against the unsharded
+    ``decode_step`` on the whole input on this rank: the logits, the
+    written row of the new cache (from the rank whose slice holds it), and
+    every other row of the rank's slice equal to the input's, bit for bit
+    (the unsharded step leaves those rows as they were too), so the ranks'
+    slices together hold the whole gathered cache to the unsharded one.
+    With ``exact``, both steps' logits also against the unsharded step in
+    float32 on the same weights and cache."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer
+    from repro_torch.parallel.sharding import sanitize_specs, shard_tree
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = world_lm_spec(shape, dtype=dtype, layers=layers, rows=rows)
+    cell = build_cell(spec, shape, make_production_mesh(), mesh)
+    # the cell's config: long_500k[swa]'s window is the cell's
+    cfg = dataclasses.replace(spec.cfg_for(shape), sliding_window=spec.shapes[shape].kwargs.get("sliding_window"))
+    params, cache, tokens, _ = dryrun.cell_inputs(cell, cfg, device=dev, batch=rows)
+    my_params = shard_tree(params, cell.in_specs[0], mesh)
+    my_tokens = shard_tree(tokens, sanitize_specs(cell.in_specs[2], tokens, mesh), mesh)
+    s_all = cache["k"].shape[2]
+    split = tuple(cell.in_specs[1]["k"])[2] == "model"
+    s_loc = s_all // mesh.axis_size("model") if split else s_all
+    off = mesh.coord("model") * s_loc if split else 0
+    holds = []
+    to32 = (lambda t: tree_map(lambda a: a.float() if a.is_floating_point() else a, t)) if exact else None
+    for n in lens:
+        local = shard_tree(cache, cell.in_specs[1], mesh)
+        logits, new = cell.fn(my_params, local, my_tokens, torch.tensor(n, dtype=torch.int32, device=dev))
+        row = min(n, s_all - 1) - off
+        owns = 0 <= row < s_loc
+        rest = all(torch.equal(new[k][:, :, :row], local[k][:, :, :row]) and
+                   torch.equal(new[k][:, :, row + 1:], local[k][:, :, row + 1:]) if owns else
+                   torch.equal(new[k], local[k]) for k in "kv")
+        got_row = {k: new[k][:, :, row].clone() for k in "kv"} if owns else None
+        del new, local
+        with torch.no_grad():
+            want_logits, want = transformer.decode_step(params, cache, tokens, n, cfg)
+        holds.append({"cache_len": n, "owns_row": owns, "rest_equal": rest, "logits_rel": rel(logits, want_logits),
+                      "row_rel": max(rel(got_row[k], want[k][:, :, row + off]) for k in "kv") if owns else None})
+        del want
+        if exact:
+            with torch.no_grad():
+                logits32, _ = transformer.decode_step(to32(params), to32(cache), tokens, n, cfg)
+            holds[-1].update(exact_rel=rel(logits, logits32), exact_want_rel=rel(want_logits, logits32))
+            del logits32
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params, cache, my_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return holds
+
+
+
+
+def get_lm_layers() -> int:
+    """tinyllama's full depth (22 layers)."""
+    from repro_torch.configs import get_spec
+
+    return get_spec(LM_ARCH).model_cfg.n_layers
+
+
+def world3_worker(out_dir: str) -> int:
+    """One rank of phase 15's world of three (15f, ``--world3-worker
+    DIR``): under 1x3 nothing of tinyllama splits over ``model``, so each
+    rank runs the whole model; decode_32k at full depth (``decode_holds``)
+    and a train_4k step at WORLD_LM_LAYERS layers, each against the
+    unsharded run on the same rank.  Writes ``DIR/world3_rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.gather import gather_blocks
+    from repro_torch.kernels.intersect import intersect_sorted
+    from repro_torch.kernels.proximity import proximity_window
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.tree import tree_leaves
+
+    m13 = make_device_mesh((1, 3), ("data", "model"), backend=WORLD_BACKEND, device="cuda")
+    rank, dev = m13.rank, m13.device
+    counted = {"proximity_window": proximity_window, "intersect_sorted": intersect_sorted,
+               "gather_blocks": gather_blocks}
+    for fn in counted.values():
+        fn.launches = 0
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / max(float(want.float().norm()), 1e-30))
+
+    t = time.perf_counter()
+    shape, rows, lens = WORLD3_DECODE
+    res: dict = {"rank": rank, "decode": {shape: {
+        **decode_record(torch, dev, m13, shape, rows),
+        "holds": decode_holds(torch, dev, m13, shape, rows, lens, rel, dtype="bfloat16", layers=get_lm_layers())}}}
+    spec = world_lm_spec("train_4k")
+    want = dryrun.run_cell(LM_ARCH, "train_4k", verbose=False, device=dev, repeats=1, spec=spec, keep_outputs=True)
+    require(want["status"] == "ok", f"rank {rank} train_4k no mesh: {want.get('error')}")
+    want_out = want.pop("outputs")
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = dryrun.run_cell(LM_ARCH, "train_4k", verbose=False, dmesh=m13, repeats=1, spec=spec, keep_outputs=True)
+    require(rec["status"] == "ok", f"rank {rank} train_4k 1x3: {rec.get('error')}\n{rec.get('traceback')}")
+    got = rec.pop("outputs")  # every leaf replicated: this rank's params are the whole tree
+    res["train"] = {"wall_ms": rec["wall_ms"], "wall_ms_unsharded": want["wall_ms"],
+                    "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+                    "collectives": rec["collective_bytes_per_device"],
+                    "params_rel": max(rel(a, b) for a, b in zip(tree_leaves(got[0]), tree_leaves(want_out[0]))),
+                    "metrics_rel": max(abs(float(got[2][k]) - float(want_out[2][k])) / max(abs(float(want_out[2][k])),
+                                                                                          1e-30) for k in got[2])}
+    del got, want_out
+    res["launches"] = {f"world 1x3 LM decode and train (phase 15f), rank {rank}":
+                       {kname: fn.launches for kname, fn in counted.items()}}
+    res["s"] = time.perf_counter() - t
+    (Path(out_dir) / f"world3_rank{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def world_worker(out_dir: str) -> int:
@@ -1525,7 +1746,9 @@ def world_worker(out_dir: str) -> int:
     DIR``): (a) the paper_search serve cells under ``--mesh 1x2``, (b) the
     LM cells under 1x2 and 2x1 with FSDP against the unsharded run, (c) one
     olmoe MoE layer's ``local`` dispatch over model = 2, (d) the int8
-    gradient all-reduce, card against the same world's CPU tensors.  Writes
+    gradient all-reduce, card against the same world's CPU tensors, (e)
+    tinyllama's decode cells context-parallel at full depth
+    (``decode_holds``).  Writes
     its summary to ``DIR/rank<r>.json`` and rank 0's serve outputs to
     ``DIR/serve_<shape>.pt``."""
     import dataclasses
@@ -1677,12 +1900,55 @@ def world_worker(out_dir: str) -> int:
         "out_equal": all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(out_dev), tree_leaves(out_cpu))),
         "err_equal": all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(err_dev), tree_leaves(err_new_cpu))),
         "s": time.perf_counter() - t}
-    (out / f"rank{rank}.json").write_text(json.dumps(res))
-    import torch.distributed as dist
 
-    dist.barrier()
-    dist.destroy_process_group()
+    # ---- (e) context-parallel decode at full width and depth ----
+    t = time.perf_counter()
+    zero_counts()
+    res["decode"] = {}
+    for shape, (rows, lens) in WORLD_DECODE.items():
+        res["decode"][shape] = decode_record(torch, dev, m12, shape, rows)
+        res["decode"][shape]["holds"] = {
+            f"{dtype} {layers}": decode_holds(torch, dev, m12, shape, rows, lens, rel, dtype=dtype, layers=layers,
+                                              exact=(shape, dtype, layers) in WORLD_DECODE_EXACT)
+            for dtype, layers, _ in WORLD_DECODE_HOLDS[shape]}
+    read_counts(f"world 1x2 context-parallel decode (phase 15e), rank {rank}")
+    res["decode_s"] = time.perf_counter() - t
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the dry-run's command line on the context-parallel decode_32k at
+    # full size, in this world (a process group it finds up is the one its
+    # --mesh runs on; it tears the group down when it is done) ----
+    try:
+        dryrun.main(["--arch", LM_ARCH, "--shape", "decode_32k", "--mesh", "1x2", "--backend", WORLD_BACKEND,
+                     "--out", str(out / "dryrun_decode")])
+    except SystemExit as e:
+        require(e.code == 0, f"rank {rank}: the dry-run CLI exited {e.code}")
     return 0
+
+
+def decode_holds_check(label: str, per_rank: list, owners: int, bound: float) -> None:
+    """Print and require ``decode_holds``' results of every rank: the logits
+    and the written row within ``bound`` relative, the rest of each slice
+    equal to the input's, and the written row held by ``owners`` ranks (the
+    one whose slice holds it, or every rank where the cache is whole)."""
+    for i, n in enumerate(h["cache_len"] for h in per_rank[0]):
+        holds = [e[i] for e in per_rank]
+        rows = [h["row_rel"] for h in holds if h["owns_row"]]
+        logits = ", ".join(f"{h['logits_rel']:.2e}" for h in holds)
+        written = ", ".join(f"{x:.2e}" for x in rows)
+        print(f"{label} cache_len {n}: logits rel {logits} (a rank each), written row rel {written} ({len(rows)} "
+              f"rank(s) hold it), the rest of every slice equal to the input: {all(h['rest_equal'] for h in holds)}")
+        require(len(rows) == owners and all(x <= bound for x in rows), f"{label} cache_len {n}: written row")
+        require(all(h["rest_equal"] and h["logits_rel"] <= bound for h in holds), f"{label} cache_len {n}")
+        if "exact_rel" in holds[0]:
+            print(f"{label} cache_len {n}: logits rel to the float32 step on the same weights and cache: sharded "
+                  + ", ".join(f"{h['exact_rel']:.2e}" for h in holds) + ", unsharded "
+                  + ", ".join(f"{h['exact_want_rel']:.2e}" for h in holds) + " (a rank each)")
+            require(all(h["exact_rel"] <= h["exact_want_rel"] + LM_BF16_REL for h in holds),
+                    f"{label} cache_len {n}: the sharded step farther from float32 than the unsharded one + 2e-2")
 
 
 def world_start(procs: list, argv: list[str], out: Path | None = None):
@@ -1749,8 +2015,13 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
         t15 = phase("world of one over nccl, the one-program fold (15)", t15)
 
         world = world_start(procs, ["--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--world-worker", str(work)])
-        world_finish(world, "world of two (gloo on the card, chip_smoke.py --world-worker)")
+        world_out = world_finish(world, "world of two (gloo on the card, chip_smoke.py --world-worker)")
         ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        # the dry-run CLI's main on decode_32k, the world's last act
+        rec = json.loads(next((work / "dryrun_decode").glob("*.json")).read_text())
+        require(rec["status"] == "ok" and rec["device_mesh"] == "1x2" and rec["backend"] == WORLD_BACKEND,
+                f"the decode dry-run CLI's record: {rec.get('status')} {rec.get('device_mesh')}")
+        print("  " + " | ".join(ln for ln in world_out.splitlines() if ln.startswith("[dryrun]")))
         # ---- (a) serving ----
         for shape in WORLD_SERVE:
             got = torch.load(work / f"serve_{shape}.pt")
@@ -1811,15 +2082,29 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
             require(c["out_equal"] and c["err_equal"], f"15d rank {r['rank']}: card != cpu")
         summary["moe"] = [r["moe"] for r in ranks]
         summary["compress"] = [r["compress"] for r in ranks]
-        summary["worker_s"] = {k: [r[k] for r in ranks] for k in ("serve_s", "lm_s", "moe_s")}
-        t15 = phase("world of two: serving, LM, MoE, compression (15a-d)", t15)
+        # ---- (e) context-parallel decode ----
+        for shape in WORLD_DECODE:
+            for r in ranks:
+                e = r["decode"][shape]
+                print(f"15e {shape} rank {r['rank']} ({WORLD_BACKEND}, mesh 1x2, all layers): cache slice "
+                      f"{e['cache_local']}, wall {[round(x, 3) for x in e['wall_ms']]} ms, first call "
+                      f"{e['first_call_s']} s, peak {e['peak_mib']:.1f} MiB, collectives {json.dumps(e['collectives'])} B")
+            for dtype, layers, bound in WORLD_DECODE_HOLDS[shape]:
+                decode_holds_check(f"15e {shape} {dtype} at {layers} layers (bound {bound:g})",
+                                   [r["decode"][shape]["holds"][f"{dtype} {layers}"] for r in ranks], 1, bound)
+        summary["decode"] = {shape: [r["decode"][shape] for r in ranks] for shape in WORLD_DECODE}
+        summary["worker_s"] = {k: [r[k] for r in ranks] for k in ("serve_s", "lm_s", "moe_s", "decode_s")}
+        t15 = phase("world of two: serving, LM, MoE, compression, decode (15a-e)", t15)
 
-        # ---- the entry points' own command lines in worlds of two ----
+        # ---- the entry points' own command lines in worlds of two, beside
+        # (f) the world of three ----
         dry = world_start(procs, ["--nproc-per-node", "2", "-m", "repro_torch.launch.dryrun", "--arch", "paper_search",
                                   "--shape", "serve_online", "--mesh", "1x2", "--backend", WORLD_BACKEND,
                                   "--out", str(work / "dryrun")])
         train = world_start(procs, ["--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
                                     "--steps", "2", "--mesh", "1x2", "--backend", WORLD_BACKEND])
+        world3 = world_start(procs, ["--nproc-per-node", "3", str(ROOT / "chip_smoke.py"), "--world3-worker",
+                                     str(work)])
         dry_out = world_finish(dry, "python -m torch.distributed.run -m repro_torch.launch.dryrun --mesh 1x2")
         rec = json.loads(next((work / "dryrun").glob("*.json")).read_text())
         require(rec["status"] == "ok" and rec["device_mesh"] == "1x2" and rec["backend"] == WORLD_BACKEND,
@@ -1829,7 +2114,28 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
         steps = [ln for ln in train_out.splitlines() if ln.startswith(("step", "done"))]
         print("  " + " | ".join(steps))
         require(len(steps) == 3, f"the trainer printed {steps}")
-        phase("the dry-run and trainer command lines in worlds of two (15)", t15)
+        world_finish(world3, "world of three (gloo on the card, chip_smoke.py --world3-worker)")
+        # ---- (f) the world of three ----
+        ranks3 = [json.loads((work / f"world3_rank{r}.json").read_text()) for r in range(3)]
+        shape = WORLD3_DECODE[0]
+        for r in ranks3:
+            e, tr = r["decode"][shape], r["train"]
+            print(f"15f {shape} rank {r['rank']} ({WORLD_BACKEND}, mesh 1x3, all layers, the cache whole): wall "
+                  f"{[round(x, 3) for x in e['wall_ms']]} ms, first call {e['first_call_s']} s, peak "
+                  f"{e['peak_mib']:.1f} MiB, collectives {json.dumps(e['collectives'])} B")
+            print(f"15f train_4k rank {r['rank']} (mesh 1x3, {WORLD_LM_LAYERS} layers, {WORLD_LM_ROWS['train_4k']} rows): wall "
+                  f"{[round(x, 1) for x in tr['wall_ms']]} ms (unsharded on this rank "
+                  f"{[round(x, 1) for x in tr['wall_ms_unsharded']]} ms), peak {tr['peak_mib']:.1f} MiB, collectives "
+                  f"{json.dumps(tr['collectives'])} B; metrics rel {tr['metrics_rel']:.2e}, params rel "
+                  f"{tr['params_rel']:.2e}")
+            require(tr["metrics_rel"] <= LM_BF16_REL and tr["params_rel"] <= LM_BF16_REL, "15f train_4k: beyond 2e-2")
+            path_launches.update(r["launches"])
+            for path, counts in r["launches"].items():
+                require(all(v == 0 for v in counts.values()), f"{path} launched a search kernel: {counts}")
+        decode_holds_check(f"15f {shape} bfloat16 at all layers", [r["decode"][shape]["holds"] for r in ranks3], 3,
+                           LM_BF16_REL)
+        summary["world3"] = ranks3
+        phase("the dry-run and trainer command lines in worlds of two, the world of three (15f)", t15)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1842,8 +2148,9 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
 
 
 def new_families(phases: list[int], threads: int) -> dict:
-    """Phases 12, 13 and 14, as selected, in this process (the card child of
-    a whole run): their summaries and their launch counts by path."""
+    """Phases 15, 12, 13 and 14, as selected and in that order, in this
+    process (the card child of a whole run): their summaries and their
+    launch counts by path."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -1867,6 +2174,10 @@ def new_families(phases: list[int], threads: int) -> dict:
 
     dev = torch.device("cuda", 0)
     out: dict = {}
+    # phase 15 first: it runs beside phase 8, whose card memory is small;
+    # 12a's olmoe train_4k (70 GB) then lands beside phase 9, as it did
+    if 15 in phases:
+        out["world"] = world_phase(torch, dev, path_launches)
     if 12 in phases:
         out["moe"] = moe_phase(torch, dev, zero_counts, read_counts)
     if 13 in phases:
@@ -1874,18 +2185,18 @@ def new_families(phases: list[int], threads: int) -> dict:
     if 14 in phases:
         out["gnn"] = gnn_phase(torch, dev, zero_counts, read_counts)
         out["cost"] = cost_phase(torch, dev, zero_counts, read_counts)
-    if 15 in phases:
-        out["world"] = world_phase(torch, dev, path_launches)
     out["launches_by_path"] = path_launches
     return out
 
 
 def card_child_start(procs: list, phases: list[int], threads: int):
-    """Phases 12, 13 and 14 in a fresh process (jax and the reference
+    """Phases 12-15 in a fresh process (jax and the reference
     package blocked)."""
     # expandable segments: the train_4k cell's state is about 71 GB
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
-    proc = subprocess.Popen([sys.executable, "-c", CARD_CHILD, str(ROOT), ",".join(map(str, phases)), str(threads)],
+    nice = CHILD_NICE if threads else 0  # alone (threads 0) it has the machine to itself
+    proc = subprocess.Popen([sys.executable, "-c", CARD_CHILD, str(ROOT), ",".join(map(str, phases)), str(threads),
+                             str(nice)],
                             cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     procs.append(proc)
@@ -1948,9 +2259,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--phases", type=parse_phases, default=ALL_PHASES,
                     help="the phases to run, e.g. 12,13 or 3-10 (default: all; see the module docstring)")
     ap.add_argument("--world-worker", default=None, help=argparse.SUPPRESS)  # one rank of phase 15's world
+    ap.add_argument("--world3-worker", default=None, help=argparse.SUPPRESS)  # one rank of 15f's world of three
     parsed = ap.parse_args(argv)
     if parsed.world_worker is not None:
         return world_worker(parsed.world_worker)
+    if parsed.world3_worker is not None:
+        return world3_worker(parsed.world3_worker)
     phases = parsed.phases
     procs: list = []  # every process the run starts beside its phases
     try:
@@ -2036,7 +2350,8 @@ def _main(procs: list, phases: set[int]) -> int:
 
     def search_phases():
         """Phases 3-10 (see the module docstring); phases 11e and 11f run
-        beside phases 3 and 7, and 12-14 beside phase 9, when selected."""
+        beside phases 3 and 7, and 15 and 12-14 beside phases 8 and 9, when
+        selected."""
         nonlocal t0
 
         def slate_profile(make_fe, label, first_ms, cached_ms):
@@ -3276,25 +3591,26 @@ def _main(procs: list, phases: set[int]) -> int:
         # fresh process from what it wrote
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
         try:
-            durable_phase(work / "snapshot", work / "reference")
-            # phases 12, 13 and 14 in a child process beside phase 9's
-            # host-bound launchers (no slate of phase 9 is timed against a
-            # device)
+            # phases 15, 12, 13 and 14 in a child process beside phases 8
+            # and 9, which are host-bound (their slates' times and profiles
+            # share the card with it; none is held to a bound)
             gc.collect()
             torch.cuda.empty_cache()
             child = card_child_start(procs, new, threads=CHILD_THREADS) if new else None
             print(f"card memory held here: {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved; phases "
-                  f"{new} {'started beside phase 9' if new else 'not selected'}")
+                  f"{new} {'started beside phases 8 and 9' if new else 'not selected'}")
+            durable_phase(work / "snapshot", work / "reference")
             t0 = time.perf_counter()
             launcher_phase(work)
             t0 = phase("the launcher's deployments (phase 9, whole)", t0)
+            early = paper_search_early(procs)
             card = card_child_finish(child) if child else None
             t0 = phase(f"the rest of phases {new} after phase 9", t0)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
         # ---- 10. the paper_search device steps ------------------------------------
-        paper_search_phase(torch, dev, index, subs, kernels, zero_counts, read_counts)
+        paper_search_phase(torch, dev, index, subs, kernels, zero_counts, read_counts, early)
         return lm_cli, lm_ckpt, card
 
 

@@ -7,7 +7,8 @@ intermediate per-lemma posting lists**:
 Step 1 (§8)  — document alignment: advance the min-doc iterator until every
                iterator sits on the same document.
 Step 2 (§9)  — position alignment inside the document: advance the
-               min-position iterator until ``maxP - minP < 2*MaxDistance``.
+               min-position iterator until ``maxP - minP <= 4*MaxDistance``
+               (see the fidelity notes for why not ``2*MaxDistance``).
 Step 3 (§10) — the Position table: three cyclic buffers of ``WindowSize``
                entries, each with a 64-bit occupancy ``Mask``.  ``Set(P,Lem)``
                writes the entry at relative position ``P - Start``; Bit Scan
@@ -32,7 +33,18 @@ Fidelity notes (see DESIGN.md §7):
   overwrite, and the §10.1 completion check runs once per position (all of
   the position's events enter the Lemma table first) — exactly the oracle's
   atomic-position sweep, so SE2.4 stays fragment-identical to
-  ``core/oracle.py`` and every device engine.
+  ``core/oracle.py`` and every device engine;
+* Step 2's gate compares *key* positions, but a record's events lie up to
+  ``MaxDistance`` on either side of its key position, so two records can
+  share a fragment of span ``2*MaxDistance`` while their key positions are
+  ``4*MaxDistance`` apart.  The §9 gate ``maxP - minP < 2*MaxDistance``
+  advances past such a record before Step 3 reads it and loses the fragment
+  (doc 3 of the seed-54 draw: subquery (w3, w4, w5, w2), keys (w2, w4, w5)
+  at 30 and 39 and (w3, w4, w5) at 40; the fragment (34, 40) needs w4@34,
+  carried only by the record at 30).  We gate on ``<= 4*MaxDistance``,
+  which is sound while ``WindowSize >= 4*MaxDistance``: ``se24_combiner``
+  raises for a smaller window (MaxDistance > 16 at the 64-bit cap), where
+  the reference runs with its gate.
 """
 
 from __future__ import annotations
@@ -306,6 +318,9 @@ def se24_combiner(
     t0 = time.perf_counter()
     D = index.max_distance
     window_size = min(64, max(window_size, 2 * D))
+    if 4 * D > window_size:
+        # Step 2's gate hands Step 3 records up to 4*D apart (fidelity notes)
+        raise ValueError(f"se24_combiner needs 4*MaxDistance <= WindowSize <= 64, got D={D}, W={window_size}")
     key_list = list(keys) if keys is not None else select_keys(subquery, index.fl)
     iters = [KeyIterator(k, index.key_postings(k.components), stats) for k in key_list]
     max_span = 2 * D
@@ -324,7 +339,7 @@ def se24_combiner(
             ps = [it.pos for it in in_doc]
             stats.heap_ops += 1
             delta = max(ps) - min(ps)
-            if delta < 2 * D:
+            if delta <= 4 * D:  # records D either side of their key position
                 _step3(doc, iters, state, max_span)  # Step 3, then back here
                 continue
             # advance the min-position iterator

@@ -43,10 +43,11 @@ Started by ``python -m torch.distributed.run --nproc-per-node N`` (or with
 ``--backend`` (default ``nccl`` on the card, ``gloo`` on the CPU): every
 rank draws the same inputs from the seed and keeps its slice of each under
 the cell's ``in_specs`` (``parallel.sharding.shard_tree``); an LM cell's
-data-rank share is split again over the world's data axes, and a serve
-cell's NS shards over all of its ranks.  The record adds ``device_mesh``,
-``backend`` and the collectives the first call ran, counted per rank; only
-rank 0 prints and writes it.
+data-rank share is split again over the world's data axes (a decode
+cell's cache also over ``model``, by position, where the axis divides
+them), and a serve cell's NS shards over all of its ranks.  The record
+adds ``device_mesh``, ``backend`` and the collectives the first call ran,
+counted per rank; only rank 0 prints and writes it.
 """
 
 from __future__ import annotations

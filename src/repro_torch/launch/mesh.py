@@ -40,7 +40,10 @@ __all__ = [
     "parse_mesh",
     "use_mesh",
     "current_mesh",
+    "MESH_AXES",
 ]
+
+MESH_AXES = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)

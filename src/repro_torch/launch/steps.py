@@ -18,9 +18,11 @@ serve cell's ranks each cover their NS/W shards and all-gather the top-k
 lists; an LM train or prefill cell runs data, tensor and expert
 parallelism, with FSDP where the config asks (``models/transformer.py``),
 the gradients of every leaf replicated over a data axis all-reduced over
-it, AdamW on the shards.  An LM decode cell under a model axis of more than
-one rank, and every recsys and GNN cell under more than one rank, raise
-``NotImplementedError``: their sharded layouts are not ported yet.
+it, AdamW on the shards; an LM decode cell under a model axis of more than
+one rank is context-parallel, each rank holding its slice of the cache's
+positions where the model axis divides them.  Every recsys and GNN cell
+under more than one rank raises ``NotImplementedError``: their sharded
+layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -179,8 +181,6 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMes
         )
 
     # decode (decode_32k / long_500k)
-    if world is not None and tp > 1:
-        raise NotImplementedError("sequence-sharded decode cache")
     dh = cfg.d_head
     cache_shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, dh)
     args = (
@@ -199,10 +199,14 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMes
         P(),
     )
 
+    # a world's ranks each hold their slice of the positions where the
+    # model axis divides them (else the cache whole)
+    seq_split = world is not None and in_specs[1]["k"][2] == "model"
+
     @torch.no_grad()
     def decode_fn(params, cache, tokens, cache_len):
         with use_mesh(dmesh):
-            return transformer.decode_step(params, cache, tokens, cache_len, cfg)
+            return transformer.decode_step(params, cache, tokens, cache_len, cfg, seq_split=seq_split)
 
     # useful work for one decoded token: active params + KV reads
     attended = min(seq, cfg.sliding_window or seq)

@@ -25,6 +25,7 @@ __all__ = [
     "flash_attention",
     "attention_plain",
     "decode_attention",
+    "decode_attention_merged",
     "swiglu",
     "dense_init",
 ]
@@ -227,6 +228,35 @@ def decode_attention(
     p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = _dot_f32(p, v_cache.transpose(1, 2))  # [B, Hkv, r, D]
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def decode_attention_merged(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [B, s, Hkv, D]: the valid positions this rank holds (s may be 0)
+    v_cache: torch.Tensor,  # [B, s, Hkv, D]
+    reduce=None,
+) -> torch.Tensor:
+    """``decode_attention`` over the valid positions alone, where a cache
+    split along its positions between ranks gives each rank a run of them (a
+    rank with none passes an empty run).  ``reduce(x, op)`` merges the
+    ranks' tensors: ``"max"`` of the score maxima (-inf from a rank with no
+    position), then ``"sum"`` of the sums of exps and of the products with
+    V, each product rounded to the model dtype as ``decode_attention``
+    rounds its one.  With ``reduce=None`` (one rank holding every valid
+    position) it is ``decode_attention`` on that run."""
+    b, s, hkv, d = k_cache.shape
+    hq = q.shape[2]
+    n_rep = hq // hkv
+    reduce = reduce or (lambda x, op: x)
+    q2 = q.reshape(b, hkv, n_rep, d)
+    scores = _dot_f32(q2, k_cache.permute(0, 2, 3, 1)) * d ** -0.5  # [B, Hkv, r, s]
+    m_loc = scores.amax(dim=-1) if s else torch.full((b, hkv, n_rep), -math.inf, device=q.device)
+    m = reduce(m_loc, "max")  # finite: some rank holds the token's own position
+    e = torch.exp(scores - m[..., None])
+    l = reduce(e.sum(dim=-1), "sum")
+    p = (e / l[..., None]).to(v_cache.dtype)
+    out = reduce(_dot_f32(p, v_cache.transpose(1, 2)).to(q.dtype), "sum")  # [B, Hkv, r, D]
+    return out.reshape(b, 1, hq, d)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:

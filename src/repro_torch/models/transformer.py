@@ -19,15 +19,26 @@ of blocks, each a dense sublayer then an MoE sublayer (``{"dense_sub",
 layer ``2i`` is block i's dense sublayer, ``2i + 1`` its MoE sublayer.
 Under a device mesh (``launch.mesh.use_mesh``) of more than one rank, the
 parameters are this rank's shards by ``parallel.sharding.lm_param_specs``
-and the batch its ``data`` share, and the collectives GSPMD inserts for the
-reference are written out (``parallel.collectives``): Megatron tensor
-parallelism over ``model`` — ``wq``/``wk``/``wv``/``w_gate``/``w_up``
-column-split behind ``copy_to``, ``wo``/``w_down`` row-split into
-``reduce_from`` (the bf16 payload), ``embed`` split on D (gathered after
-the lookup), ``unembed`` on V (vocab-parallel logits: the max and the sum
-of ``logsumexp`` all-reduced, the gold logit from the rank that owns it);
-``wk``/``wv`` replicated when ``n_kv_heads`` does not divide the model
-axis, each rank taking the kv heads of its own q heads.  With ``fsdp``
+(after ``sanitize_specs``: a dim the model axis does not divide is
+replicated) and the batch its ``data`` share, and the collectives GSPMD
+inserts for the reference are written out (``parallel.collectives``):
+Megatron tensor parallelism over ``model`` — ``wq``/``wk``/``wv``/
+``w_gate``/``w_up`` column-split behind ``copy_to``, ``wo``/``w_down``
+row-split into ``reduce_from`` (the bf16 payload), ``embed`` split on D
+(gathered after the lookup), ``unembed`` on V (vocab-parallel logits: the
+max and the sum of ``logsumexp`` all-reduced, the gold logit from the rank
+that owns it); ``wk``/``wv`` replicated when ``n_kv_heads`` does not divide
+the model axis, each rank taking the kv heads of its own q heads.  Where
+``wq``'s columns split mid-head (or its heads do not map onto whole kv
+heads), the q columns are all-gathered (their gradient reduce-scattered),
+every rank attends with every head and feeds its own columns of the output
+to its ``wo`` rows.  A weight that does not split (``wq``/``wo``, the FFN,
+``embed``, ``unembed``) runs whole on every rank.  Decode under a model
+axis is context-parallel where the cache's sequence dim splits (the
+reference's ``P(None, data, "model", None, None)``): each rank holds S / tp
+positions of every layer, the token's q (every head) and K/V are gathered,
+the rank holding the token's row writes it, and the softmax statistics are
+merged over ``model`` (``layers.decode_attention_merged``).  With ``fsdp``
 each layer's weights, sharded over ``data`` on a second dim, are gathered
 inside its checkpoint (``fsdp_gather_layer``: the backward re-gathers and
 reduce-scatters the gradient), and so are ``embed`` and ``unembed``.  The
@@ -51,7 +62,7 @@ from ..launch.mesh import current_mesh
 from ..parallel.collectives import all_gather, all_reduce, copy_to, fsdp_gather, gather_from, reduce_from
 from ..parallel.sharding import P, data_axes, fsdp_gather_layer, lm_param_specs, sanitize_specs
 from ..tree import tree_flatten, tree_unflatten
-from .layers import _dot_f32, decode_attention, dense_init, flash_attention, rms_norm, rope
+from .layers import _dot_f32, decode_attention_merged, dense_init, flash_attention, rms_norm, rope
 from .moe import MoEConfig, moe_ffn, moe_layout
 
 __all__ = [
@@ -233,6 +244,13 @@ class _Par:
     n_data: int
     kv_split: bool
     specs: dict
+    # "heads": each rank attends with its own q heads; "columns": wq's
+    # columns split, but not into heads that map onto whole kv heads, so
+    # every rank attends with every head; "whole": wq and wo replicated
+    attn: str
+    ffn_split: bool  # the dense FFN's hidden dim over `model`
+    embed_split: bool  # embed's D over `model`
+    vocab_split: bool  # unembed's V over `model`
 
     def split(self, spec: P, dim: int, axis: str) -> bool:
         dims = list(spec)
@@ -252,19 +270,24 @@ def _tp_size(mesh=None) -> int:
 def _par_for(cfg: TransformerConfig, mesh) -> _Par:
     tp = _tp_size(mesh)
     kv_shardable = cfg.n_kv_heads % tp == 0
-    hq_loc, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
-    if cfg.n_heads % tp or not (kv_shardable or hq_loc % group == 0 or group % hq_loc == 0):
-        raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} q heads ({cfg.n_kv_heads} kv) over a model axis of {tp}")
     shapes = param_shapes(cfg)
     specs = sanitize_specs(lm_param_specs(shapes, kv_shardable=kv_shardable, fsdp=cfg.fsdp), shapes, mesh)
-    if tp > 1:
-        # tensor parallelism needs every column- and row-split the rule names
-        for path, dim in (("embed", 1), ("unembed", 1)):
-            if specs[path][dim] != "model":
-                raise NotImplementedError(f"{cfg.name}: {path} does not split over a model axis of {tp}")
+    layer = specs["layers"]["dense_sub"] if _interleaved(cfg) else specs["layers"]
+
+    def split(spec: P, dim: int) -> bool:
+        return tp > 1 and dim < len(spec) and spec[dim] == "model"
+
+    hq_loc, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    if not split(layer["wq"], 2):
+        attn = "whole"
+    elif cfg.n_heads % tp == 0 and (kv_shardable or hq_loc % group == 0 or group % hq_loc == 0):
+        attn = "heads"
+    else:
+        attn = "columns"
     da = data_axes(mesh)
     return _Par(mesh, tp, mesh.coord("model") if tp > 1 else 0, da, mesh.axis_size(da),
-                kv_shardable and tp > 1, specs)
+                kv_shardable and tp > 1, specs, attn, "ffn" in layer and split(layer["ffn"]["w_gate"], 2),
+                split(specs["embed"], 1), split(specs["unembed"], 1))
 
 
 def _par(cfg: TransformerConfig) -> _Par | None:
@@ -315,14 +338,20 @@ def _qkv(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor
     b, s, _ = h.shape
     dh = cfg.d_head
     x = rms_norm(h, layer["ln1"])
-    if par is None or par.tp == 1:
+    if par is None or par.attn == "whole":
         q = (x @ layer["wq"]).view(b, s, -1, dh)
         k = (x @ layer["wk"]).view(b, s, -1, dh)
         v = (x @ layer["wv"]).view(b, s, -1, dh)
         k = rope(k, positions, cfg.rope_theta)
         return rope(q, positions, cfg.rope_theta), k, v, (k, v)
     x = copy_to(x, par.mesh, "model")
-    q = rope((x @ layer["wq"]).view(b, s, -1, dh), positions, cfg.rope_theta)
+    q = x @ layer["wq"]
+    if par.attn == "columns":
+        # this rank's columns end mid-head: every rank attends with every
+        # head (RoPE rotates whole heads), and the gather's backward sums
+        # the ranks' shares of the gradient into each rank's columns
+        q = fsdp_gather(q, par.mesh, "model", -1)
+    q = rope(q.view(b, s, -1, dh), positions, cfg.rope_theta)
     if par.kv_split:
         k = rope((x @ layer["wk"]).view(b, s, -1, dh), positions, cfg.rope_theta)
         v = (x @ layer["wv"]).view(b, s, -1, dh)
@@ -333,6 +362,8 @@ def _qkv(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor
     wk, wv = copy_to(layer["wk"], par.mesh, "model"), copy_to(layer["wv"], par.mesh, "model")
     k = rope((x @ wk).view(b, s, -1, dh), positions, cfg.rope_theta)
     v = (x @ wv).view(b, s, -1, dh)
+    if par.attn == "columns":
+        return q, k, v, (k, v)
     lo, hi = _kv_slice(cfg, par)
     return q, k[:, :, lo:hi], v[:, :, lo:hi], (k, v)
 
@@ -342,7 +373,7 @@ def _ffn(x: torch.Tensor, layer, cfg: TransformerConfig, par: _Par | None = None
     if "moe" in layer:
         return moe_ffn(x, layer["moe"], cfg.moe)
     f = layer["ffn"]
-    tp = par is not None and par.tp > 1
+    tp = par is not None and par.ffn_split
     xin = copy_to(x, par.mesh, "model") if tp else x
     g = _dot_f32(xin, f["w_gate"])
     u = _dot_f32(xin, f["w_up"])
@@ -353,11 +384,17 @@ def _ffn(x: torch.Tensor, layer, cfg: TransformerConfig, par: _Par | None = None
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _attn_out(attn: torch.Tensor, layer, h: torch.Tensor, par: _Par | None) -> torch.Tensor:
-    out = attn @ layer["wo"]
-    if par is not None and par.tp > 1:
-        out = reduce_from(out, par.mesh, "model")
-    return h + out.to(h.dtype)
+def _attn_out(attn: torch.Tensor, layer, h: torch.Tensor, par: _Par | None, every_head: bool = False) -> torch.Tensor:
+    """``h`` plus the attention output ``attn`` (the heads this rank
+    attended with, or ``every_head``'s) through ``wo``: this rank's columns
+    into its row split of ``wo``, summed over ``model``, where ``wo``
+    splits."""
+    if par is None or par.attn == "whole":
+        return h + (attn @ layer["wo"]).to(h.dtype)
+    if every_head:
+        c = attn.shape[-1] // par.tp
+        attn = attn[..., par.col * c:(par.col + 1) * c]
+    return h + reduce_from(attn @ layer["wo"], par.mesh, "model").to(h.dtype)
 
 
 def _layer_fwd(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.Tensor,
@@ -373,7 +410,7 @@ def _layer_fwd(h: torch.Tensor, layer, cfg: TransformerConfig, positions: torch.
         kv_chunk=cfg.kv_chunk,
         sliding_window=cfg.sliding_window,
     ).reshape(b, s, -1)
-    h = _attn_out(attn, layer, h, par)
+    h = _attn_out(attn, layer, h, par, every_head=par is not None and par.attn == "columns")
     x = rms_norm(h, layer["ln2"])
     y, aux = _ffn(x, layer, cfg, par)
     return h + y, kv, aux
@@ -396,7 +433,7 @@ def _unstack(layers: dict[str, Any]) -> list[dict[str, Any]]:
 def _embed(params, tokens: torch.Tensor, par: _Par | None) -> torch.Tensor:
     spec = par.specs["embed"] if par is not None else None
     h = F.embedding(tokens, _gathered(params["embed"], spec, par))
-    if par is not None and par.tp > 1:
+    if par is not None and par.embed_split:
         h = gather_from(h, par.mesh, "model", -1)  # D was split over the model axis
     return h
 
@@ -446,11 +483,11 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, collect_cache:
 
 
 def _logits(h: torch.Tensor, params, par: _Par | None) -> torch.Tensor:
-    """``h @ unembed`` in float32: this rank's vocabulary slice under a
-    model axis."""
+    """``h @ unembed`` in float32: this rank's vocabulary slice where the
+    vocabulary splits over a model axis."""
     spec = par.specs["unembed"] if par is not None else None
     un = _gathered(params["unembed"], spec, par)
-    if par is not None and par.tp > 1:
+    if par is not None and par.vocab_split:
         h = copy_to(h, par.mesh, "model")
     return _dot_f32(h, un)
 
@@ -463,7 +500,7 @@ def loss_fn(params, batch: dict[str, torch.Tensor], cfg: TransformerConfig) -> t
     h, aux, _ = forward(params, batch["tokens"], cfg)
     logits = _logits(h, params, par)
     targets = batch["targets"].long()
-    if par is None or par.tp == 1:
+    if par is None or not par.vocab_split:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     else:
@@ -494,7 +531,7 @@ def loss_fn(params, batch: dict[str, torch.Tensor], cfg: TransformerConfig) -> t
 
 def _full_logits(h: torch.Tensor, params, par: _Par | None) -> torch.Tensor:
     logits = _logits(h, params, par)
-    if par is not None and par.tp > 1:
+    if par is not None and par.vocab_split:
         logits = all_gather(logits, par.mesh, "model", -1)
     return logits
 
@@ -511,28 +548,50 @@ def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
     return _full_logits(h[:, -1], params, par), {"k": k_cache, "v": v_cache}
 
 
-def _sublayer_decode(hh, layer, kc, vc, cfg: TransformerConfig, positions, cache_len: int):
+def _sublayer_decode(hh, layer, kc, vc, cfg: TransformerConfig, positions, cache_len: int,
+                     par: _Par | None = None, seq_split: bool = False):
     """One layer of ``decode_step``; writes the token's K and V into ``kc``
-    and ``vc`` (this layer's [B, S, Hkv, Dh] views of the new cache)."""
+    and ``vc`` (this layer's [B, S, Hkv, Dh] views of the new cache, or
+    with ``seq_split`` this rank's [B, S / tp, Hkv, Dh] slice of it)."""
     b = hh.shape[0]
-    q, k, v, _ = _qkv(hh, layer, cfg, positions)
-    s_cache = kc.shape[1]
+    q, _, _, (k, v) = _qkv(hh, layer, cfg, positions, par)
+    if par is not None and par.kv_split:
+        k, v = (all_gather(t, par.mesh, "model", 2) for t in (k, v))  # the cache holds every kv head
+    s_loc = kc.shape[1]
+    off, s_cache = (par.col * s_loc, par.tp * s_loc) if seq_split else (0, s_loc)
     # lax.dynamic_update_slice: the start is clamped so the update fits
-    row = min(max(cache_len, 0), s_cache - 1)
-    kc[:, row] = k[:, 0]
-    vc[:, row] = v[:, 0]
+    row = min(max(cache_len, 0), s_cache - 1) - off
+    if 0 <= row < s_loc:
+        kc[:, row] = k[:, 0]
+        vc[:, row] = v[:, 0]
+    # the valid positions [lo, hi): for a sliding window shorter than the
+    # cache, the last w positions — O(w) compute against an O(S) cache
+    # (DESIGN.md §6) — with the slice's start clamped into the cache
     w = cfg.sliding_window
     if w is not None and s_cache > w:
-        # sub-quadratic long-context decode: attend only over the last
-        # window — O(w) compute against an O(S) cache (DESIGN.md §6)
-        start = min(max(cache_len + 1 - w, 0), s_cache - w)
-        attn = decode_attention(q, kc[:, start:start + w], vc[:, start:start + w], min(cache_len + 1, w))
+        lo = min(max(cache_len + 1 - w, 0), s_cache - w)
+        hi = lo + min(cache_len + 1, w)
     else:
-        attn = decode_attention(q, kc, vc, cache_len + 1, sliding_window=w)
-    attn = attn.reshape(b, 1, cfg.n_heads * cfg.d_head)
-    hh = hh + (attn @ layer["wo"]).to(hh.dtype)
+        lo, hi = max(cache_len + 1 - w, 0) if w is not None else 0, min(cache_len + 1, s_cache)
+    heads, reduce = slice(None), None
+    own_heads = par is not None and par.attn == "heads"
+    if seq_split:
+        # context parallel: every head over this rank's run of the valid
+        # positions, the softmax statistics merged over `model`
+        lo, hi = min(max(lo - off, 0), s_loc), min(max(hi - off, 0), s_loc)
+        reduce = functools.partial(_merge, par)
+        q = all_gather(q, par.mesh, "model", 2) if own_heads else q
+    elif own_heads:
+        heads = slice(*_kv_slice(cfg, par))  # the rank's own heads, as train and prefill
+    attn = decode_attention_merged(q, kc[:, lo:max(lo, hi), heads], vc[:, lo:max(lo, hi), heads], reduce)
+    every_head = par is not None and (par.attn == "columns" or seq_split and own_heads)
+    hh = _attn_out(attn.reshape(b, 1, -1), layer, hh, par, every_head)
     x = rms_norm(hh, layer["ln2"])
-    return hh + _ffn(x, layer, cfg)[0]
+    return hh + _ffn(x, layer, cfg, par)[0]
+
+
+def _merge(par: _Par, x: torch.Tensor, op: str) -> torch.Tensor:
+    return all_reduce(x, par.mesh, "model", dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
 
 
 def decode_step(
@@ -541,14 +600,18 @@ def decode_step(
     tokens: torch.Tensor,  # [B, 1]
     cache_len: torch.Tensor | int,  # scalar: filled prefix length
     cfg: TransformerConfig,
+    *,
+    seq_split: bool = False,
 ):
     """One new token with a KV cache of length ``cache_len``; returns (logits
     [B, V], the new cache).  The input cache is not written to.  Under a
-    mesh, of this rank's batch share; a model axis of more than one rank
-    needs the reference's sequence-sharded cache, which the port lacks."""
+    mesh, of this rank's batch share; under a model axis of more than one
+    rank with ``seq_split``, ``cache`` is this rank's slice of the cache's
+    positions (S / tp of them, in coordinate order: the reference's
+    context-parallel layout) and so is the new cache it returns, else every
+    rank holds the cache whole."""
     par = _par(cfg)
-    if par is not None and par.tp > 1:
-        raise NotImplementedError("sequence-sharded decode cache")
+    seq_split = seq_split and par is not None and par.tp > 1
     n = int(cache_len)
     b = tokens.shape[0]
     positions = torch.full((b, 1), n, dtype=torch.int32, device=tokens.device)
@@ -559,6 +622,6 @@ def decode_step(
     for i, (sub, spec) in enumerate(subs):
         if par is not None and cfg.fsdp:
             sub = fsdp_gather_layer(sub, spec, par.mesh)
-        h = _sublayer_decode(h, sub, k_new[i], v_new[i], cfg, positions, n)
+        h = _sublayer_decode(h, sub, k_new[i], v_new[i], cfg, positions, n, par, seq_split)
     h = rms_norm(h, params["final_norm"])
     return _full_logits(h[:, -1], params, par), {"k": k_new, "v": v_new}

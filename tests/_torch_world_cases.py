@@ -107,7 +107,8 @@ def moe_local_case(payload):
 
 def collectives_case(payload):
     """The collective bytes the cost counter charges one rank for the
-    reduced cells' first call under the payload's mesh."""
+    reduced cells' first call under the payload's mesh (a decode cell's
+    batch holds the cache's ``k`` and ``v``, ``tokens`` and ``cache_len``)."""
     from repro_torch.launch.cost_analysis import count_cost
 
     mesh = make_device_mesh(payload["mesh"], ("data", "model"), backend="gloo", device="cpu")
@@ -118,9 +119,13 @@ def collectives_case(payload):
         cell = build_cell(spec, shape, make_smoke_mesh(), mesh)
         full = from_reference(payload["params"][arch], device="cpu")
         args = [full]
+        bat = {k: torch.from_numpy(np.asarray(v)) for k, v in payload["batch"][shape].items()}
         if cell.step == "train":
             args.append(adamw_init(full))
-        args.append({k: torch.from_numpy(v) for k, v in payload["batch"][shape].items()})
+        if cell.step == "decode":
+            args += [{k: bat[k] for k in ("k", "v")}, bat["tokens"], bat["cache_len"]]
+        else:
+            args.append(bat)
         local = [shard_tree(a, sanitize_specs(s, a, mesh), mesh) for a, s in zip(args, cell.in_specs)]
         _, cost = count_cost(cell.fn, *local)
         out[(arch, shape)] = dict(cost.collectives)
@@ -169,3 +174,69 @@ def train_cli_case(payload):
     with contextlib.redirect_stdout(buf):
         train.main(payload["argv"])
     return {"stdout": buf.getvalue()}
+
+
+def _cut_spec(arch: str, dtype: str, changes: dict):
+    """The reduced spec of ``arch`` in ``dtype`` with the config ``changes``
+    (a ``moe`` entry is a dict of ``MoEConfig`` fields, merged into the
+    config's)."""
+    spec = get_reduced_spec(arch)
+    changes = dict(changes)
+    if "moe" in changes:
+        changes["moe"] = dataclasses.replace(spec.model_cfg.moe, **changes["moe"])
+    return dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype=dtype, **changes))
+
+
+def serve_case(payload):
+    """For each case ``{arch, changes, dtype, mesh, shape, inputs}``: the
+    prefill or decode cell of the reduced spec under a mesh of the world,
+    run on the named inputs (numpy, float32 values of the config's dtype)
+    cut by the cell's ``in_specs``; the logits and the new cache, gathered
+    (``gather_tree``), the ``in_specs`` as tuples, and the collective bytes
+    the cost counter charged this rank; numpy trees."""
+    from repro_torch.launch.cost_analysis import count_cost
+    from repro_torch.parallel.sharding import map_with_path
+
+    meshes = {}
+    out = {}
+    for key, case in payload["cases"].items():
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_device_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+        mesh = meshes[shape]
+        spec = _cut_spec(case["arch"], case["dtype"], case.get("changes", {}))
+        if "seq_len" in case:  # a cache of another length than the cell's
+            c = spec.shapes[case["shape"]]
+            c = dataclasses.replace(c, kwargs={**c.kwargs, "seq_len": case["seq_len"]})
+            spec = dataclasses.replace(spec, shapes={**spec.shapes, case["shape"]: c})
+        cfg = spec.model_cfg
+        cell = build_cell(spec, case["shape"], make_smoke_mesh(), mesh)
+        inputs = payload["inputs"][case["inputs"]]
+        params = tree_map(lambda t: t.to(cfg.torch_dtype), from_reference(payload["params"][case["params"]],
+                                                                          device="cpu"))
+        if cell.step == "decode":
+            cache = {k: torch.from_numpy(inputs[k]).to(cfg.torch_dtype) for k in ("k", "v")}
+            args = (params, cache, torch.from_numpy(inputs["tokens"]), torch.tensor(int(inputs["cache_len"])))
+        else:
+            args = (params, {"tokens": torch.from_numpy(inputs["tokens"])})
+        local = [shard_tree(a, sanitize_specs(s, a, mesh), mesh) for a, s in zip(args, cell.in_specs)]
+        (logits, cache), cost = count_cost(cell.fn, *local)
+        # the batch rows over the data axes where they divide; a prefill's
+        # cache comes back whole over `model`, a decode's as its in_specs
+        rows = cell.in_specs[2][0] if cell.step == "decode" else cell.in_specs[1]["tokens"][0]
+        cache_specs = cell.in_specs[1] if cell.step == "decode" else {k: P(None, rows) for k in ("k", "v")}
+        whole = gather_tree({"logits": logits, "cache": cache}, {"logits": P(rows), "cache": cache_specs}, mesh)
+        specs = []
+        for tree in cell.in_specs:
+            flat = {}
+            map_with_path(lambda path, s: flat.__setitem__(path, tuple(s)), tree)
+            specs.append(flat)
+        out[key] = {"logits": _np(whole["logits"]), "cache": _np(whole["cache"]), "in_specs": specs,
+                    "local_cache_rows": int(cache["k"].shape[2]), "collectives": dict(cost.collectives)}
+    return out
+
+
+def train_and_serve_case(payload):
+    """``lm_case`` of ``payload["train"]`` and ``serve_case`` of
+    ``payload["serve"]`` in one world."""
+    return {"train": lm_case(payload["train"]), "serve": serve_case(payload["serve"])}

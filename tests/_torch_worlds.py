@@ -7,7 +7,9 @@ worlds never share a port), calls ``function(payload)`` from the tests'
 directory and saves what it returns; the list of the ranks' results comes
 back.  A rank's failure fails the call with its error output.  ``backend``
 is the process group's (gloo by default; a world on the card may run
-NCCL).
+NCCL).  The ranks, and ``run_reference``'s subprocess, run at a lower CPU
+priority (nice 10): the test workers beside them run timing-sensitive
+tests (hypothesis deadlines), which a world's busy ranks must not starve.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
+NICE = 10
 
 
 def run_world(n: int, target: str, payload, tmp_path: Path, timeout: float = 600, backend: str = "gloo") -> list:
@@ -53,6 +56,7 @@ def run_world(n: int, target: str, payload, tmp_path: Path, timeout: float = 600
 def _main(target: str, init: str, rank: int, world: int, tmp: str, backend: str) -> None:
     import torch.distributed as dist
 
+    os.nice(NICE)
     torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{init}", rank=rank, world_size=world)
     try:
@@ -81,10 +85,58 @@ def run_reference(code: str, n_devices: int, tmp_path: Path, timeout: float = 60
     out = tmp_path / "reference.npz"
     script = tmp_path / "reference.py"
     np.savez(tmp_path / "inputs.npz", **(inputs or {}))
-    script.write_text(f"OUT = {str(out)!r}\nINPUTS = {str(tmp_path / 'inputs.npz')!r}\n" + code)
-    env = {**os.environ, "PYTHONPATH": str(SRC), "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={n_devices}"}
+    script.write_text(f"import os\nos.nice({NICE})\nOUT = {str(out)!r}\nINPUTS = {str(tmp_path / 'inputs.npz')!r}\n"
+                      + code)
+    # one compute thread, as each world rank has: the subprocess beside the
+    # test workers must not take every core
+    env = {**os.environ, "PYTHONPATH": str(SRC), "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={n_devices} --xla_cpu_multi_thread_eigen=false "
+                        "intra_op_parallelism_threads=1"}
     r = subprocess.run([sys.executable, str(script)], env=env, capture_output=True, text=True, timeout=timeout)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
     with np.load(out, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+_IN_SPECS = r"""
+import dataclasses
+import json
+import numpy as np, jax
+from jax.sharding import PartitionSpec as P
+from repro.configs import get_reduced_spec
+from repro.launch.steps import build_cell
+from repro.parallel.sharding import _path_str
+res = {}
+for mesh_shape, arch, cell, changes in json.loads(%r):
+    n = int(np.prod(mesh_shape))
+    mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"), devices=jax.devices()[:n])
+    spec = get_reduced_spec(arch)
+    cfg = spec.model_cfg
+    if "moe" in changes:
+        changes["moe"] = dataclasses.replace(cfg.moe, **changes["moe"])
+    spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(cfg, **changes))
+    flat = []
+    for tree in build_cell(spec, cell, mesh).in_specs:
+        leaves, _ = jax.tree_util.tree_flatten_with_path(tree, is_leaf=lambda x: isinstance(x, P) or x is None)
+        flat.append({_path_str(p): list(s) for p, s in leaves})
+    res[json.dumps([mesh_shape, arch, cell, json.loads(json.dumps(changes, default=str))])] = flat
+np.savez(OUT, specs=np.array(json.dumps(res)))
+"""
+
+
+def reference_in_specs(cells: list, n_devices: int, tmp_path: Path) -> dict:
+    """The reference's ``in_specs`` of each ``(mesh shape, arch, cell,
+    config changes)`` of its reduced specs, built on a forced host mesh of
+    that shape (the first devices of ``n_devices``): per argument, a dict
+    of path -> spec entries (lists), keyed by ``spec_key``."""
+    import json
+
+    cells = [[list(m), a, c, ch] for m, a, c, ch in cells]
+    out = run_reference(_IN_SPECS % (json.dumps(cells),), n_devices, tmp_path)
+    return json.loads(str(out["specs"]))
+
+
+def spec_key(mesh, arch: str, cell: str, changes: dict) -> str:
+    import json
+
+    return json.dumps([list(mesh), arch, cell, json.loads(json.dumps(changes, default=str))])

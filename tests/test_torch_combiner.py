@@ -4,10 +4,14 @@ against the reference's, over the ``tests/strategies.py`` corpora, plus the
 paper's worked examples.
 
 Both packages get the same texts; fragment lists (in the order each
-algorithm emits them) and the §11 counters must be identical, and
+algorithm emits them) and the §11 counters must be identical on these
+corpora, and
 ``SearchEngine`` with each host algorithm must rank the same documents with
 the same scores (float sums over the same fragments in the same order:
-rtol 1e-9, in fact equal).
+rtol 1e-9, in fact equal).  The port's Combiner gates Step 2 wider than
+the reference's (ROADMAP §C): on the random corpora of the reference's own
+tests it returns fragments the reference misses, and its counts differ
+there; those inputs are pinned at the end.
 """
 
 import numpy as np
@@ -212,19 +216,38 @@ def test_golden_engine_fragments(query, expected):
     assert sorted(union) == expected
 
 
-# A fault both packages share, pinned: on these inputs ``se24_combiner``
-# misses a fragment that the §10 oracle over its own keys and the fused
-# program both return.  Each case is the input a reference test draws at one
-# of its random seeds (``tests/test_fused.py::
-# test_fused_random_corpus_random_subqueries`` at 3003 and 3936,
-# ``tests/test_arena.py::test_arena_random_corpora_random_subqueries`` at
-# 6670, which draws subqueries of 1-4 lemmas where the other draws 2-4): the
-# subquery of the draw that fails and the fragment the Combiner misses.
+# The reference's Step 2 gate (``maxP - minP < 2*MaxDistance`` over key
+# positions) advances past records whose events a fragment needs: a
+# record's events lie up to MaxDistance either side of its key position.
+# The port gates on ``<= 4*MaxDistance`` (ROADMAP §C).  Each case is the
+# input a reference test draws at one of its random seeds
+# (``tests/test_fused.py::test_fused_random_corpus_random_subqueries`` at
+# 3003 and 3936, ``tests/test_arena.py::
+# test_arena_random_corpora_random_subqueries`` at 6670, which draws
+# subqueries of 1-4 lemmas where the other draws 2-4): the subquery of the
+# draw and the fragment the reference's Combiner misses.
 SE24_MISSES = {
     "test_fused-3003": (3003, 2, 0, (0, 24, 32)),
     "test_fused-3936": (3936, 2, 2, (7, 24, 32)),
     "test_arena-6670": (6670, 1, 1, (0, 12, 20)),
 }
+DRAWS = {"test_fused": 2, "test_arena": 1}  # the least subquery length each test draws
+
+# Every seed of 0-10,000 at which the reference's Combiner misses a
+# fragment of the oracle on a draw of those two tests (a scan of both
+# draws over every seed; the port's Combiner equals the oracle on all).
+SCAN_FAILING_SEEDS = {
+    "test_fused": [54, 139, 203, 328, 389, 392, 553, 558, 860, 998, 1042, 1403, 1682, 1708, 1840, 1884, 2033,
+                   2065, 2188, 2417, 2646, 2667, 3003, 3006, 3122, 3149, 3205, 3866, 3936, 4134, 4210, 4439,
+                   4547, 4553, 4759, 4993, 5047, 5053, 5133, 5174, 5231, 5387, 5411, 5458, 5592, 5858, 5913,
+                   5969, 6170, 6319, 6416, 6670, 6937, 7102, 7238, 7263, 7288, 7306, 7319, 7415, 7735, 7882,
+                   7898, 8123, 8359, 8631, 8769, 8785, 8790, 8792, 8950, 8967, 9230, 9791],
+    "test_arena": [54, 203, 389, 553, 860, 1682, 1708, 1840, 2033, 2099, 2417, 3003, 3205, 3645, 4134, 4188,
+                   4409, 4439, 4547, 4759, 4951, 4966, 5047, 5231, 5276, 5404, 5411, 5458, 5575, 5954, 5969,
+                   6033, 6102, 6170, 6319, 6416, 6670, 6671, 6802, 7288, 7319, 7525, 7882, 7898, 8359, 8631,
+                   8769, 8785, 8950],
+}
+RANDOM_KW = dict(sw_count=10_000, fu_count=0, max_distance=4)
 
 
 def _random_corpus_draw(seed: int, min_lemmas: int):
@@ -239,27 +262,89 @@ def _random_corpus_draw(seed: int, min_lemmas: int):
     return texts, subs
 
 
+def _oracle(sub, idx):
+    keys = select_keys(sub, idx.fl)
+    return set(_triples(oracle_search(sub, keys, {k: idx.key_postings(k.components) for k in keys},
+                                      idx.max_distance)))
+
+
 @pytest.mark.parametrize("case", list(SE24_MISSES))
 def test_se24_combiner_misses_a_fragment_in_both_packages(case):
+    """The reference's Combiner misses the fragment; the port's returns it
+    and equals the §10 oracle and the fused program of both packages."""
     from repro.core.combiner import se24_combiner as ref_se24_combiner
     from repro.core.keys import Subquery as RefSubquery
     from repro.search.vectorized import VectorizedEngine as RefVectorizedEngine
 
     seed, min_lemmas, which, missed = SE24_MISSES[case]
     texts, subs = _random_corpus_draw(seed, min_lemmas)
-    kw = dict(sw_count=10_000, fu_count=0, max_distance=4)
-    ref_idx = ref_build_indexes(RefDocumentStore.from_texts(texts), **kw)
-    idx = build_indexes(DocumentStore.from_texts(texts), **kw)
+    ref_idx = ref_build_indexes(RefDocumentStore.from_texts(texts), **RANDOM_KW)
+    idx = build_indexes(DocumentStore.from_texts(texts), **RANDOM_KW)
     sub, ref_sub = Subquery(subs[which]), RefSubquery(subs[which])
     combiner = set(_triples(se24_combiner(sub, idx)[0]))
-    assert combiner == set(_triples(ref_se24_combiner(ref_sub, ref_idx)[0]))
-    assert missed not in combiner
-    keys = select_keys(sub, idx.fl)
-    oracle = set(_triples(oracle_search(sub, keys, {k: idx.key_postings(k.components) for k in keys},
-                                        idx.max_distance)))
+    ref_combiner = set(_triples(ref_se24_combiner(ref_sub, ref_idx)[0]))
+    assert missed in combiner and missed not in ref_combiner
+    assert ref_combiner == combiner - {missed}
+    oracle = _oracle(sub, idx)
     ref_keys = ref_select_keys(ref_sub, ref_idx.fl)
     assert oracle == set(_triples(ref_oracle_search(ref_sub, ref_keys, {k: ref_idx.key_postings(k.components)
                                                                       for k in ref_keys}, ref_idx.max_distance)))
     fused = set(_triples(VectorizedEngine(idx, device="cpu").search_query_batch([[sub]])[0].per_query[0]))
     ref_fused = set(_triples(RefVectorizedEngine(ref_idx).search_query_batch([[ref_sub]])[0].per_query[0]))
-    assert fused == ref_fused == oracle == combiner | {missed}
+    assert fused == ref_fused == oracle == combiner
+
+
+@pytest.mark.parametrize("draw,seed", [(d, s) for d, seeds in SCAN_FAILING_SEEDS.items() for s in seeds])
+def test_se24_combiner_equals_the_oracle_where_the_reference_misses(draw, seed):
+    """Every subquery of the draw: the port's Combiner returns exactly the
+    oracle's fragments over its keys."""
+    texts, subs = _random_corpus_draw(seed, DRAWS[draw])
+    idx = build_indexes(DocumentStore.from_texts(texts), **RANDOM_KW)
+    for lemmas in subs:
+        sub = Subquery(lemmas)
+        assert set(_triples(se24_combiner(sub, idx)[0])) == _oracle(sub, idx), lemmas
+
+
+# (draw, seed, subquery index): the port's then the reference's §11 counts
+# (postings_read, bytes_read, heap_ops, results).  The wider gate runs fewer
+# Step-2 rounds (heap_ops) and Step 3 reads records the reference skipped
+# (postings_read), with the same fragments or with the fragment recovered.
+SE24_COUNTS = {
+    "test_fused-54": ((54, 2, 0), (14, 224, 8, 5), (14, 224, 9, 4)),
+    "test_fused-6": ((6, 2, 2), (77, 1232, 17, 36), (77, 1232, 22, 36)),
+    "test_arena-57": ((57, 1, 2), (26, 416, 7, 3), (13, 208, 8, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(SE24_COUNTS))
+def test_se24_section_11_counts_where_the_step2_gate_differs(case):
+    from repro.core.combiner import se24_combiner as ref_se24_combiner
+    from repro.core.keys import Subquery as RefSubquery
+
+    (seed, min_lemmas, which), want, ref_want = SE24_COUNTS[case]
+    texts, subs = _random_corpus_draw(seed, min_lemmas)
+    fields = ("postings_read", "bytes_read", "heap_ops", "results")
+    got, st = se24_combiner(Subquery(subs[which]), build_indexes(DocumentStore.from_texts(texts), **RANDOM_KW))
+    ref_got, ref_st = ref_se24_combiner(RefSubquery(subs[which]),
+                                        ref_build_indexes(RefDocumentStore.from_texts(texts), **RANDOM_KW))
+    assert tuple(getattr(st, f) for f in fields) == want
+    assert tuple(getattr(ref_st, f) for f in fields) == ref_want
+    assert set(_triples(ref_got)) <= set(_triples(got))
+
+
+@pytest.mark.parametrize("max_distance,window_size,raises", [(4, 64, False), (16, 64, False), (17, 64, True),
+                                                              (4, 16, False), (4, 8, True), (7, 14, True)])
+def test_se24_combiner_refuses_a_window_narrower_than_four_max_distances(max_distance, window_size, raises):
+    """The wider Step-2 gate hands Step 3 records up to 4*MaxDistance apart,
+    so the Combiner needs that much window: the window is widened to
+    2*MaxDistance (as in the reference), at most 64, and a window still
+    narrower than 4*MaxDistance refuses; otherwise the Combiner equals the
+    oracle."""
+    texts, subs = _random_corpus_draw(54, DRAWS["test_fused"])
+    idx = build_indexes(DocumentStore.from_texts(texts), **{**RANDOM_KW, "max_distance": max_distance})
+    sub = Subquery(subs[0])
+    if raises:
+        with pytest.raises(ValueError, match="4\\*MaxDistance"):
+            se24_combiner(sub, idx, window_size=window_size)
+    else:
+        assert set(_triples(se24_combiner(sub, idx, window_size=window_size)[0])) == _oracle(sub, idx)

@@ -7,7 +7,8 @@ MoE, recsys and GNN train steps on the card at reduced sizes, the GNN's
 chunked aggregate against its unchunked form, the cost counter's count
 on the card against the CPU's, and worlds of ranks on the card: a world of
 one over NCCL against no mesh, bit for bit, and a world of two (gloo: NCCL
-refuses two ranks of one communicator on one card) against one rank.
+refuses two ranks of one communicator on one card) against one rank, its
+context-parallel decode (half the cache's positions a rank) included.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -671,3 +672,45 @@ def test_world_of_two_on_card_equals_one_rank(cuda, tmp_path):
         for key, row in res.items():
             assert row["serve_online"]["equal"], (key, row)
             assert row["train_4k"]["rel"] <= 1e-5, (key, row)
+
+
+def _decode_world_case(payload):
+    """One rank of a world of two on the card: the reduced tinyllama's
+    decode cells in float32 under 1x2 (each rank holding half the cache's
+    positions), against the same rank's unsharded run: the relative error
+    of the logits and of the gathered new cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel.sharding import gather_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_reduced_spec("tinyllama-1.1b")
+    spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32"))
+    mesh = make_device_mesh((1, 2), ("data", "model"), backend="gloo", device="cuda")
+    out = {}
+    for shape in payload["shapes"]:
+        want = dryrun.run_cell("tinyllama-1.1b", shape, verbose=False, device=mesh.device, repeats=0, spec=spec,
+                               keep_outputs=True)
+        got = dryrun.run_cell("tinyllama-1.1b", shape, verbose=False, dmesh=mesh, repeats=0, spec=spec,
+                              keep_outputs=True)
+        assert want["status"] == "ok" and got["status"] == "ok", (want.get("traceback"), got.get("traceback"))
+        cell = build_cell(spec, shape, dryrun.make_production_mesh(), mesh)
+        logits, cache = got["outputs"]
+        whole = gather_tree(cache, cell.in_specs[1], mesh)
+        out[shape] = {"rows": cache["k"].shape[2], "logits": _rel(logits, want["outputs"][0]),
+                      "cache": max(_rel(whole[k], want["outputs"][1][k]) for k in ("k", "v"))}
+    return out
+
+
+def test_context_parallel_decode_on_card_equals_one_rank(cuda, tmp_path):
+    from _torch_worlds import run_world
+
+    for res in run_world(2, "test_torch_gpu:_decode_world_case", {"shapes": ["decode_32k", "long_500k[swa]"]},
+                         tmp_path, timeout=300):
+        for shape, row in res.items():
+            assert row["rows"] == {"decode_32k": 128, "long_500k[swa]": 256}[shape], (shape, row)
+            assert row["logits"] <= 1e-5 and row["cache"] <= 1e-5, (shape, row)

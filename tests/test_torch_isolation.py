@@ -10,7 +10,9 @@ gat-cora (GNN) for two steps through the training launcher, runs a reduced
 recsys cell, a reduced GNN cell and a MoE FFN, samples a subgraph, counts a
 program's cost and the search lowerings', resolves every architecture
 id, and, on a one-rank gloo mesh, runs a sharded serve step and a reduced
-LM train step and plans an ``ElasticTopology``."""
+LM train step and plans an ``ElasticTopology``; in a gloo world of two
+ranks (each with both blocked) it runs the context-parallel decode cell
+and reads ``launch.mesh.MESH_AXES``."""
 
 import os
 import re
@@ -21,10 +23,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 
-_SERVE = """
-import sys
+_RANK = """
+import os, sys
+os.nice(10)
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+import torch.distributed as dist
+from repro_torch.configs import get_reduced_spec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MESH_AXES, make_device_mesh
+assert MESH_AXES == ("pod", "data", "model")
+dist.init_process_group("gloo", init_method="file://" + sys.argv[1], rank=int(sys.argv[2]), world_size=2)
+mesh = make_device_mesh((1, 2), ("data", "model"), backend="gloo", device="cpu")
+dryrun.get_spec = get_reduced_spec
+rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", verbose=False, dmesh=mesh, repeats=1)
+assert rec["status"] == "ok", rec
+assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
+               for m, mod in sys.modules.items() if mod is not None)
+dist.destroy_process_group()
+print("decode", rec["device_mesh"], rec["status"], rec["input_shapes"][1]["k"][2])
+"""
+
+# the subprocess runs at a lower CPU priority (nice 10), as the gloo worlds
+# of ``tests/_torch_worlds.py`` do: the test workers beside it run
+# timing-sensitive tests (hypothesis deadlines)
+_SERVE = """
+import os, sys
+os.nice(10)
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+_RANK = %r
 from repro_torch.index import build_indexes, synthesize_corpus
 from repro_torch.search import SearchEngine, ServingFrontend
 store = synthesize_corpus(n_docs=20, doc_len=80, vocab_size=300, seed=5)
@@ -152,10 +180,19 @@ g = {"w": torch.ones(3)}
 assert torch.equal(compressed_grad_allreduce(g, init_error_feedback(g), mesh, "data")[0]["w"], g["w"])
 dist.destroy_process_group()
 assert ElasticTopology().plan(2)["mesh_shape"] == (2, 16, 16)
+# a world of two ranks, each with jax and the reference blocked: the
+# context-parallel decode cell under --mesh 1x2
+import subprocess
+rendezvous = tempfile.mkdtemp() + "/rendezvous"
+ranks = [subprocess.Popen([sys.executable, "-c", _RANK, rendezvous, str(r)], stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True) for r in range(2)]
+outs = [p.communicate(timeout=120) for p in ranks]
+assert all(p.returncode == 0 for p in ranks), [err[-2000:] for _, err in outs]
+assert outs[0][0].split() == ["decode", "1x2", "ok", "128"], outs[0][0]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))
-"""
+""" % (_RANK,)
 
 
 def test_serves_with_jax_and_reference_blocked():

@@ -142,3 +142,72 @@ def test_dense_init_draws_from_its_generator():
     assert abs(float(a.float().std()) * 16 - 1) < 0.01
     e = port.dense_init(torch.Generator().manual_seed(5), (1000, 64), torch.float32, scale=0.02)
     assert e.dtype == torch.float32 and abs(float(e.std()) / 0.02 - 1) < 0.01
+
+
+def _merged_over_slices(tq, tk, tv, lo: int, hi: int, cuts: list[int]):
+    """``decode_attention_merged`` as the ranks of a cache cut at ``cuts``
+    run it, one thread a rank: each passes its run of the valid positions
+    [lo, hi) (empty where its slice holds none), and ``reduce`` combines the
+    ranks' tensors behind a barrier."""
+    import threading
+
+    bounds = list(zip([0, *cuts], [*cuts, tk.shape[1]]))
+    n = len(bounds)
+    barrier, posted, outs = threading.Barrier(n), [None] * n, [None] * n
+
+    def rank(r):
+        def reduce(x, op):
+            posted[r] = x
+            barrier.wait()
+            stack = torch.stack(list(posted))
+            barrier.wait()  # every rank has read before the next round posts
+            return stack.amax(dim=0) if op == "max" else stack.sum(dim=0)
+
+        a, z = min(max(lo, bounds[r][0]), bounds[r][1]), min(max(hi, bounds[r][0]), bounds[r][1])
+        outs[r] = port.decode_attention_merged(tq, tk[:, a:max(a, z)], tv[:, a:max(a, z)], reduce)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return outs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("cache_len", [1, 9, 24])
+def test_decode_attention_merged_over_slices_equals_the_reference(dtype, window, cache_len):
+    """Three ranks holding positions [0, 8), [8, 16) and [16, 24) of the
+    cache (some with no valid position, none producing a NaN): every rank's
+    merged output is the reference's ``decode_attention`` over the whole
+    cache."""
+    rng = np.random.default_rng(cache_len)
+    jq, tq = _pair(rng, (3, 1, 8, 16), dtype)
+    jk, tk = _pair(rng, (3, 24, 2, 16), dtype)
+    jv, tv = _pair(rng, (3, 24, 2, 16), dtype)
+    lo = max(cache_len - window, 0) if window is not None else 0
+    want = ref.decode_attention(jq, jk, jv, jnp.asarray(cache_len, jnp.int32), sliding_window=window)
+    for got in _merged_over_slices(tq, tk, tv, lo, min(cache_len, 24), [8, 16]):
+        assert got.shape == (3, 1, 8, 16) and got.dtype == tq.dtype and bool(torch.isfinite(got).all())
+        assert_close(got, want, dtype, what="decode_attention_merged")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("cache_len", [1, 9, 24])
+def test_decode_attention_merged_on_one_rank_equals_the_reference(dtype, window, cache_len):
+    """With no ``reduce`` (one rank holds every valid position), the merged
+    form over the valid run is the reference's ``decode_attention`` over
+    the whole masked cache: the form every ``decode_step`` attends with."""
+    rng = np.random.default_rng(100 + cache_len)
+    jq, tq = _pair(rng, (3, 1, 8, 16), dtype)
+    jk, tk = _pair(rng, (3, 24, 2, 16), dtype)
+    jv, tv = _pair(rng, (3, 24, 2, 16), dtype)
+    lo = max(cache_len - window, 0) if window is not None else 0
+    want = ref.decode_attention(jq, jk, jv, jnp.asarray(cache_len, jnp.int32), sliding_window=window)
+    got = port.decode_attention_merged(tq, tk[:, lo:cache_len], tv[:, lo:cache_len])
+    assert got.shape == (3, 1, 8, 16) and got.dtype == tq.dtype
+    assert_close(got, want, dtype, what="decode_attention_merged, one rank")
+    assert_close(got, port.decode_attention(tq, tk, tv, cache_len, sliding_window=window), dtype,
+                 what="decode_attention_merged against the port's decode_attention")

@@ -142,6 +142,15 @@ def _world(payload):
                 "local_numel": sum(x.numel() for x in tree_leaves(local)),
                 "full_numel": sum(x.numel() for x in tree_leaves(full)),
             }
+        if shape == (2, 2):
+            from repro_torch.launch import dryrun
+
+            for cell in ("decode_32k", "long_500k[swa]"):
+                spec = get_reduced_spec("tinyllama-1.1b")
+                rec = dryrun.run_cell("tinyllama-1.1b", cell, verbose=False, device="cpu", repeats=0, spec=spec,
+                                      dmesh=mesh)
+                out[("decode", cell)] = {k: rec.get(k) for k in ("status", "error", "input_shapes")}
+                out[("decode", cell)]["seq_len"] = spec.shapes[cell].kwargs["seq_len"]
         batch = {"tokens": torch.arange(8 * 3).reshape(8, 3)}
         bspecs = sh.batch_specs(batch, mesh)
         out[(shape, "batch")] = {"rows": sh.shard_tree(batch, bspecs, mesh)["tokens"][:, 0].tolist(),
@@ -159,7 +168,7 @@ def test_shard_tree_then_gather_tree_is_the_identity(world):
     meshes, ranks = world
     for res in ranks:
         for key, row in res.items():
-            if key[1] != "batch":
+            if key[0] != "decode" and key[1] != "batch":
                 assert row["identity"], key
                 assert row["local_numel"] < row["full_numel"], key
 
@@ -174,19 +183,47 @@ def test_batch_rows_split_over_the_data_axes_in_coordinate_order(world):
             assert row["rows"] == [3 * i for i in range(row["coord"] * per, (row["coord"] + 1) * per)]
 
 
+def _stand_in_world(shape):
+    """A ``DeviceMesh`` of ``shape`` with no process group: enough to build
+    a cell (rank 0's view)."""
+    from repro_torch.launch.mesh import DeviceMesh
+
+    return DeviceMesh(shape, ("data", "model"), "gloo", torch.device("cpu"), 0, None)
+
+
 @pytest.mark.parametrize("arch,shape,mesh,item", [
-    ("tinyllama-1.1b", "decode_32k", (1, 2), "sequence-sharded decode cache"),
-    ("tinyllama-1.1b", "long_500k[swa]", (2, 2), "sequence-sharded decode cache"),
     ("dcn-v2", "train_batch", (2, 1), "recsys row-sharded tables"),
     ("gat-cora", "molecule", (1, 2), "GNN edge and node sharding"),
 ])
 def test_cells_whose_layout_is_not_ported_raise_naming_their_item(arch, shape, mesh, item):
     """Under a world of more than one rank; a world of one builds them."""
-    from repro_torch.launch.mesh import DeviceMesh
-
-    def world(shape):
-        return DeviceMesh(shape, ("data", "model"), "gloo", torch.device("cpu"), 0, None)
-
     with pytest.raises(NotImplementedError, match=item):
-        build_cell(get_spec(arch), shape, make_production_mesh(), world(mesh))
-    assert build_cell(get_spec(arch), shape, make_production_mesh(), world((1, 1))).in_specs
+        build_cell(get_spec(arch), shape, make_production_mesh(), _stand_in_world(mesh))
+    assert build_cell(get_spec(arch), shape, make_production_mesh(), _stand_in_world((1, 1))).in_specs
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [
+    ("tinyllama-1.1b", "decode_32k", (1, 2)),
+    ("tinyllama-1.1b", "long_500k[swa]", (2, 2)),
+])
+def test_decode_cells_under_a_model_axis_build_and_run(world, arch, shape, mesh):
+    """The context-parallel decode cells (formerly refused as the
+    "sequence-sharded decode cache"): built at full size under a world of
+    the mesh, the cache's positions split over ``model``; run reduced in the
+    gloo world of four (2x2), every rank's record ok with its slice of the
+    cache."""
+    cell = build_cell(get_spec(arch), shape, make_production_mesh(), _stand_in_world(mesh))
+    assert tuple(cell.in_specs[1]["k"])[2] == "model"
+    _, ranks = world
+    seq = get_spec(arch).shapes[shape].kwargs["seq_len"]
+    for res in ranks:
+        rec = res[("decode", shape)]
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["input_shapes"][1]["k"][2] == rec["seq_len"] // 2 and seq > rec["seq_len"]
+
+
+def test_mesh_axes_equal_the_reference():
+    from repro.launch.mesh import MESH_AXES as REF_MESH_AXES
+    from repro_torch.launch.mesh import MESH_AXES
+
+    assert MESH_AXES == REF_MESH_AXES == ("pod", "data", "model")
