@@ -103,8 +103,12 @@ last line is the same either way):
    equal to the live service's), the same under the fault schedule, a
    2-replica daemon on TCP with a client that kills the primary (every
    wire response equal to the warm start's, a failover reported, a clean
-   exit on ``SIGINT``) and the CLI's own bulk-ingested cold start and warm
-   start over a corpus of ``CLI_DOCS`` documents.  The launcher processes
+   exit on ``SIGINT``; the client's wall split into its imports, the kill,
+   the first query, which waits for the successor replica's first batch and
+   its cold 64 MiB arena acquire, the other queries and the metrics; the
+   kill runs after run 4 has ended and while the card child waits at its
+   next phase line, ``QuietGate``) and the CLI's own bulk-ingested cold
+   start and warm start over a corpus of ``CLI_DOCS`` documents.  The launcher processes
    run alongside the in-process phases 9a and 9b (their work is host-bound
    and disjoint: the bulk tree is only read once 9b has armed its WAL).
 
@@ -155,7 +159,7 @@ last line is the same either way):
    params equal bit for bit; the checkpoint files are deleted after.
 
 12. the MoE LM family, in one child process (torch and the port only) with
-   phases 13-15, run beside phases 8 and 9 (host-bound; phase 15 first,
+   phases 13-15, run beside phases 7, 8 and 9 (host-bound; phase 15 first,
    so that 12's largest cell meets phase 9): (a) ``run_cell`` on
    ``olmoe-1b-7b`` at full width and one data rank's share (prefill_32k at
    8 of 16 layers, train_4k at 4 in 4 microbatches, decode_32k and
@@ -204,7 +208,7 @@ last line is the same either way):
    by op where they differ.
 
 15. the multi-device half, in the child process of phases 12-14, before
-   them (beside phase 8): a world of one rank over NCCL (``make_device_mesh`` over a
+   them (beside phases 7 and 8): a world of one rank over NCCL (``make_device_mesh`` over a
    one-rank process group) runs ``serve_online`` and tinyllama's cut
    train_4k and prefill_32k bit for bit as the port without a mesh; then
    ``python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
@@ -239,8 +243,23 @@ last line is the same either way):
    splits over ``model`` (32 heads, 2,048 ``wq`` columns, 32,000 entries
    and 32,768 positions do not divide 3): decode_32k at all 22 layers, as
    (e), and one train_4k step at 2 layers, 4 rows, against the unsharded
-   run on each rank.  Every rank's kernel launches go into the kernels line
-   by path.
+   run on each rank; beside them the trainer's command line under ``--mesh
+   1x2`` for ``fm`` (its table row-sharded) and ``gat-cora`` (its edges
+   split), reduced, every loss finite.  Then (g) and (h): each cell of
+   FAMILY_RECSYS and FAMILY_GNN unsharded on the card first, its new params
+   and metrics (or scores) kept on the host, then ``chip_smoke.py
+   --family-worker`` in a second world of two: (g) fm and autoint
+   train_batch and retrieval_cand under 1x2 (row-sharded tables), dcn-v2
+   train_batch under 1x2 (column-split MLP, the table whole) and mind
+   train_batch under 2x1 (the global batch's negatives; 3/4 of its batch,
+   FAMILY_CUTS), at full width and vocabulary; (h) ``gat-cora``'s full_graph_sm, minibatch_lg and
+   molecule under 1x2 and 2x1 and ogb_products under 1x2 (edges split),
+   cut to 3/4 of its nodes and edges (FAMILY_CUTS); each rank's loss and accuracy within rtol 1e-4 / atol 1e-5 of
+   the unsharded step's, its slice of the new params within rtol 1e-3 /
+   atol 1e-6, or its scores within rtol 1e-4 / atol 1e-5, with wall ms,
+   peak MiB and collective bytes a rank and the unsharded ms.  Every rank's
+   kernel launches go into the kernels line by path (none on the recsys
+   and GNN paths).
 
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
@@ -340,6 +359,26 @@ sys.modules["jax"] = None
 sys.modules["repro"] = None
 runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
 """
+# 9c's client, as RUN_MODULE, with the seconds of its imports and of each
+# request it sends (``request_over_tcp``) on its standard error: the split
+# of its wall
+RUN_CLIENT_TIMED = """
+import runpy, sys, time
+t0 = time.perf_counter()
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.search import service
+print(f"[client] import {time.perf_counter() - t0:.3f}", file=sys.stderr, flush=True)
+send = service.request_over_tcp
+def timed(address, payload, *args, **kwargs):
+    t = time.perf_counter()
+    try:
+        return send(address, payload, *args, **kwargs)
+    finally:
+        print(f"[client] {payload.get('op', 'query')} {time.perf_counter() - t:.3f}", file=sys.stderr, flush=True)
+service.request_over_tcp = timed
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+"""
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
 # the tensor cores (an FMA counted as two operations).  The data sheet lists
@@ -349,9 +388,54 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 
 
+class QuietGate:
+    """Keeps phase 9c's kill-and-failover step and the card child's work
+    apart.  The main process ``hold``s the gate around the step (a file
+    under ``root``); the child, at each of its phase lines, waits while the
+    gate is held (``checkpoint``), and says it waits (a second file)."""
+
+    def __init__(self, root: Path):
+        self.held, self.paused = Path(root) / "gate_held", Path(root) / "gate_paused"
+
+    def hold(self, child, timeout: float) -> tuple[str, float]:
+        """Hold the gate; wait until the child waits at it or has ended (at
+        most ``timeout`` s): what it does then, and the seconds waited."""
+        t = time.perf_counter()
+        self.held.touch()
+        while not self.paused.exists() and child.poll() is None and time.perf_counter() - t < timeout:
+            time.sleep(0.2)
+        state = "waiting" if self.paused.exists() else "ended" if child.poll() is not None else "running"
+        return state, time.perf_counter() - t
+
+    def release(self) -> None:
+        self.held.unlink(missing_ok=True)
+
+    def checkpoint(self, timeout: float = 600) -> float:
+        """In the child: wait while the gate is held; the seconds waited."""
+        if not self.held.exists():
+            return 0.0
+        t = time.perf_counter()
+        self.paused.touch()
+        try:
+            while self.held.exists() and time.perf_counter() - t < timeout:
+                time.sleep(0.2)
+        finally:
+            self.paused.unlink(missing_ok=True)
+        return time.perf_counter() - t
+
+
+# the card child's gate (set in that process only: ``CARD_CHILD``)
+CHILD_GATE: QuietGate | None = None
+
+
 def phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[phase] {name}: {now - t0:.3f} s", flush=True)
+    if CHILD_GATE is not None:
+        waited = CHILD_GATE.checkpoint()
+        if waited:
+            print(f"[gate] the card child waited {waited:.1f} s for phase 9c's kill-and-failover step", flush=True)
+            now = time.perf_counter()
     return now
 
 
@@ -528,12 +612,14 @@ AGG_EDGES = 4_000_000
 COST_CELLS = (("paper_search", "serve_online"), ("tinyllama-1.1b", "train_4k"), ("fm", "train_batch"),
               ("gat-cora", "molecule"))
 # phases 15, 12, 13 and 14 run in one child process (torch and the port
-# only); beside phases 8 and 9 its CPU work (the CPU halves of 12d, 13, 14b
-# and 14e, the gloo worlds of 15) keeps to a few threads at a lower CPU
-# priority (CHILD_NICE): phase 9c's launcher client waits for the daemon's
-# first answer after a failover within the launcher's 60 s socket timeout,
-# and the child's load had pushed that answer past it (52-68 s of client
-# wall where it passed; NVIDIA H100 80GB HBM3 machine, 8 host cores)
+# only); beside phases 7, 8 and 9 its CPU work (the CPU halves of 12d, 13,
+# 14b and 14e, the gloo worlds of 15) keeps to a few threads at a lower CPU
+# priority (CHILD_NICE), and it waits at its next phase line while phase 9c
+# kills the daemon's primary: the launcher client waits for the successor's
+# first answer (its cold arena acquire, host-bound) within the launcher's
+# 60 s socket timeout, and the child's load had pushed that answer past it
+# (52-68 s of client wall where it passed; NVIDIA H100 80GB HBM3 machine, 8
+# host cores)
 CARD_CHILD = """
 import json, os, sys
 os.nice(int(sys.argv[4]))
@@ -541,6 +627,7 @@ sys.modules["jax"] = None
 sys.modules["repro"] = None
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+chip_smoke.CHILD_GATE = chip_smoke.QuietGate(sys.argv[5])
 out = chip_smoke.new_families([int(p) for p in sys.argv[2].split(",")], int(sys.argv[3]))
 print("card child: " + json.dumps(out), flush=True)
 """
@@ -591,6 +678,39 @@ WORLD_DECODE_EXACT = {("decode_32k", "bfloat16", 22)}
 # every rank runs the whole model: decode_32k at full depth and a train_4k
 # step at WORLD_LM_LAYERS layers, WORLD_LM_ROWS["train_4k"] rows
 WORLD3_DECODE = ("decode_32k", 4, (0, 16384, 32767))
+
+
+# (g) and (h): the recsys and GNN cells at full width and size in a world of
+# two (gloo on the card), each against the unsharded step on the same
+# inputs: that step runs first, in the card child, and keeps its outputs on
+# the host (mind's train_batch alone peaks at 55.3 GB, so it cannot sit
+# beside two ranks); then ``--family-worker``'s world.  fm and autoint
+# row-shard their tables over model (1x2); dcn-v2's 33,762,577 rows and
+# mind's 3,706,119 divide no model axis, so their tables stay whole: dcn-v2
+# splits its MLP columns (1x2), mind splits its batch and gathers its
+# negatives (2x1).  The GNN cells split their edges over both meshes;
+# ogb_products (2,449,029 nodes: odd, so its nodes stay whole) runs under
+# 1x2 only, its one call a rank the counted first call (about 9 GB of gloo
+# traffic a rank: msg [N, 8, 47] alone is 3.68 GB).  Two cuts of scale
+# (FAMILY_CUTS) let the pair sit beside phases 7 and 8 and their launcher
+# processes: ogb_products at 3/4 of its nodes and edges (at full shape
+# each rank peaked at 35.0 GB alone, leaving under 9 GB of the card's 79.2
+# for everything else), and mind at 3/4 of its batch (at 65,536 rows a
+# rank's [32,768, 65,536] logits and their gradient took it past 37 GB,
+# and the pair ran out of the card beside phases 7 and 8; NVIDIA H100 80GB
+# HBM3, 700 W)
+FAMILY_RECSYS = (("fm", "train_batch", (1, 2)), ("fm", "retrieval_cand", (1, 2)),
+                 ("autoint", "train_batch", (1, 2)), ("autoint", "retrieval_cand", (1, 2)),
+                 ("dcn-v2", "train_batch", (1, 2)), ("mind", "train_batch", (2, 1)))
+FAMILY_GNN = tuple(("gat-cora", shape, mesh) for shape in ("full_graph_sm", "minibatch_lg", "molecule")
+                   for mesh in ((1, 2), (2, 1))) + (("gat-cora", "ogb_products", (1, 2)),)
+FAMILY_ONE_CALL = {("gat-cora", "ogb_products")}
+FAMILY_CUTS = {("gat-cora", "ogb_products"): {"n_nodes": 1_836_772, "n_edges": 46_394_356},  # the edges even
+               ("mind", "train_batch"): {"batch": 49_152}}
+# the float32 holds: forward (loss, accuracy, scores), and the params after
+# one AdamW step, each |got - want| <= atol + rtol |want|
+FAMILY_FWD = {"rtol": 1e-4, "atol": 1e-5}
+FAMILY_STEP = {"rtol": 1e-3, "atol": 1e-6}
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -2103,6 +2223,11 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
                                   "--out", str(work / "dryrun")])
         train = world_start(procs, ["--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
                                     "--steps", "2", "--mesh", "1x2", "--backend", WORLD_BACKEND])
+        # the trainer's command line on a recsys and the GNN model (reduced
+        # configs): fm's table row-sharded, gat-cora's edges split
+        family_cli = {arch: world_start(procs, ["--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--arch",
+                                                arch, "--steps", "2", "--mesh", "1x2", "--backend", WORLD_BACKEND])
+                      for arch in ("fm", "gat-cora")}
         world3 = world_start(procs, ["--nproc-per-node", "3", str(ROOT / "chip_smoke.py"), "--world3-worker",
                                      str(work)])
         dry_out = world_finish(dry, "python -m torch.distributed.run -m repro_torch.launch.dryrun --mesh 1x2")
@@ -2114,6 +2239,14 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
         steps = [ln for ln in train_out.splitlines() if ln.startswith(("step", "done"))]
         print("  " + " | ".join(steps))
         require(len(steps) == 3, f"the trainer printed {steps}")
+        for arch, started in family_cli.items():
+            cli_out = world_finish(started, f"python -m torch.distributed.run -m repro_torch.launch.train --arch {arch} "
+                                            "--mesh 1x2")
+            steps = [ln for ln in cli_out.splitlines() if ln.startswith(("step", "done"))]
+            print("  " + " | ".join(steps))
+            require([ln.split()[:2] for ln in steps] == [["step", "0"], ["step", "1"], ["done:", "2"]]
+                    and all(math.isfinite(float(kv.split("=")[1])) for ln in steps[:2] for kv in ln.split()[2:]),
+                    f"the {arch} trainer printed {steps}")
         world_finish(world3, "world of three (gloo on the card, chip_smoke.py --world3-worker)")
         # ---- (f) the world of three ----
         ranks3 = [json.loads((work / f"world3_rank{r}.json").read_text()) for r in range(3)]
@@ -2139,6 +2272,179 @@ def world_phase(torch, dev, path_launches: dict) -> dict:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
+def family_file(work: Path, arch: str, shape: str) -> Path:
+    return work / f"unsharded_{arch}_{shape}.pt"
+
+
+def family_spec(arch: str):
+    """The full spec of ``arch``, its cells cut as FAMILY_CUTS says."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+
+    spec = get_spec(arch)
+    shapes = dict(spec.shapes)
+    for (a, shape), kwargs in FAMILY_CUTS.items():
+        if a == arch:
+            shapes[shape] = dataclasses.replace(shapes[shape], kwargs={**shapes[shape].kwargs, **kwargs})
+    return dataclasses.replace(spec, shapes=shapes)
+
+
+def family_within(got, want, tol: dict) -> dict:
+    """How far ``got`` lies from ``want`` (tensors, or trees of them):
+    the largest absolute error and the elements beyond ``tol``'s atol +
+    rtol |want|."""
+    from repro_torch.tree import tree_leaves
+
+    worst, beyond = 0.0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float(), b.to(a.device).float()
+        err = (a - b).abs()
+        if err.numel():
+            worst = max(worst, float(err.max()))
+            beyond += int((err > tol["atol"] + tol["rtol"] * b.abs()).sum())
+    return {"max_abs": worst, "beyond": beyond}
+
+
+def family_worker(out_dir: str) -> int:
+    """One rank of phase 15's second world of two (``--family-worker DIR``):
+    (g) the recsys cells of FAMILY_RECSYS and (h) the GNN cells of
+    FAMILY_GNN at full size under their meshes, each against the unsharded
+    step's outputs that the card child saved in DIR (this rank's slices of
+    them): loss (and accuracy), the new params or the scores, with wall ms,
+    peak MiB and the counted collectives a rank.  Writes
+    ``DIR/family_rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.gather import gather_blocks
+    from repro_torch.kernels.intersect import intersect_sorted
+    from repro_torch.kernels.proximity import proximity_window
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh, make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel.sharding import P, shard_tree
+
+    work = Path(out_dir)
+    meshes = {(1, 2): make_device_mesh((1, 2), ("data", "model"), backend=WORLD_BACKEND, device="cuda"),
+              (2, 1): make_device_mesh((2, 1), ("data", "model"), backend=WORLD_BACKEND, device="cuda")}
+    rank, dev = meshes[(1, 2)].rank, meshes[(1, 2)].device
+    counted = {"proximity_window": proximity_window, "intersect_sorted": intersect_sorted,
+               "gather_blocks": gather_blocks}
+    res: dict = {"rank": rank, "cells": {}, "launches": {}, "s": {}}
+    for label, cells in (("15g", FAMILY_RECSYS), ("15h", FAMILY_GNN)):
+        t = time.perf_counter()
+        for fn in counted.values():
+            fn.launches = 0
+        for arch, shape, mesh_shape in cells:
+            mesh = meshes[mesh_shape]
+            spec = family_spec(arch)
+            cell = build_cell(spec, shape, make_production_mesh(), mesh)
+            want = torch.load(family_file(work, arch, shape), mmap=True, weights_only=False)
+            torch.cuda.synchronize(dev)
+            rec = dryrun.run_cell(arch, shape, verbose=False, dmesh=mesh, keep_outputs=True, spec=spec,
+                                  repeats=0 if (arch, shape) in FAMILY_ONE_CALL else 1)
+            require(rec["status"] == "ok", f"rank {rank} {arch} {shape} {mesh}: {rec.get('error')}\n"
+                                           f"{rec.get('traceback')}")
+            out = rec.pop("outputs")
+            e = {"mesh": str(mesh), "wall_ms": rec["wall_ms"] or [rec["first_call_s"] * 1e3],
+                 "counted_call_only": not rec["wall_ms"], "first_call_s": rec["first_call_s"],
+                 "peak_mib": rec["peak_bytes"] / 2**20, "collectives": rec["collective_bytes_per_device"],
+                 "inputs": rec["input_shapes"][-1]}
+            if cell.step == "train":
+                new, _, metrics = out
+                e["metrics"] = {k: float(v) for k, v in metrics.items()}
+                e["metrics_want"] = want["metrics"]
+                e["metrics_fwd"] = {k: abs(e["metrics"][k] - w) <= FAMILY_FWD["atol"] + FAMILY_FWD["rtol"] * abs(w)
+                                    for k, w in want["metrics"].items()}
+                e["params"] = family_within(new, shard_tree(want["params"], cell.in_specs[0], mesh), FAMILY_STEP)
+            else:
+                cand = cell.in_specs[1]["cand_ids"]
+                e["scores"] = family_within(out, shard_tree({"s": want["scores"]}, {"s": P(*cand)}, mesh)["s"],
+                                            FAMILY_FWD)
+            res["cells"][f"{arch} {shape} {mesh}"] = e
+            del out, want, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["launches"][f"world of two, {label} {'recsys' if label == '15g' else 'GNN'} cells, rank {rank}"] = {
+            kname: fn.launches for kname, fn in counted.items()}
+        res["s"][label] = time.perf_counter() - t
+    (work / f"family_rank{rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def family_world_phase(torch, dev, path_launches: dict) -> dict:
+    """Phase 15g and 15h (see the module docstring): the unsharded steps on
+    the card, their outputs to the host, then the world of two; returns
+    the summary, its worlds' launch counts added to ``path_launches``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_map
+
+    t = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_family_"))
+    procs: list = []
+    summary: dict = {"unsharded": {}}
+    try:
+        for arch, shape in dict.fromkeys((a, s) for a, s, _ in FAMILY_RECSYS + FAMILY_GNN):
+            gc.collect()
+            torch.cuda.empty_cache()
+            one = (arch, shape) in FAMILY_ONE_CALL
+            rec = dryrun.run_cell(arch, shape, verbose=False, device=dev, repeats=0 if one else 1, keep_outputs=True,
+                                  spec=family_spec(arch))
+            require(rec["status"] == "ok", f"{arch} {shape} unsharded: {rec.get('error')}\n{rec.get('traceback')}")
+            out = rec.pop("outputs")
+            if isinstance(out, tuple):  # a train step: (params, optimizer state, metrics)
+                out = {"params": tree_map(lambda x: x.cpu(), out[0]), "metrics": {k: float(v) for k, v in out[2].items()}}
+            else:
+                out = {"scores": out.cpu()}
+            torch.save(out, family_file(work, arch, shape))
+            summary["unsharded"][f"{arch} {shape}"] = {
+                "wall_ms": rec["wall_ms"] or [rec["first_call_s"] * 1e3], "peak_mib": rec["peak_bytes"] / 2**20}
+            del out, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = phase("recsys and GNN unsharded steps at full size, their outputs to the host (15g, 15h)", t)
+        world = world_start(procs, ["--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--family-worker",
+                                    str(work)])
+        world_finish(world, "world of two (gloo on the card, chip_smoke.py --family-worker)")
+        ranks = [json.loads((work / f"family_rank{r}.json").read_text()) for r in range(2)]
+        for r in ranks:
+            path_launches.update(r["launches"])
+            for path, counts in r["launches"].items():
+                require(all(v == 0 for v in counts.values()), f"{path} launched a search kernel: {counts}")
+        for arch, shape, mesh in FAMILY_RECSYS + FAMILY_GNN:
+            key = f"{arch} {shape} {mesh[0]}x{mesh[1]}"
+            label = "15g" if (arch, shape, mesh) in FAMILY_RECSYS else "15h"
+            want = summary["unsharded"][f"{arch} {shape}"]
+            for r in ranks:
+                e = r["cells"][key]
+                held = e["metrics_fwd"] if "metrics_fwd" in e else {}
+                close = e.get("params", e.get("scores"))
+                print(f"{label} {key} rank {r['rank']} ({WORLD_BACKEND}): wall {[round(x, 3) for x in e['wall_ms']]} ms"
+                      f"{' (the counted call)' if e['counted_call_only'] else ''} (unsharded "
+                      f"{[round(x, 3) for x in want['wall_ms']]} ms, {want['peak_mib']:.1f} MiB), peak "
+                      f"{e['peak_mib']:.1f} MiB, collectives {json.dumps(e['collectives'])} B; "
+                      + (f"metrics {e['metrics']} vs {e['metrics_want']}; " if held else "")
+                      + f"{'params after the step' if 'params' in e else 'scores'}: max abs {close['max_abs']:.3e}, "
+                        f"{close['beyond']} beyond tolerance")
+                require(all(held.values()) and close["beyond"] == 0,
+                        f"{label} {key} rank {r['rank']}: beyond the float32 tolerances")
+        summary["cells"] = {k: [r["cells"][k] for r in ranks] for k in ranks[0]["cells"]}
+        summary["worker_s"] = [r["s"] for r in ranks]
+        phase("world of two: recsys (15g) and GNN (15h) cells at full size == unsharded", t)
+    finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
@@ -2174,10 +2480,12 @@ def new_families(phases: list[int], threads: int) -> dict:
 
     dev = torch.device("cuda", 0)
     out: dict = {}
-    # phase 15 first: it runs beside phase 8, whose card memory is small;
-    # 12a's olmoe train_4k (70 GB) then lands beside phase 9, as it did
+    # phase 15 first, 15g and 15h after 15f: they run beside phases 7 and 8,
+    # whose card memory is small; 12a's olmoe train_4k (70 GB) then lands
+    # beside phase 9
     if 15 in phases:
         out["world"] = world_phase(torch, dev, path_launches)
+        out["family_world"] = family_world_phase(torch, dev, path_launches)
     if 12 in phases:
         out["moe"] = moe_phase(torch, dev, zero_counts, read_counts)
     if 13 in phases:
@@ -2190,25 +2498,31 @@ def new_families(phases: list[int], threads: int) -> dict:
 
 
 def card_child_start(procs: list, phases: list[int], threads: int):
-    """Phases 12-15 in a fresh process (jax and the reference
-    package blocked)."""
+    """Phases 12-15 in a fresh process (jax and the reference package
+    blocked), its output to files (a pipe would stall it once full), and
+    the ``QuietGate`` it checks at each phase line."""
     # expandable segments: the train_4k cell's state is about 71 GB
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     nice = CHILD_NICE if threads else 0  # alone (threads 0) it has the machine to itself
-    proc = subprocess.Popen([sys.executable, "-c", CARD_CHILD, str(ROOT), ",".join(map(str, phases)), str(threads),
-                             str(nice)],
-                            cwd=ROOT, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_child_"))
+    with open(work / "out.log", "w") as out, open(work / "err.log", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", CARD_CHILD, str(ROOT), ",".join(map(str, phases)),
+                                 str(threads), str(nice), str(work)],
+                                cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
     procs.append(proc)
-    return proc, time.perf_counter(), phases
+    return proc, time.perf_counter(), phases, work, QuietGate(work)
 
 
 def card_child_finish(child) -> dict:
     """Wait for the child of ``card_child_start``, print its lines and
     return what it reported."""
-    proc, t_start, phases = child
-    out, err = proc.communicate(timeout=1000)
-    lines = out.splitlines()
+    proc, t_start, phases, work, _ = child
+    try:
+        proc.wait(timeout=1000)
+        lines = (work / "out.log").read_text().splitlines()
+        err = (work / "err.log").read_text()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     ok = proc.returncode == 0 and lines and lines[-1].startswith("card child: ")
     for line in lines[:-1] if ok else lines:
         print(line)
@@ -2260,9 +2574,12 @@ def main(argv: list[str] | None = None) -> int:
                     help="the phases to run, e.g. 12,13 or 3-10 (default: all; see the module docstring)")
     ap.add_argument("--world-worker", default=None, help=argparse.SUPPRESS)  # one rank of phase 15's world
     ap.add_argument("--world3-worker", default=None, help=argparse.SUPPRESS)  # one rank of 15f's world of three
+    ap.add_argument("--family-worker", default=None, help=argparse.SUPPRESS)  # one rank of 15g-h's world of two
     parsed = ap.parse_args(argv)
     if parsed.world_worker is not None:
         return world_worker(parsed.world_worker)
+    if parsed.family_worker is not None:
+        return family_worker(parsed.family_worker)
     if parsed.world3_worker is not None:
         return world3_worker(parsed.world3_worker)
     phases = parsed.phases
@@ -2350,8 +2667,8 @@ def _main(procs: list, phases: set[int]) -> int:
 
     def search_phases():
         """Phases 3-10 (see the module docstring); phases 11e and 11f run
-        beside phases 3 and 7, and 15 and 12-14 beside phases 8 and 9, when
-        selected."""
+        beside phases 3 and 7, and 15 and 12-14 beside phases 7, 8 and 9,
+        when selected."""
         nonlocal t0
 
         def slate_profile(make_fe, label, first_ms, cached_ms):
@@ -2954,6 +3271,14 @@ def _main(procs: list, phases: set[int]) -> int:
         shard_store = DocumentStore(documents=store.documents[:SHARDED_DOCS], lemmatizer=lem)
         # phase 11f beside the host-side builds below
         lm_ckpt = Background(lambda: lm_resume_check(procs)) if 11 in phases else None
+        # phases 15, 12, 13 and 14 in a child process beside phases 7, 8 and
+        # 9, which are host-bound (their slates' times and profiles share the
+        # card with it; none is held to a bound)
+        gc.collect()
+        torch.cuda.empty_cache()
+        child = card_child_start(procs, new, threads=CHILD_THREADS) if new else None
+        print(f"card memory held here: {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved; phases "
+              f"{new} {'started beside phases 7, 8 and 9' if new else 'not selected'}")
         t_build = time.perf_counter()
         svc = ShardedSearchService(shard_store, n_shards=N_SHARDS, sw_count=SW_COUNT, fu_count=FU_COUNT,
                                    max_distance=MAX_DISTANCE, device="cuda")
@@ -3374,16 +3699,18 @@ def _main(procs: list, phases: set[int]) -> int:
             stopping = threading.Event()
             procs_lock = threading.Lock()  # no launch slips past the cleanup below
 
-            def launch(*args) -> subprocess.Popen:
+            def launch(*args, script: str = RUN_MODULE) -> subprocess.Popen:
                 with procs_lock:
                     require(not stopping.is_set(), "phase 9 is stopping: no more launcher processes")
-                    proc = subprocess.Popen([sys.executable, "-u", "-c", RUN_MODULE, "repro_torch.launch.serve", *map(str, args)], env=env,
+                    proc = subprocess.Popen([sys.executable, "-u", "-c", script, "repro_torch.launch.serve", *map(str, args)], env=env,
                                             cwd=work, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                     procs.append(proc)
                 return proc
 
-            def finish(proc, label, timeout=600) -> str:
+            def finish(proc, label, timeout=600, errors: list | None = None) -> str:
                 out, err = proc.communicate(timeout=timeout)
+                if errors is not None:
+                    errors.append(err)
                 require(proc.returncode == 0, f"launcher {label} exited {proc.returncode}: {err[-3000:]}")
                 return out
 
@@ -3549,11 +3876,30 @@ def _main(procs: list, phases: set[int]) -> int:
                 line = next(ln for ln in daemon_out if "listening on" in ln)
                 address = line.split(" on ", 1)[1].split()[0]
                 print(f"  daemon ({time.perf_counter() - t_runs:.1f} s after start): {line.strip()}")
-                t_cl = time.perf_counter()
-                client_out = finish(launch("--connect", address, "--kill-primary", *slate_args), "client")
-                client_printed = printed(client_out)
-                print(f"  client ({time.perf_counter() - t_cl:.1f} s): " + " | ".join(
+                # the kill and the successor's first answer (its replica's cold
+                # 64 MiB arena acquire, host-bound) with no other launcher run
+                # and the card child waiting at its next phase line
+                cli_thread.join(timeout=900)
+                gate = child[4] if child is not None else None
+                held = gate.hold(child[0], timeout=120) if gate is not None else ("not started", 0.0)
+                client_err: list = []
+                try:
+                    t_cl = time.perf_counter()
+                    client_out = finish(launch("--connect", address, "--kill-primary", *slate_args,
+                                               script=RUN_CLIENT_TIMED), "client", errors=client_err)
+                    client_s = time.perf_counter() - t_cl
+                finally:
+                    if gate is not None:
+                        gate.release()
+                split = [ln.split()[1:] for ln in client_err[0].splitlines() if ln.startswith("[client] ")]
+                queries = [float(x) for op, x in split if op == "query"]
+                print(f"  client ({client_s:.1f} s; the card child {held[0]} after {held[1]:.1f} s): " + " | ".join(
                     ln for ln in client_out.splitlines() if ln.startswith(("kill_primary", "daemon"))))
+                print(f"  client split (s): imports {dict(split)['import']}, kill_primary {dict(split)['kill_primary']}, "
+                      f"first query (failover and the successor's first batch) {queries[0]:.3f}, the other "
+                      f"{len(queries) - 1} queries {sum(queries[1:]):.3f}, metrics {dict(split)['metrics']}, the rest "
+                      f"{client_s - sum(float(x) for _, x in split):.3f}")
+                client_printed = printed(client_out)
                 require(len(client_printed) == len(SLATE), f"the client printed {len(client_printed)} responses")
                 for (q, lines, _), (wq, wlines, _) in zip(client_printed, warm_printed):
                     require(q == wq and lines == wlines, f"the daemon's wire response for {q!r} != run 1's")
@@ -3567,7 +3913,6 @@ def _main(procs: list, phases: set[int]) -> int:
                 summary = [ln.strip() for ln in daemon_out if ln.startswith("daemon: primary=")]
                 print(f"  daemon after SIGINT: exit {rc}, {summary}")
                 require(len(summary) == 1, "the daemon printed no summary on SIGINT")
-                cli_thread.join(timeout=900)
                 require("error" not in cli_runs and "warm" in cli_runs, f"run 4 failed: {cli_runs.get('error')}")
                 cold_p, warm_p = printed(cli_runs["cold"]), printed(cli_runs["warm"])
                 print(f"  run 4: cold start {cli_runs['cold_s']:.1f} s, warm start {cli_runs['warm_s']:.1f} s (process "
@@ -3591,14 +3936,6 @@ def _main(procs: list, phases: set[int]) -> int:
         # fresh process from what it wrote
         work = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
         try:
-            # phases 15, 12, 13 and 14 in a child process beside phases 8
-            # and 9, which are host-bound (their slates' times and profiles
-            # share the card with it; none is held to a bound)
-            gc.collect()
-            torch.cuda.empty_cache()
-            child = card_child_start(procs, new, threads=CHILD_THREADS) if new else None
-            print(f"card memory held here: {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved; phases "
-                  f"{new} {'started beside phases 8 and 9' if new else 'not selected'}")
             durable_phase(work / "snapshot", work / "reference")
             t0 = time.perf_counter()
             launcher_phase(work)

@@ -20,9 +20,15 @@ parallelism, with FSDP where the config asks (``models/transformer.py``),
 the gradients of every leaf replicated over a data axis all-reduced over
 it, AdamW on the shards; an LM decode cell under a model axis of more than
 one rank is context-parallel, each rank holding its slice of the cache's
-positions where the model axis divides them.  Every recsys and GNN cell
-under more than one rank raises ``NotImplementedError``: their sharded
-layouts are not ported yet.
+positions where the model axis divides them.  A recsys cell row-shards its
+tables and column-splits its MLP weights over ``model`` where the rules and
+``sanitize_specs`` say so, splits its batch (or a retrieval cell's
+candidates) over the data axes, and trains on the global mean with
+MIND's negatives from the whole global batch (``models/recsys.py``).  A GNN
+cell's ranks each hold a block of the edges (and, with ``shard_nodes``, of
+the nodes over ``data``); the segment max, ``denom`` and ``msg`` combine
+over the edge axes, so every rank's gradient of the replicated GAT params
+is the whole graph's (``models/gnn.py``).
 """
 
 from __future__ import annotations
@@ -227,8 +233,6 @@ def _lm_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMes
 
 
 def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
-    if _world(dmesh) is not None:
-        raise NotImplementedError("GNN edge and node sharding")
     cfg: gnn.GATConfig = spec.cfg_for(cell.name)
     kw = cell.kwargs
     n, e, f = kw["n_nodes"], kw["n_edges"], kw["d_feat"]
@@ -249,11 +253,6 @@ def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMe
     if task_graph:
         b_shapes["graph_ids"] = _meta((n,), torch.int32)
 
-    def train_fn(params, opt_state, bat):
-        loss, metrics, grads = _value_and_grad(gnn.gat_loss, params, bat, cfg, n_graphs=n_graphs)
-        master, new_state = adamw_update(grads, opt_state, opt_cfg)
-        return cast_like(master, params), new_state, {"loss": loss, "acc": metrics["acc"]}
-
     # SpMM-ish useful work: per edge per layer, gather+reduce over head dims
     flops = 0.0
     for fi, do in cfg.layer_dims():
@@ -266,12 +265,25 @@ def _gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMe
     if task_graph:
         b_specs["labels"] = P()
         b_specs["label_mask"] = P()
+    b_specs = sanitize_specs(b_specs, b_shapes, m)
+    world = _world(dmesh)
+    # a rank's blocks of the batch: the edges over the axes that divide
+    # them, the nodes over data where it divides them
+    shards = None if world is None else gnn.GATShards(world, b_specs["src"][0], b_specs["x"][0] == "data")
+
+    def train_fn(params, opt_state, bat):
+        # the params are replicated and every rank's gradient is the whole
+        # graph's (``gnn.GATShards``): no sum over the data axes
+        loss, metrics, grads = _value_and_grad(gnn.gat_loss, params, bat, cfg, n_graphs=n_graphs, shards=shards)
+        master, new_state = adamw_update(grads, opt_state, opt_cfg)
+        return cast_like(master, params), new_state, {"loss": loss, "acc": metrics["acc"]}
+
     return Cell(
         arch_id=spec.arch_id, shape_name=cell.name, step="train",
         fn=train_fn, abstract_args=(p_shapes, o_shapes, b_shapes),
         model_flops_fn=lambda: flops,
         # GAT params are tiny: replicate
-        in_specs=(_rep_like(p_shapes), _rep_like(o_shapes), sanitize_specs(b_specs, b_shapes, m)),
+        in_specs=(_rep_like(p_shapes), _rep_like(o_shapes), b_specs),
     )
 
 
@@ -314,10 +326,9 @@ def _recsys_flops(cfg: recsys.RecsysConfig, batch: int) -> float:
 
 
 def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: DeviceMesh | None = None) -> Cell:
-    if _world(dmesh) is not None:
-        raise NotImplementedError("recsys row-sharded tables")
     cfg: recsys.RecsysConfig = spec.cfg_for(cell.name)
     m = dmesh if dmesh is not None else mesh
+    world = _world(dmesh)
     p_shapes = recsys.recsys_param_shapes(cfg)
     p_specs = sanitize_specs(recsys_param_specs(p_shapes), p_shapes, m)
     b_shapes = _recsys_batch_shapes(cfg, cell)
@@ -326,11 +337,15 @@ def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: Devic
     if cell.step == "train":
         opt_cfg = AdamWConfig(lr=1e-3, weight_decay=1e-5)
         o_shapes = adamw_init(p_shapes)
+        # the axes the batch rows split over (None where they do not divide)
+        rows = next(iter(b_specs.values()))[0]
 
         def train_fn(params, opt_state, bat):
-            loss, _, grads = _value_and_grad(recsys.recsys_loss, params, bat, cfg)
-            master, new_state = adamw_update(grads, opt_state, opt_cfg)
-            return cast_like(master, params), new_state, {"loss": loss}
+            with use_mesh(dmesh):
+                loss, _, grads = _value_and_grad(recsys.recsys_loss, params, bat, cfg, rows=rows)
+                grads = sync_grads(grads, p_specs, world)
+                master, new_state = adamw_update(grads, opt_state, opt_cfg, specs=p_specs, mesh=world)
+                return cast_like(master, params), new_state, {"loss": loss}
 
         bsz = cell.kwargs["batch"]
         o_specs = {"m": p_specs, "v": p_specs, "master": p_specs, "step": P()}
@@ -344,7 +359,8 @@ def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: Devic
     if cell.step == "score":
         @torch.no_grad()
         def score_fn(params, bat):
-            return recsys.recsys_score(params, bat, cfg)
+            with use_mesh(dmesh):
+                return recsys.recsys_score(params, bat, cfg)
 
         bsz = cell.kwargs["batch"]
         return Cell(
@@ -362,9 +378,11 @@ def _recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh: MeshLayout, dmesh: Devic
     def retrieval_fn(params, bat):
         # one card holds what the reference spreads over its data ranks:
         # each chunk of candidates is one batched forward (every
-        # candidate's score depends on it and the context alone)
+        # candidate's score depends on it and the context alone); in a
+        # world, of this rank's candidates
         chunks = bat["cand_ids"].split(RETRIEVAL_CHUNK)
-        return torch.cat([recsys.recsys_retrieval_score(params, {**bat, "cand_ids": ch}, cfg) for ch in chunks])
+        with use_mesh(dmesh):
+            return torch.cat([recsys.recsys_retrieval_score(params, {**bat, "cand_ids": ch}, cfg) for ch in chunks])
 
     r_specs = {k: P() for k in b_shapes}
     r_specs["cand_ids"] = P(data_axes(m))

@@ -29,6 +29,22 @@ form, :func:`aggregate_plain`, is kept to hold it to.
 Node classification (Cora / Reddit-minibatch / ogbn-products) and graph
 classification (batched small molecules, mean-pooled over ``graph_ids``)
 through ``task``.
+
+In a world of ranks (``shards``, a :class:`GATShards`) each rank holds a
+block of the edge list (``src``, ``dst``, ``edge_mask``; the reference's
+edges over the flattened ``(data, model)`` axes) and, with ``nodes``, its
+data rank's block of ``x``, ``labels`` and ``label_mask``.  Per layer the
+rank scores its edges; the segment max is all-reduced (``MAX``) over the
+edge axes before the exp, so every rank shifts by the global maximum and
+the partial sums combine; ``denom`` and ``msg`` are summed over them
+(``reduce_from``).  The replicated ``h``, ``al_src`` and ``al_dst`` enter
+the edge work through ``copy_to``, whose backward sums their gradients over
+every rank: each rank's gradient of the (replicated) parameters is then the
+whole graph's, with no sum over the data axes after it.  Node rows of ``x``
+are projected by their data rank and gathered (``gather_from``: the
+gradient of ``h`` is whole on every rank already), with the layer's ``w``
+behind ``copy_to`` over ``data``; the loss and accuracy over node rows are
+sums and counts all-reduced over ``data``.
 """
 
 from __future__ import annotations
@@ -37,11 +53,13 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce, copy_to, gather_from, reduce_from
 from .layers import dense_init
 
-__all__ = ["GATConfig", "init_gat_params", "gat_param_shapes", "gat_forward", "gat_loss", "aggregate",
+__all__ = ["GATConfig", "GATShards", "init_gat_params", "gat_param_shapes", "gat_forward", "gat_loss", "aggregate",
            "aggregate_plain", "edge_chunk"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -78,6 +96,18 @@ class GATConfig:
         for fi, do in self.layer_dims():
             total += fi * self.n_heads * do + 2 * self.n_heads * do
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class GATShards:
+    """What a rank of ``mesh`` holds of a batch: ``edges``, the mesh axes
+    its edge list is a block of (``None``: every edge); ``nodes``, whether
+    ``x``, ``labels`` and ``label_mask`` are its block of rows over
+    ``data`` (a node task's)."""
+
+    mesh: Any
+    edges: Any = None
+    nodes: bool = False
 
 
 def _layout(cfg: GATConfig) -> list[dict[str, tuple[int, ...]]]:
@@ -168,7 +198,7 @@ def aggregate_plain(ex: torch.Tensor, h: torch.Tensor, src: torch.Tensor, dst: t
 
 
 def _gat_layer(
-    x: torch.Tensor,  # [N, F]
+    x: torch.Tensor,  # [N, F] (with ``rows``: this data rank's [N / data, F])
     layer: dict[str, Any],
     src: torch.Tensor,  # [E] int64 (padded edges -> 0 with mask 0)
     dst: torch.Tensor,  # [E]
@@ -178,35 +208,56 @@ def _gat_layer(
     negative_slope: float,
     final: bool,
     edge_chunk: int | None,
+    shards: GATShards | None = None,
+    rows: bool = False,
 ) -> torch.Tensor:
-    w = layer["w"]
+    w, a_src, a_dst = layer["w"], layer["a_src"], layer["a_dst"]
     fi, nh, d = w.shape
-    h = (x @ w.reshape(fi, nh * d)).view(n_nodes, nh, d)  # [N, H, D]
-    al_src = (h * layer["a_src"][None]).sum(-1)  # [N, H]
-    al_dst = (h * layer["a_dst"][None]).sum(-1)
+    mesh = None if shards is None else shards.mesh
+    if rows:
+        # each data rank projects its rows (a partial over data of w's
+        # gradient, summed by copy_to); h is gathered whole
+        w = copy_to(w, mesh, "data")
+        h = gather_from((x @ w.reshape(fi, nh * d)).view(-1, nh, d), mesh, "data", 0)
+    else:
+        h = (x @ w.reshape(fi, nh * d)).view(n_nodes, nh, d)  # [N, H, D]
+    al_src = (h * a_src[None]).sum(-1)  # [N, H]
+    al_dst = (h * a_dst[None]).sum(-1)
+    edges = None if shards is None else shards.edges
+    if edges is not None:
+        h, al_src, al_dst = (copy_to(t, mesh, edges) for t in (h, al_src, al_dst))
     e = al_src.index_select(0, src) + al_dst.index_select(0, dst)  # SDDMM: [E, H]
     e = F.leaky_relu(e, negative_slope)
     e = torch.where(edge_mask[:, None] > 0, e, torch.tensor(-1e9, dtype=e.dtype, device=e.device))
     # segment softmax over incoming edges of each destination
     m = e.new_full((n_nodes, nh), float("-inf")).scatter_reduce(
         0, dst[:, None].expand(-1, nh), e.detach(), "amax", include_self=False)
+    if edges is not None:
+        # every rank shifts by the global maximum, so the partial sums combine
+        m = all_reduce(m, mesh, edges, dist.ReduceOp.MAX)
     m = torch.where(torch.isfinite(m), m, 0.0)
     ex = torch.exp(e - m.index_select(0, dst)) * edge_mask[:, None].to(e.dtype)
-    denom = ex.new_zeros((n_nodes, nh)).index_add(0, dst, ex)  # [N, H]
-    msg = aggregate(ex, h, src, dst, edge_chunk)
+    denom = reduce_from(ex.new_zeros((n_nodes, nh)).index_add(0, dst, ex), mesh, edges)  # [N, H]
+    msg = reduce_from(aggregate(ex, h, src, dst, edge_chunk), mesh, edges)
     out = msg / denom.clamp_min(1e-9)[..., None]  # [N, H, D]
     if final:
         return out.mean(dim=1)  # average heads -> [N, n_classes]
     return F.elu(out.reshape(n_nodes, -1))  # concat heads
 
 
+def _rows_split(shards: GATShards | None) -> bool:
+    return shards is not None and shards.nodes and shards.mesh.axis_size("data") > 1
+
+
 def gat_forward(params, batch: dict[str, torch.Tensor], cfg: GATConfig, n_graphs: int = 1, *,
-                edge_chunk: int | None = None) -> torch.Tensor:
+                edge_chunk: int | None = None, shards: GATShards | None = None) -> torch.Tensor:
     """batch: {x [N,F], src [E], dst [E], edge_mask [E], (graph_ids [N])};
     ``edge_chunk`` edges a chunk of the aggregate (default: from the
-    device's memory)."""
+    device's memory); ``shards``: this rank's blocks of the batch.  Every
+    rank returns the whole graph's logits."""
     x = batch["x"].to(cfg.torch_dtype)
-    n_nodes = x.shape[0]
+    rows = _rows_split(shards)
+    n_nodes = x.shape[0] * (shards.mesh.axis_size("data") if rows else 1)
     src, dst = batch["src"].long(), batch["dst"].long()
     for i, layer in enumerate(params):
         x = _gat_layer(
@@ -214,6 +265,8 @@ def gat_forward(params, batch: dict[str, torch.Tensor], cfg: GATConfig, n_graphs
             negative_slope=cfg.negative_slope,
             final=(i == len(params) - 1),
             edge_chunk=edge_chunk,
+            shards=shards,
+            rows=rows and i == 0,
         )
     if cfg.task == "graph":
         # mean-pool node logits per graph (batched small molecules)
@@ -225,15 +278,25 @@ def gat_forward(params, batch: dict[str, torch.Tensor], cfg: GATConfig, n_graphs
 
 
 def gat_loss(params, batch: dict[str, torch.Tensor], cfg: GATConfig, n_graphs: int = 1, *,
-             edge_chunk: int | None = None) -> tuple[torch.Tensor, dict]:
-    logits = gat_forward(params, batch, cfg, n_graphs=n_graphs, edge_chunk=edge_chunk).float()
+             edge_chunk: int | None = None, shards: GATShards | None = None) -> tuple[torch.Tensor, dict]:
+    """The masked mean NLL and accuracy; with ``shards.nodes`` (a node
+    task), over every data rank's block of the labels."""
+    logits = gat_forward(params, batch, cfg, n_graphs=n_graphs, edge_chunk=edge_chunk, shards=shards).float()
     labels = batch["labels"].long()
     mask = batch["label_mask"].float()
+    split = _rows_split(shards)
+    if split:
+        # this data rank's rows of the (replicated) logits: their gradients
+        # from every data rank are summed by copy_to
+        mesh = shards.mesh
+        logits = copy_to(logits, mesh, "data").narrow(0, mesh.coord("data") * labels.shape[0], labels.shape[0])
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None])[..., 0]
     nll = (logz - gold) * mask
-    denom = mask.sum().clamp_min(1.0)
-    loss = nll.sum() / denom
-    acc = (logits.argmax(dim=-1) == labels).float()
-    acc = (acc * mask).sum() / denom
-    return loss, {"acc": acc}
+    acc = ((logits.argmax(dim=-1) == labels).float() * mask).sum()
+    total, count = nll.sum(), mask.sum()
+    if split:
+        total = reduce_from(total, mesh, "data")
+        acc, count = (all_reduce(t, mesh, "data") for t in (acc, count))
+    denom = count.clamp_min(1.0)
+    return total / denom, {"acc": acc / denom}

@@ -15,23 +15,41 @@ Every model exposes:
   * ``retrieval_score`` — one context against ``n_candidates`` items as a
                           single batched forward (no loops), for
                           ``retrieval_cand``.
+
+Under a device mesh (``launch.mesh.use_mesh``) of more than one rank every
+parameter is this rank's slice under the reference's rules
+(``parallel.sharding.recsys_param_specs``, sanitized for the mesh): a table
+whose rows split over ``model`` (``table``, FM's ``w_linear``) is looked up
+by :func:`lookup` (each rank its own rows, summed over ``model``), a matrix
+whose columns split over ``model`` (DCN-v2's ``mlp/*/w``; ``cross_w`` where
+``model`` divides its width) multiplies behind ``copy_to`` and its columns
+are gathered.  The batch rows split over the data axes: the loss is the
+global mean (sums and counts all-reduced), and MIND's in-batch negatives
+are the whole global batch's targets, gathered (``fsdp_gather``: every
+rank's logits read every target, so their gradients are reduce-scattered).
+With no mesh, or a mesh of one rank, every op is the one-card model's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import current_mesh
+from ..parallel.collectives import all_reduce, copy_to, fsdp_gather, gather_from, reduce_from
+from ..parallel.sharding import data_axes, map_with_path, recsys_param_specs, sanitize_specs
 from .layers import dense_init
 
 __all__ = [
     "RecsysConfig",
     "embedding_bag",
     "embedding_bag_gather",
+    "lookup",
     "init_recsys_params",
     "recsys_param_shapes",
     "recsys_loss",
@@ -42,29 +60,64 @@ __all__ = [
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _own_rows(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
+    """``table``'s rows at ``ids`` (``>= 0``); under ``mesh``, where
+    ``table`` is this rank's block of rows over ``model``, the ids outside
+    it give zeros (to be summed over ``model``)."""
+    if mesh is None:
+        return F.embedding(ids, table) if table.dim() == 2 else table[ids]
+    v = table.shape[0]
+    local = ids - mesh.coord("model") * v
+    own = (local >= 0) & (local < v)
+    rows = F.embedding(local.clamp(0, v - 1), table) if table.dim() == 2 else table[local.clamp(0, v - 1)]
+    return torch.where(own.view(*own.shape, *([1] * (table.dim() - 1))), rows, 0.0)
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Rows of ``table`` (``[V, D]``, or ``[V]``) at ``ids`` (``>= 0``).
+    ``mesh``: ``table``'s rows split over its ``model`` axis, this rank
+    holding rows ``[r V/tp, (r+1) V/tp)``; each rank takes its own rows and
+    the lookup is summed over ``model`` (``reduce_from``: the gradient of a
+    row reaches only the rank that holds it).  Without it, ``F.embedding``
+    (or an index, for ``[V]``)."""
+    return reduce_from(_own_rows(table, ids, mesh), mesh, "model")
+
+
 def embedding_bag(
     table: torch.Tensor,  # [V, D]
     ids: torch.Tensor,  # [B, K] int, pad = -1
     weights: torch.Tensor | None = None,  # [B, K]
     mode: str = "sum",
+    *,
+    mesh=None,
 ) -> torch.Tensor:
     """``torch.nn.EmbeddingBag`` (sum/mean) with ``-1`` padding, built from
-    a gather and a masked reduce."""
+    a gather and a masked reduce; ``mesh`` as :func:`lookup` (each rank's
+    bags summed over ``model``)."""
     ok = ids >= 0
-    emb = F.embedding(torch.clamp(ids, min=0), table)  # [B, K, D]
+    emb = _own_rows(table, torch.clamp(ids, min=0), mesh)  # [B, K, D]
     w = ok.to(table.dtype)
     if weights is not None:
         w = w * weights.to(table.dtype)
-    out = (emb * w[..., None]).sum(dim=1)
+    out = reduce_from((emb * w[..., None]).sum(dim=1), mesh, "model")
     if mode == "mean":
         out = out / torch.clamp(ok.sum(dim=1, keepdim=True).to(table.dtype), min=1.0)
     return out
 
 
-def embedding_bag_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Masked gather (pad = -1 -> zero rows); keeps the T axis."""
+def embedding_bag_gather(table: torch.Tensor, ids: torch.Tensor, *, mesh=None) -> torch.Tensor:
+    """Masked gather (pad = -1 -> zero rows); keeps the T axis; ``mesh`` as
+    :func:`lookup`."""
     ok = (ids >= 0)[..., None]
-    return F.embedding(torch.clamp(ids, min=0), table) * ok.to(table.dtype)
+    return lookup(table, torch.clamp(ids, min=0), mesh) * ok.to(table.dtype)
+
+
+def _cols(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """``x @ w``; ``mesh``: ``w`` is this rank's block of columns over
+    ``model`` (``x`` enters through ``copy_to``, the columns are gathered)."""
+    if mesh is None:
+        return x @ w
+    return gather_from(copy_to(x, mesh, "model") @ w, mesh, "model", -1)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +268,39 @@ def recsys_param_shapes(cfg: RecsysConfig) -> dict[str, Any]:
     return _build(_layout(cfg), lambda kind, shape, scale=None: torch.empty(shape, dtype=dt, device="meta"))
 
 
+@dataclasses.dataclass(frozen=True)
+class _Par:
+    """The sharding of a config's params on a mesh: for each param path,
+    the mesh when its rows (``table``, ``w_linear``) or its columns (a
+    matrix on ``P(..., "model")``) split over ``model``, else ``None``."""
+
+    mesh: Any
+    split: dict
+
+
+@functools.lru_cache(maxsize=32)
+def _par_for(cfg: RecsysConfig, mesh) -> _Par:
+    shapes = recsys_param_shapes(cfg)
+    specs = sanitize_specs(recsys_param_specs(shapes), shapes, mesh)
+    split = {}
+    map_with_path(lambda path, s: split.__setitem__(path, mesh if "model" in s.dims else None), specs)
+    return _Par(mesh, split)
+
+
+def _par(cfg: RecsysConfig) -> _Par | None:
+    """The current mesh's sharding of ``cfg``; None with no mesh or a mesh
+    of one rank (which runs the ops of no mesh)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    return _par_for(cfg, mesh)
+
+
+def _split(par: _Par | None, path: str):
+    """The mesh ``path``'s param splits over, or ``None`` (whole)."""
+    return None if par is None else par.split.get(path)
+
+
 # ---------------------------------------------------------------------------
 # model forwards
 # ---------------------------------------------------------------------------
@@ -226,23 +312,23 @@ def _field_ids(cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
     return sparse_ids + off[None, :]
 
 
-def _field_embeddings(params, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
+def _field_embeddings(params, cfg: RecsysConfig, sparse_ids: torch.Tensor, par: _Par | None) -> torch.Tensor:
     """[B, F] per-field ids -> [B, F, D]."""
-    return F.embedding(_field_ids(cfg, sparse_ids), params["table"])
+    return lookup(params["table"], _field_ids(cfg, sparse_ids), _split(par, "table"))
 
 
-def _fm_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
+def _fm_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor, par: _Par | None) -> torch.Tensor:
     """Rendle's O(nk) sum-square trick: ½((Σv)² − Σv²)."""
     idx = _field_ids(cfg, sparse_ids)
-    v = F.embedding(idx, params["table"])  # [B, F, K]
-    lin = params["w_linear"][idx].sum(dim=-1)  # [B]
+    v = lookup(params["table"], idx, _split(par, "table"))  # [B, F, K]
+    lin = lookup(params["w_linear"], idx, _split(par, "w_linear")).sum(dim=-1)  # [B]
     s = v.sum(dim=1)  # [B, K]
     pair = 0.5 * (s * s - (v * v).sum(dim=1)).sum(dim=-1)
     return params["w0"] + lin + pair
 
 
-def _autoint_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
-    x = _field_embeddings(params, cfg, sparse_ids)  # [B, F, D]
+def _autoint_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor, par: _Par | None) -> torch.Tensor:
+    x = _field_embeddings(params, cfg, sparse_ids, par)  # [B, F, D]
     for layer in params["attn_layers"]:
         q = torch.einsum("bfd,dhk->bfhk", x, layer["wq"])
         k = torch.einsum("bfd,dhk->bfhk", x, layer["wk"])
@@ -253,21 +339,23 @@ def _autoint_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch
         o = o.reshape(*o.shape[:2], -1)  # [B, F, H*K]
         x = torch.relu(o + x @ layer["w_res"])
     flat = x.reshape(x.shape[0], -1)
-    return (flat @ params["w_out"])[:, 0]
+    return _cols(flat, params["w_out"], _split(par, "w_out"))[:, 0]
 
 
-def _dcn_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
-    emb = _field_embeddings(params, cfg, sparse_ids).reshape(sparse_ids.shape[0], -1)
+def _dcn_logit(params, cfg: RecsysConfig, sparse_ids: torch.Tensor, dense: torch.Tensor,
+               par: _Par | None) -> torch.Tensor:
+    emb = _field_embeddings(params, cfg, sparse_ids, par).reshape(sparse_ids.shape[0], -1)
     x0 = torch.cat([dense.to(emb.dtype), emb], dim=-1)  # [B, X]
     x = x0
     for i in range(cfg.n_cross_layers):
-        xw = x @ params["cross_w"][i] + params["cross_b"][i]
+        xw = _cols(x, params["cross_w"][i], _split(par, "cross_w")) + params["cross_b"][i]
         x = x0 * xw + x  # DCN-v2 cross
     h = x0
-    for layer in params["mlp"]:
-        h = torch.relu(h @ layer["w"] + layer["b"])
+    for j, layer in enumerate(params["mlp"]):
+        # the bias after the gather: it is whole on every rank
+        h = torch.relu(_cols(h, layer["w"], _split(par, f"mlp/{j}/w")) + layer["b"])
     cat = torch.cat([x, h], dim=-1)
-    return (cat @ params["w_out"])[:, 0]
+    return _cols(cat, params["w_out"], _split(par, "w_out"))[:, 0]
 
 
 def _squash(x: torch.Tensor) -> torch.Tensor:
@@ -275,11 +363,11 @@ def _squash(x: torch.Tensor) -> torch.Tensor:
     return x * (n2 / (1.0 + n2)) / torch.sqrt(torch.clamp(n2, min=1e-9))
 
 
-def _mind_interests(params, cfg: RecsysConfig, hist_ids: torch.Tensor) -> torch.Tensor:
+def _mind_interests(params, cfg: RecsysConfig, hist_ids: torch.Tensor, par: _Par | None) -> torch.Tensor:
     """Behavior-to-Interest dynamic routing -> [B, n_interests, D].  The
     routing has no stop-gradient: its three unrolled iterations carry
     gradients, as in the reference."""
-    e = embedding_bag_gather(params["table"], hist_ids)  # [B, T, D] w/ mask 0
+    e = embedding_bag_gather(params["table"], hist_ids, mesh=_split(par, "table"))  # [B, T, D] w/ mask 0
     mask = (hist_ids >= 0).to(e.dtype)[..., None]
     eh = (e @ params["bilinear"]) * mask
     b = torch.zeros((*hist_ids.shape, cfg.n_interests), dtype=e.dtype, device=e.device)  # routing logits
@@ -297,35 +385,58 @@ def _mind_interests(params, cfg: RecsysConfig, hist_ids: torch.Tensor) -> torch.
 
 
 def recsys_score(params, batch: dict[str, torch.Tensor], cfg: RecsysConfig) -> torch.Tensor:
+    par = _par(cfg)
     if cfg.model == "fm":
-        return _fm_logit(params, cfg, batch["sparse_ids"])
+        return _fm_logit(params, cfg, batch["sparse_ids"], par)
     if cfg.model == "autoint":
-        return _autoint_logit(params, cfg, batch["sparse_ids"])
+        return _autoint_logit(params, cfg, batch["sparse_ids"], par)
     if cfg.model == "dcn_v2":
-        return _dcn_logit(params, cfg, batch["sparse_ids"], batch["dense"])
+        return _dcn_logit(params, cfg, batch["sparse_ids"], batch["dense"], par)
     if cfg.model == "mind":
-        interests = _mind_interests(params, cfg, batch["hist_ids"])  # [B, I, D]
-        target = F.embedding(batch["target_id"], params["table"])  # [B, D]
+        interests = _mind_interests(params, cfg, batch["hist_ids"], par)  # [B, I, D]
+        target = lookup(params["table"], batch["target_id"], _split(par, "table"))  # [B, D]
         return torch.einsum("bid,bd->bi", interests, target).amax(dim=-1)
     raise ValueError(cfg.model)
 
 
-def recsys_loss(params, batch: dict[str, torch.Tensor], cfg: RecsysConfig) -> tuple[torch.Tensor, dict]:
+def _global_mean(total: torch.Tensor, rows: int, par: _Par) -> torch.Tensor:
+    """The mean over the global batch: this rank's ``total`` over its
+    ``rows``, both summed over the data axes (a batch whole on every data
+    rank counts once per rank in both)."""
+    da = data_axes(par.mesh)
+    count = torch.tensor(float(rows), device=total.device)
+    return reduce_from(total, par.mesh, da) / all_reduce(count, par.mesh, da)
+
+
+def recsys_loss(params, batch: dict[str, torch.Tensor], cfg: RecsysConfig, *,
+                rows=None) -> tuple[torch.Tensor, dict]:
+    """The mean loss over the global batch.  ``rows``: the mesh axes this
+    rank's batch rows are a block of (``None``: every rank holds the whole
+    batch); MIND takes its in-batch negatives from every such block."""
+    par = _par(cfg)
     if cfg.model == "mind":
         # in-batch sampled softmax with label-aware attention (p=2)
-        interests = _mind_interests(params, cfg, batch["hist_ids"])
-        targets = F.embedding(batch["target_id"], params["table"])  # [B, D]
+        interests = _mind_interests(params, cfg, batch["hist_ids"], par)
+        targets = lookup(params["table"], batch["target_id"], _split(par, "table"))  # [B, D]
         att = torch.softmax(2.0 * torch.einsum("bid,bd->bi", interests, targets), dim=-1)
         user = torch.einsum("bi,bid->bd", att, interests)  # [B, D]
-        logits = user @ targets.T  # in-batch negatives
         labels = torch.arange(user.shape[0], device=user.device)
+        if par is not None and rows is not None:
+            # the global batch's targets; this rank's rows sit at its offset
+            labels = labels + par.mesh.coord(rows) * user.shape[0]
+            targets = fsdp_gather(targets, par.mesh, rows, 0)
+        logits = user @ targets.T  # in-batch negatives
         # the mean of logsumexp(row) - row[label]: one [B, B] tensor in the
         # backward (at train_batch's 65,536 rows each is 17.2 GB)
-        loss = F.cross_entropy(logits, labels)
+        if par is None:
+            loss = F.cross_entropy(logits, labels)
+        else:
+            loss = _global_mean(F.cross_entropy(logits, labels, reduction="sum"), user.shape[0], par)
         return loss, {"loss": loss}
     logit = recsys_score(params, batch, cfg).float()
     y = batch["label"].float()
-    loss = torch.mean(torch.clamp(logit, min=0.0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit))))
+    per = torch.clamp(logit, min=0.0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
+    loss = torch.mean(per) if par is None else _global_mean(per.sum(), per.shape[0], par)
     return loss, {"loss": loss}
 
 
@@ -334,10 +445,11 @@ def recsys_retrieval_score(params, batch: dict[str, torch.Tensor], cfg: RecsysCo
 
     ``batch["cand_ids"]``: [C] candidate item ids (field 0 for CTR models).
     """
+    par = _par(cfg)
     cand = batch["cand_ids"]  # [C]
     if cfg.model == "mind":
-        interests = _mind_interests(params, cfg, batch["hist_ids"])  # [1, I, D]
-        cand_emb = F.embedding(cand, params["table"])  # [C, D]
+        interests = _mind_interests(params, cfg, batch["hist_ids"], par)  # [1, I, D]
+        cand_emb = lookup(params["table"], cand, _split(par, "table"))  # [C, D]
         return torch.einsum("bid,cd->bci", interests, cand_emb).amax(dim=-1)[0]
     # CTR models: broadcast the context row across candidates (item = field 0)
     ctx = batch["sparse_ids"]  # [1, F]

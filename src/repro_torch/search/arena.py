@@ -157,20 +157,63 @@ class ArenaResidency:
         return self.families[fname].buf
 
 
-def _slot_streams(a: np.ndarray, width: int) -> list[tuple[np.ndarray, np.ndarray]]:
-    """Per-slot sorted-unique (doc, pos) event streams of one key's §4 rows
-    — the query-independent half of ``extract_segment_events`` hoisted to
-    upload time.  Slot ``s``'s position is the anchor position plus the
-    slot's signed distance (DESIGN.md §13.1)."""
-    doc = a[:, 0].astype(np.int64)
-    out = []
-    for s in range(width - 1):
-        pos = a[:, 1].astype(np.int64)
+def _family_streams(arrays: list[np.ndarray], width: int, block: int):
+    """Every key's per-slot sorted-unique (doc, pos) event streams of one
+    family's §4 rows — the query-independent half of
+    ``extract_segment_events`` hoisted to upload time; slot ``s``'s position
+    is the anchor position plus the slot's signed distance (DESIGN.md
+    §13.1) — laid out as the arena buffer holds them: key by key, slot by
+    slot, each stream padded to whole blocks.  One sort a slot over the
+    whole family, where the reference takes ``np.unique`` key by key (the
+    same streams: a cold acquire of the launcher's 4 shards spent most of
+    its time in that loop).
+
+    Returns ``(rows, events, first_block, n_events, max_pos, n_docs,
+    max_doc, n_blocks)``: each event's buffer row and (doc, pos) pair, and
+    per (key, slot) its first block, event count and largest position, per
+    key its distinct documents and last document, and the blocks in all."""
+    n_keys, n_slots = len(arrays), width - 1
+    lens = np.fromiter((len(a) for a in arrays), np.int64, n_keys)
+    rows = np.concatenate(arrays) if n_keys else np.empty((0, width), np.int32)
+    key = np.repeat(np.arange(n_keys), lens)
+    doc = rows[:, 0].astype(np.int64)
+    uniq = []
+    n_events = np.zeros((n_keys, n_slots), np.int64)
+    for s in range(n_slots):
+        pos = rows[:, 1].astype(np.int64)
         if s > 0:
-            pos = pos + a[:, 1 + s]
-        comp = np.unique((doc << 32) | pos)
-        out.append(((comp >> 32).astype(np.int32), (comp & 0xFFFFFFFF).astype(np.int32)))
-    return out
+            pos = pos + rows[:, 1 + s]
+        comp = (doc << 32) | pos
+        order = np.lexsort((comp, key))
+        k, c = key[order], comp[order]
+        keep = np.ones(len(c), bool)
+        keep[1:] = (k[1:] != k[:-1]) | (c[1:] != c[:-1])
+        uniq.append((k[keep], c[keep]))
+        n_events[:, s] = np.bincount(k[keep], minlength=n_keys)
+    n_blocks = -(-n_events // block)
+    first_block = np.zeros(n_keys * n_slots, np.int64)
+    np.cumsum(n_blocks.ravel()[:-1], out=first_block[1:])
+    first_block = first_block.reshape(n_keys, n_slots) if n_keys else first_block.reshape(0, n_slots)
+    max_pos = np.zeros((n_keys, n_slots), np.int64)
+    dest, events = [], []
+    for s, (k, c) in enumerate(uniq):
+        start = np.zeros(n_keys, np.int64)
+        np.cumsum(n_events[:-1, s], out=start[1:])
+        dest.append(first_block[k, s] * block + np.arange(len(k)) - start[k])
+        pair = np.stack(((c >> 32).astype(np.int32), (c & 0xFFFFFFFF).astype(np.int32)), axis=1)
+        events.append(pair)
+        live = n_events[:, s] > 0
+        if live.any():
+            max_pos[live, s] = np.maximum.reduceat(pair[:, 1], start[live])
+    # distinct documents a key (its rows are in §4 order: doc sorted) and
+    # its last document
+    change = (rows[1:, 0] != rows[:-1, 0]) & (key[1:] == key[:-1])
+    n_docs = 1 + np.bincount(key[1:][change], minlength=n_keys)
+    ends = np.cumsum(lens) - 1
+    max_doc = np.where(lens > 0, rows[np.maximum(ends, 0), 0] if len(rows) else 0, 0)
+    return (np.concatenate(dest) if dest else np.empty(0, np.int64),
+            np.concatenate(events) if events else np.empty((0, 2), np.int32),
+            first_block, n_events, max_pos, n_docs, max_doc, int(n_blocks.sum()))
 
 
 class PostingArena:
@@ -307,41 +350,21 @@ class PostingArena:
 
     def _upload_family(self, view: IndexSet, fname: str) -> _FamilyBuffer:
         width = POSTING_WIDTH[fname]
-        keys, arrays, _rows, _starts = family_rows(getattr(view, fname), width)
+        keys, arrays, rows, _starts = family_rows(getattr(view, fname), width)
         block = self.block
-        chunks: list[np.ndarray] = []
+        dest, events, first, n_ev, max_pos, n_docs, max_doc, blk = _family_streams(arrays, width, block)
         extents: dict = {}
-        blk = 0
-        for k, a in zip(keys, arrays):
-            n = len(a)
+        for k, n, fb, ne, mp, nd, md in zip(keys, rows.tolist(), first.tolist(), n_ev.tolist(), max_pos.tolist(),
+                                            n_docs.tolist(), max_doc.tolist()):
             if n == 0:
                 extents[k] = KeyExtent(fname, 0, 0, 0, ())
                 continue
-            doc_col = a[:, 0]
-            n_docs = 1 + int(np.count_nonzero(np.diff(doc_col)))
-            slots = []
-            for doc, pos in _slot_streams(a, width):
-                ne = len(doc)
-                n_blocks = -(-ne // block)
-                pad = np.full((n_blocks * block, 2), -1, np.int32)
-                pad[:ne, 0] = doc
-                pad[:ne, 1] = pos
-                chunks.append(pad)
-                slots.append(SlotExtent(blk, ne, int(pos.max()) if ne else 0))
-                blk += n_blocks
-            extents[k] = KeyExtent(
-                family=fname,
-                n_rows=n,
-                n_docs=n_docs,
-                max_doc=int(doc_col[-1]),  # §4 order: doc column is sorted
-                slots=tuple(slots),
-            )
+            extents[k] = KeyExtent(family=fname, n_rows=n, n_docs=nd, max_doc=md,
+                                   slots=tuple(SlotExtent(*x) for x in zip(fb, ne, mp)))
         # pow2 total blocks: buffer shapes bucket across generations (§9.2)
         total_blocks = 1 << max(0, (max(blk, 1) - 1).bit_length())
         concat = np.full((total_blocks * block, 2), -1, np.int32)
-        if chunks:
-            cat = np.concatenate(chunks)
-            concat[: len(cat)] = cat
+        concat[dest] = events
         buf = torch.from_numpy(concat).to(self.device)
         self.uploads += 1
         self.upload_bytes += concat.nbytes

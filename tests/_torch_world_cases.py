@@ -115,7 +115,8 @@ def collectives_case(payload):
     out = {}
     for arch, shape in payload["cells"]:
         spec = get_reduced_spec(arch)
-        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32"))
+        if spec.model_cfg is not None:  # gat-cora's config follows its cell
+            spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(spec.model_cfg, dtype="float32"))
         cell = build_cell(spec, shape, make_smoke_mesh(), mesh)
         full = from_reference(payload["params"][arch], device="cpu")
         args = [full]
@@ -125,7 +126,7 @@ def collectives_case(payload):
         if cell.step == "decode":
             args += [{k: bat[k] for k in ("k", "v")}, bat["tokens"], bat["cache_len"]]
         else:
-            args.append(bat)
+            args.append({k: bat[k] for k in cell.abstract_args[-1]})
         local = [shard_tree(a, sanitize_specs(s, a, mesh), mesh) for a, s in zip(args, cell.in_specs)]
         _, cost = count_cost(cell.fn, *local)
         out[(arch, shape)] = dict(cost.collectives)
@@ -240,3 +241,82 @@ def train_and_serve_case(payload):
     """``lm_case`` of ``payload["train"]`` and ``serve_case`` of
     ``payload["serve"]`` in one world."""
     return {"train": lm_case(payload["train"]), "serve": serve_case(payload["serve"])}
+
+
+def _cell_spec(arch: str, shape: str, cut: dict | None):
+    """The reduced spec of ``arch``; ``cut``: the kwargs of a cell named
+    ``shape`` added to it (a train cell, as a GNN cut of a full cell)."""
+    from repro_torch.configs.common import ShapeCell
+
+    spec = get_reduced_spec(arch)
+    if cut:
+        spec = dataclasses.replace(spec, shapes={**spec.shapes, shape: ShapeCell(name=shape, step="train",
+                                                                                  kind="cut", kwargs=cut)})
+    return spec
+
+
+def family_case(payload):
+    """For each case ``{arch, shape, mesh, params, inputs, (cut)}``: the
+    recsys or GNN cell under a mesh of the world, on the named inputs
+    (numpy) cut by its ``in_specs``.  A train cell: the loss, the metrics
+    and the gathered gradients of ``value_and_grad`` on this rank's share
+    (summed over the data axes as the cell sums them), then one step of the
+    cell (its metrics and the gathered params); a score or retrieval cell:
+    its outputs gathered over the axes its rows split over.  With each, the
+    ``in_specs`` as tuples and the collective bytes the cost counter
+    charged this rank for the cell's call.  ``payload["save"]``: a
+    directory each world saves ``payload["state"]`` into, sharded under the
+    case ``payload["save_case"]``'s train specs."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.cost_analysis import count_cost
+    from repro_torch.models import gnn, recsys
+    from repro_torch.parallel.collectives import all_gather
+    from repro_torch.parallel.sharding import map_with_path
+
+    meshes: dict = {}
+    out = {}
+    for key, case in payload["cases"].items():
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_device_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+        mesh = meshes[shape]
+        spec = _cell_spec(case["arch"], case["shape"], case.get("cut"))
+        cfg = spec.cfg_for(case["shape"])
+        cell = build_cell(spec, case["shape"], make_smoke_mesh(), mesh)
+        p_specs, b_specs = cell.in_specs[0], cell.in_specs[-1]
+        params = shard_tree(from_reference(payload["params"][case["params"]], device="cpu"), p_specs, mesh)
+        bat = shard_tree({k: torch.from_numpy(np.asarray(v)) for k, v in payload["inputs"][case["inputs"]].items()},
+                         b_specs, mesh)
+        specs = []
+        for tree in cell.in_specs:
+            flat = {}
+            map_with_path(lambda path, s: flat.__setitem__(path, tuple(s)), tree)
+            specs.append(flat)
+        res = {"in_specs": specs}
+        if cell.step == "train":
+            if spec.family == "gnn":
+                n_graphs = spec.shapes[case["shape"]].kwargs.get("batch_graphs", 1)
+                shards = gnn.GATShards(mesh, b_specs["src"][0], b_specs["x"][0] == "data")
+                loss, metrics, grads = _value_and_grad(gnn.gat_loss, params, bat, cfg, n_graphs=n_graphs,
+                                                       shards=shards)
+            else:
+                with use_mesh(mesh):
+                    loss, metrics, grads = _value_and_grad(recsys.recsys_loss, params, bat, cfg,
+                                                           rows=b_specs[sorted(b_specs)[0]][0])
+                    grads = sync_grads(grads, p_specs, mesh)
+            res.update(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()},
+                       grads=_np(gather_tree(grads, p_specs, mesh)))
+            (new, _, m), cost = count_cost(cell.fn, params, adamw_init(params), bat)
+            res.update(step={k: float(v) for k, v in m.items()}, params=_np(gather_tree(new, p_specs, mesh)))
+        else:
+            scores, cost = count_cost(cell.fn, params, bat)
+            axes = (b_specs["cand_ids"] if "cand_ids" in b_specs else b_specs[sorted(b_specs)[0]])[0]
+            res["scores"] = (all_gather(scores, mesh, axes, 0) if axes else scores).numpy()
+        res["collectives"] = dict(cost.collectives)
+        out[key] = res
+        if key == payload.get("save_case"):
+            state = {"params": from_reference(payload["state"]["params"], device="cpu"),
+                     "opt": from_reference(payload["state"]["opt"], device="cpu")}
+            sp = {"params": p_specs, "opt": cell.in_specs[1]}
+            save_checkpoint(payload["save"], 1, shard_tree(state, sp, mesh), mesh=mesh, specs=sp)
+    return out

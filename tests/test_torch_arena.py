@@ -152,6 +152,40 @@ def test_acquire_uploads_equal_reference(corpora, name):
         assert res.lookup(key) == ref_res.lookup(key)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_family_uploads_equal_reference_on_edge_rows(seed):
+    """The upload's one sort a slot over the whole family against the
+    reference's key-by-key ``np.unique``: keys with no rows (first, last
+    and between), rows repeating a (doc, pos) event within a slot, events
+    shared by two slots, single-row keys, streams longer than a block and
+    a family with no key at all; buffers and extents equal."""
+    import types
+
+    from repro.index.builder import POSTING_WIDTH
+
+    rng = np.random.default_rng(seed)
+    views = {}
+    for fname in FAMILIES:
+        width = POSTING_WIDTH[fname]
+        mapping = {}
+        for i in range(int(rng.integers(0, 40))):
+            n = int(rng.choice([0, 1, 3, 150, 400]))
+            doc = np.sort(rng.integers(0, 6, n))
+            cols = [doc, rng.integers(0, 40, n)] + [rng.integers(-3, 4, n) for _ in range(width - 2)]
+            a = np.stack(cols, axis=1).astype(np.int32) if n else np.empty((0, width), np.int32)
+            if n > 2:
+                a[1] = a[0]  # a repeated event
+            mapping[tuple(f"k{i}_{j}" for j in range(width - 1))] = a
+        views[fname] = mapping
+    view = types.SimpleNamespace(**views)
+    ref, port = ref_arena.PostingArena(), arena.PostingArena(device="cpu")
+    for fname in FAMILIES:
+        want, got = ref._upload_family(view, fname), port._upload_family(view, fname)
+        np.testing.assert_array_equal(got.buf.numpy(), np.asarray(want.buf), err_msg=fname)
+        assert got.nbytes == want.nbytes and got.extents == want.extents, fname
+        assert all(type(v) is int for e in got.extents.values() for v in (e.n_rows, e.n_docs, e.max_doc))
+
+
 # ---------------------------------------------------------------------------
 # (b) descriptor plans, budgets and tier
 # ---------------------------------------------------------------------------

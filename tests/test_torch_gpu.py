@@ -664,6 +664,42 @@ def test_world_of_one_over_nccl_equals_no_mesh(cuda, tmp_path):
     assert res["(1, 1)"]["train_4k"]["equal"] and res["(1, 1)"]["serve_online"]["equal"], res
 
 
+def _family_world_case(payload):
+    """The reduced fm and gat-cora train steps on the card under a mesh of
+    this world, and without one on the same card: whether the new params,
+    AdamW state and metrics are equal, bit for bit (with deterministic
+    algorithms: the GNN's ``index_add`` sums in another order each run
+    otherwise)."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs import get_reduced_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_device_mesh(payload["mesh"], ("data", "model"), backend=payload["backend"], device="cuda")
+    out = {}
+    for arch, cell_name in (("fm", "train_batch"), ("gat-cora", "full_graph_sm")):
+        sp = get_reduced_spec(arch)
+        want = dryrun.run_cell(arch, cell_name, verbose=False, device=mesh.device, repeats=0, spec=sp,
+                               keep_outputs=True)
+        got = dryrun.run_cell(arch, cell_name, verbose=False, dmesh=mesh, repeats=0, spec=sp, keep_outputs=True)
+        assert want["status"] == "ok" and got["status"] == "ok", (want.get("traceback"), got.get("traceback"))
+        pairs = list(zip(tree_leaves(got["outputs"]), tree_leaves(want["outputs"])))
+        out[arch] = bool(pairs) and all(torch.equal(a, b) for a, b in pairs)
+    return out
+
+
+def test_world_of_one_over_nccl_runs_fm_and_gat_cora_as_no_mesh(cuda, tmp_path):
+    from _torch_worlds import run_world
+
+    (res,) = run_world(1, "test_torch_gpu:_family_world_case", {"backend": "nccl", "mesh": (1, 1)}, tmp_path,
+                       backend="nccl")
+    assert res == {"fm": True, "gat-cora": True}, res
+
+
 def test_world_of_two_on_card_equals_one_rank(cuda, tmp_path):
     from _torch_worlds import run_world
 

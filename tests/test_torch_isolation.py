@@ -11,8 +11,10 @@ recsys cell, a reduced GNN cell and a MoE FFN, samples a subgraph, counts a
 program's cost and the search lowerings', resolves every architecture
 id, and, on a one-rank gloo mesh, runs a sharded serve step and a reduced
 LM train step and plans an ``ElasticTopology``; in a gloo world of two
-ranks (each with both blocked) it runs the context-parallel decode cell
-and reads ``launch.mesh.MESH_AXES``."""
+ranks (each with both blocked) it runs the context-parallel decode cell,
+the sharded recsys (row-sharded tables, column-split MLP) and GNN (edge
+blocks) cells and the trainer with ``--mesh 1x2`` for fm and gat-cora, and
+reads ``launch.mesh.MESH_AXES``."""
 
 import os
 import re
@@ -38,9 +40,19 @@ mesh = make_device_mesh((1, 2), ("data", "model"), backend="gloo", device="cpu")
 dryrun.get_spec = get_reduced_spec
 rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", verbose=False, dmesh=mesh, repeats=1)
 assert rec["status"] == "ok", rec
+# the row-sharded recsys tables and the GNN's edge blocks under the mesh
+for arch, shape in (("fm", "train_batch"), ("dcn-v2", "serve_p99"), ("gat-cora", "full_graph_sm")):
+    other = dryrun.run_cell(arch, shape, verbose=False, dmesh=mesh, repeats=1)
+    assert other["status"] == "ok" and other["collective_total_per_device"] > 0, other
+# the trainer's --mesh for fm, then (a fresh process group: the trainer
+# tears its own down) for gat-cora
+from repro_torch.launch import train
+argv = ["--steps", "2", "--device", "cpu", "--mesh", "1x2", "--backend", "gloo"]
+train.main(["--arch", "fm", *argv])
+dist.init_process_group("gloo", init_method="file://" + sys.argv[1] + "-gnn", rank=int(sys.argv[2]), world_size=2)
+train.main(["--arch", "gat-cora", *argv])
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
-dist.destroy_process_group()
 print("decode", rec["device_mesh"], rec["status"], rec["input_shapes"][1]["k"][2])
 """
 
@@ -186,9 +198,13 @@ import subprocess
 rendezvous = tempfile.mkdtemp() + "/rendezvous"
 ranks = [subprocess.Popen([sys.executable, "-c", _RANK, rendezvous, str(r)], stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True) for r in range(2)]
-outs = [p.communicate(timeout=120) for p in ranks]
+outs = [p.communicate(timeout=180) for p in ranks]
 assert all(p.returncode == 0 for p in ranks), [err[-2000:] for _, err in outs]
-assert outs[0][0].split() == ["decode", "1x2", "ok", "128"], outs[0][0]
+lines = outs[0][0].splitlines()
+assert lines[-1].split() == ["decode", "1x2", "ok", "128"], outs[0][0]
+# rank 0 prints each trainer's lines, rank 1 nothing
+assert [ln.split()[:2] for ln in lines[:-1]] == [["step", "0"], ["step", "1"], ["done:", "2"]] * 2, lines
+assert outs[1][0].split() == ["decode", "1x2", "ok", "128"], outs[1][0]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m, mod in sys.modules.items() if mod is not None)
 print("served", sum(r.stats.results for r in resps))

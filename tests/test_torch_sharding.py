@@ -191,15 +191,21 @@ def _stand_in_world(shape):
     return DeviceMesh(shape, ("data", "model"), "gloo", torch.device("cpu"), 0, None)
 
 
-@pytest.mark.parametrize("arch,shape,mesh,item", [
-    ("dcn-v2", "train_batch", (2, 1), "recsys row-sharded tables"),
-    ("gat-cora", "molecule", (1, 2), "GNN edge and node sharding"),
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
+@pytest.mark.parametrize("arch,shape", [
+    ("dcn-v2", "train_batch"),
+    ("gat-cora", "molecule"),
+    ("fm", "retrieval_cand"),
+    ("gat-cora", "ogb_products"),
 ])
-def test_cells_whose_layout_is_not_ported_raise_naming_their_item(arch, shape, mesh, item):
-    """Under a world of more than one rank; a world of one builds them."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_cell(get_spec(arch), shape, make_production_mesh(), _stand_in_world(mesh))
-    assert build_cell(get_spec(arch), shape, make_production_mesh(), _stand_in_world((1, 1))).in_specs
+def test_recsys_and_gnn_cells_build_in_a_world_with_the_references_specs(arch, shape, mesh):
+    """Under a world of two (formerly refused as the "recsys row-sharded
+    tables" and "GNN edge and node sharding"), at full size: the cell builds
+    and its ``in_specs`` are the reference's cell's on a mesh of that
+    shape."""
+    cell = build_cell(get_spec(arch), shape, make_production_mesh(), _stand_in_world(mesh))
+    ref_mesh = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty(mesh, dtype=object))
+    assert _port_specs(cell.in_specs) == _ref_specs(ref_build_cell(ref_get_spec(arch), shape, ref_mesh).in_specs)
 
 
 @pytest.mark.parametrize("arch,shape,mesh", [
