@@ -5,10 +5,13 @@
     python3 chip_smoke.py --phases 12,13  # phases 1, 2, 12 and 13 only
     python3 chip_smoke.py --phases 14     # phases 1, 2 and 14 only
     python3 chip_smoke.py --phases 15     # phases 1, 2 and 15 (worlds of ranks) only
+    python3 chip_smoke.py --phases 16     # phases 1, 2 and 16: needs four cards
 
 Phases, each printed with its seconds (``--phases`` selects some of them:
 phases 1 and 2 always run, and phases 3-10 run together or not at all; the
-last line is the same either way):
+default is phases 1-15, on one card; phase 16 runs only when selected, and
+the run then exits non-zero, naming the count, where fewer than four cards
+are visible; the last line is the same either way):
 
 1. the device: name, count, and ``nvidia-smi``'s name and power limit;
 2. the kernel build: every ``src/repro_torch/kernels/csrc/*.cu``, one
@@ -261,6 +264,39 @@ last line is the same either way):
    kernel launches go into the kernels line by path (none on the recsys
    and GNN paths).
 
+16. the multi-device half over NCCL, one rank on each of four cards (ranks
+   that share a card run gloo, as in phase 15; here none does): each card's
+   ``nvidia-smi`` name and power limit, ``nvidia-smi topo -m`` and NCCL's
+   version; every cell's unsharded step first, on card 0, its outputs kept
+   on the host; then ``python -m torch.distributed.run --nproc-per-node 4
+   chip_smoke.py --quad-worker`` starts a world of four over NCCL (each
+   rank names its ``torch.cuda.current_device()``: four distinct cards
+   required), running (a) ``serve_online`` and ``serve_bulk`` under 1x4
+   and 2x2 (64 shards and one cover launch a rank a call, the lists
+   all-gathered) with every integer equal to the one-program fold, and
+   ``device_topk_merge`` over the four ranks equal to one card's merge;
+   (b) tinyllama's train_4k and prefill_32k at 4 of 22 layers under 4x1,
+   4x1 with FSDP, 2x2 and 1x4, each rank at one production data rank's
+   share (16 x 4,096 and 2 x 32,768: ``world_lm_spec`` with the global
+   batch scaled by the world's data size), held to the unsharded step on
+   the world's batch within 2e-2; (c) decode_32k and long_500k[swa]
+   context-parallel over 1x4 at all 22 layers, as 15e at QUAD_DECODE's
+   cache lengths (the four slices' boundaries), the float32 holds and
+   witness at 22 layers for both; (d) one olmoe MoE layer's ``local``
+   dispatch over model = 4 (16 of 64 experts a rank) against ``_moe_sort``,
+   its drops equal to one card's sort dispatch, and
+   ``compressed_grad_allreduce`` over pod = 4 against the plain sum of
+   every rank's int8 values and scales; (e) fm and autoint (1x4, their
+   998,960-row tables a quarter a rank), dcn-v2 (1x4) and mind (4x1, its
+   whole 65,536-row batch) and (f) ``gat-cora``'s four cells under 1x4 and
+   2x2, ogb_products whole, each held as 15g-h hold theirs.  Per rank: wall
+   ms, peak MiB, the counted collective bytes, and the largest collective's
+   time and bus bandwidth in the call and replayed alone, against NVLink's
+   450 GB/s, beside phase 15's gloo figure for the cell.  Then the
+   trainer's command line in a world of four (``--mesh 2x2``, its default
+   backend, a checkpoint at its last step), resumed in a world of one over
+   NCCL: the next step's loss equal to an unsharded run's within 2e-2.
+
 It exits non-zero on the first failure (no phase catches its own), and when
 no CUDA device is present.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
@@ -269,6 +305,7 @@ one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import gc
@@ -635,7 +672,8 @@ CHILD_THREADS = 4
 CHILD_NICE = 10
 SEARCH_PHASES = set(range(3, 11))
 CHILD_PHASES = (12, 13, 14, 15)
-ALL_PHASES = set(range(1, 16))
+ALL_PHASES = set(range(1, 16))  # the default run: one card
+KNOWN_PHASES = ALL_PHASES | {16}  # 16 only when asked for: four cards
 # phase 15: the multi-device half in worlds of ranks on the one card.  NCCL
 # refuses two ranks of one communicator on one device ("Duplicate GPU
 # detected"), so worlds of two and three run gloo on the card's tensors; a
@@ -711,6 +749,53 @@ FAMILY_CUTS = {("gat-cora", "ogb_products"): {"n_nodes": 1_836_772, "n_edges": 4
 # one AdamW step, each |got - want| <= atol + rtol |want|
 FAMILY_FWD = {"rtol": 1e-4, "atol": 1e-5}
 FAMILY_STEP = {"rtol": 1e-3, "atol": 1e-6}
+
+# phase 16 (``--phases 16`` only: it needs four cards): the multi-device half
+# over NCCL in a world of four ranks, one on each card, each card's own
+# memory, so nothing is cut to let two ranks share one card.  The LM cells
+# run one production data rank's share a rank (train_4k 16 x 4,096,
+# prefill_32k 2 x 32,768: the world's batch is the share times the world's
+# data size) at phase 11's 4 of 22 layers, the unsharded step on the world's
+# batch in microbatches of the ranks' size (8 rows); decode at all 22 layers
+# with the float32 holds and witness at 22 for both cells (a rank's
+# long_500k[swa] float32 step, its whole cache and the unsharded step's copy
+# of it take about 63 GB of the card); the recsys and GNN cells at full size
+# (mind's 65,536 rows, ogb_products whole).
+QUAD = 4
+QUAD_BACKEND = "nccl"
+QUAD_DEVICE = "cuda"
+QUAD_TIMEOUT_S = 300  # the world's process group: how long a rank waits for a peer that failed
+QUAD_SERVE_MESHES = ((1, 4), (2, 2))
+QUAD_MERGE = (16, TOP_K)  # device_topk_merge: 16 per-shard top-10 lists, 4 a rank
+QUAD_LM_MESHES = (((4, 1), False), ((4, 1), True), ((2, 2), False), ((1, 4), False))
+QUAD_LM_SHARE = {"train_4k": 16, "prefill_32k": 2}  # global_batch / 16 data ranks: 256 / 16, 32 / 16
+# (16c) the four slices of 1x4: 0, mid-slice, the last row of rank 0's slice,
+# the first of ranks 1, 2 and 3, a window across the first boundary, S - 1
+QUAD_DECODE = {"decode_32k": (4, (0, 4096, 8191, 8192, 16384, 24576, 32767)),
+               "long_500k[swa]": (1, (0, 131071, 131072, 133119, 262144, 393216, 524287))}
+QUAD_DECODE_HOLDS = {shape: (("float32", 22, 1e-4), ("bfloat16", 2, 2e-2), ("bfloat16", 22, 5e-2))
+                     for shape in QUAD_DECODE}
+QUAD_DECODE_EXACT = {(shape, "bfloat16", 22) for shape in QUAD_DECODE}
+QUAD_RECSYS = (("fm", "train_batch", (1, 4)), ("fm", "retrieval_cand", (1, 4)),
+               ("autoint", "train_batch", (1, 4)), ("autoint", "retrieval_cand", (1, 4)),
+               ("dcn-v2", "train_batch", (1, 4)), ("mind", "train_batch", (4, 1)))
+QUAD_GNN = tuple(("gat-cora", shape, mesh) for shape in ("full_graph_sm", "minibatch_lg", "molecule", "ogb_products")
+                 for mesh in ((1, 4), (2, 2)))
+QUAD_CLI_MESH, QUAD_CLI_STEPS = "2x2", 2  # 16b: the trainer's command line, checkpointing its last step
+NVLINK_GB_S = 450.0  # an H100 SXM's NVLink, each way
+# phase 15's figures for the same cells (gloo, two ranks on one card; PERF.md
+# §5, on an NVIDIA H100 80GB HBM3 at 700 W), printed beside phase 16's
+PHASE15_GLOO = {
+    "serve_online": "1x2: 3.8-13.4 ms a rank", "serve_bulk": "1x2: 15.4-25.7 ms a rank",
+    "train_4k": "1x2, 2 layers, 4 rows: 1,111.9-1,254.6 ms; 2x1 FSDP 2,299.2-2,780.0 ms",
+    "prefill_32k": "1x2, 2 layers: 5,772.9-6,978.7 ms; 2x1 FSDP 3,649.7-3,739.5 ms",
+    "decode_32k": "1x2, 22 layers, 4 rows: 277.5-411.6 ms", "long_500k[swa]": "1x2, 22 layers: 285.3-509.6 ms",
+    "compress": "pod = 2: 782.2-1,141.0 ms",
+    "fm train_batch": "1x2: 479.8-532.2 ms", "fm retrieval_cand": "1x2: 1,938.9-2,586.9 ms",
+    "autoint train_batch": "1x2: 411.6-535.8 ms", "autoint retrieval_cand": "1x2: 4,050.6-5,867.4 ms",
+    "dcn-v2 train_batch": "1x2: 1,689.5-2,331.6 ms", "mind train_batch": "2x1: 2,040.0-2,040.1 ms (65,536 rows)",
+    "gat-cora full_graph_sm": "1x2: 38.9-60.0 ms", "gat-cora minibatch_lg": "1x2: 659.4-837.9 ms; 2x1 607.1-942.7 ms",
+    "gat-cora molecule": "2x1: 28.0-38.0 ms", "gat-cora ogb_products": "1x2: 15,011-15,097 ms (whole)"}
 
 
 def topk_agree(label: str, docs, scores, want_docs, want_scores) -> None:
@@ -1693,17 +1778,18 @@ def cost_phase(torch, dev, zero_counts, read_counts) -> dict:
 
 
 def world_lm_spec(shape: str, *, dtype: str | None = None, fsdp: bool = False, layers: int = WORLD_LM_LAYERS,
-                  rows: int | None = None):
-    """tinyllama's spec cut for phase 15: ``layers`` layers, and the cell's
-    global batch set so that one production data rank's share (the batch a
-    world runs) is ``rows`` rows (default ``WORLD_LM_ROWS``')."""
+                  rows: int | None = None, spec=None):
+    """tinyllama's spec (or ``spec``) cut for phases 15 and 16: ``layers``
+    layers, and the cell's global batch set so that one production data
+    rank's share (the batch a world runs) is ``rows`` rows (default
+    ``WORLD_LM_ROWS``')."""
     import dataclasses
 
     from repro_torch.configs import get_spec
     from repro_torch.launch.dryrun import data_share
     from repro_torch.launch.mesh import make_production_mesh
 
-    spec = get_spec(LM_ARCH)
+    spec = spec or get_spec(LM_ARCH)
     cfg = dataclasses.replace(spec.model_cfg, n_layers=layers, fsdp=fsdp, dtype=dtype or spec.model_cfg.dtype)
     cell = spec.shapes[shape]
     _, n_data = data_share(1, make_production_mesh())
@@ -1782,8 +1868,8 @@ def decode_holds(torch, dev, mesh, shape: str, rows: int, lens, rel, *, dtype: s
                       "row_rel": max(rel(got_row[k], want[k][:, :, row + off]) for k in "kv") if owns else None})
         del want
         if exact:
-            with torch.no_grad():
-                logits32, _ = transformer.decode_step(to32(params), to32(cache), tokens, n, cfg)
+            with torch.no_grad():  # the float32 step's new cache (23.6 GB for long_500k[swa]) not kept
+                logits32 = transformer.decode_step(to32(params), to32(cache), tokens, n, cfg)[0]
             holds[-1].update(exact_rel=rel(logits, logits32), exact_want_rel=rel(want_logits, logits32))
             del logits32
             gc.collect()
@@ -2071,10 +2157,11 @@ def decode_holds_check(label: str, per_rank: list, owners: int, bound: float) ->
                     f"{label} cache_len {n}: the sharded step farther from float32 than the unsharded one + 2e-2")
 
 
-def world_start(procs: list, argv: list[str], out: Path | None = None):
+def world_start(procs: list, argv: list[str], env: dict | None = None):
     """``python -m torch.distributed.run --standalone --nproc-per-node N
-    <argv>`` (the world's processes import torch and the port only)."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "4"}
+    <argv>`` (the world's processes import torch and the port only), with
+    ``env`` added to the environment."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "4", **(env or {})}
     proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", *argv], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     procs.append(proc)
@@ -2084,7 +2171,10 @@ def world_start(procs: list, argv: list[str], out: Path | None = None):
 def world_finish(started, label: str, timeout: float = 600) -> str:
     proc, t_start = started
     out, err = proc.communicate(timeout=timeout)
-    require(proc.returncode == 0, f"{label} exited {proc.returncode}: {out[-2000:]}\n{err[-4000:]}")
+    # a failed rank's own traceback comes before the launcher's report of it
+    first = err.find("Traceback (most recent call last)")
+    require(proc.returncode == 0, f"{label} exited {proc.returncode}: {out[-3000:]}\n"
+                                  f"{err[first:first + 6000] if first >= 0 else ''}\n...\n{err[-1500:]}")
     print(f"{label}: {time.perf_counter() - t_start:.1f} s (process wall)")
     return out
 
@@ -2284,15 +2374,16 @@ def family_file(work: Path, arch: str, shape: str) -> Path:
     return work / f"unsharded_{arch}_{shape}.pt"
 
 
-def family_spec(arch: str):
-    """The full spec of ``arch``, its cells cut as FAMILY_CUTS says."""
+def family_spec(arch: str, cuts: dict | None = None):
+    """The full spec of ``arch``, its cells cut as ``cuts`` (default
+    FAMILY_CUTS) says."""
     import dataclasses
 
     from repro_torch.configs import get_spec
 
     spec = get_spec(arch)
     shapes = dict(spec.shapes)
-    for (a, shape), kwargs in FAMILY_CUTS.items():
+    for (a, shape), kwargs in (FAMILY_CUTS if cuts is None else cuts).items():
         if a == arch:
             shapes[shape] = dataclasses.replace(shapes[shape], kwargs={**shapes[shape].kwargs, **kwargs})
     return dataclasses.replace(spec, shapes=shapes)
@@ -2314,13 +2405,60 @@ def family_within(got, want, tol: dict) -> dict:
     return {"max_abs": worst, "beyond": beyond}
 
 
+def family_cells(torch, dev, work: Path, cells, meshes: dict, cuts: dict | None = None, spy: bool = False) -> dict:
+    """One rank of a world: each (arch, shape, mesh) of ``cells`` at full
+    width under ``meshes[mesh]``, against the unsharded step's outputs that
+    ``family_unsharded`` saved in ``work`` (this rank's slices of them):
+    loss (and accuracy), the new params or the scores, with wall ms, peak
+    MiB and the counted collectives a rank; with ``spy``, also the largest
+    collective's time and bus bandwidth (``CollectiveSpy``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel.sharding import P, shard_tree
+
+    res = {}
+    for arch, shape, mesh_shape in cells:
+        mesh = meshes[mesh_shape]
+        spec = family_spec(arch, cuts)
+        cell = build_cell(spec, shape, make_production_mesh(), mesh)
+        want = torch.load(family_file(work, arch, shape), mmap=True, weights_only=False)
+        torch.cuda.synchronize(dev)
+        with CollectiveSpy(torch, dev) if spy else contextlib.nullcontext() as seen:
+            rec = dryrun.run_cell(arch, shape, verbose=False, dmesh=mesh, keep_outputs=True, spec=spec,
+                                  repeats=0 if (arch, shape) in FAMILY_ONE_CALL else 1)
+        require(rec["status"] == "ok", f"rank {mesh.rank} {arch} {shape} {mesh}: {rec.get('error')}\n"
+                                       f"{rec.get('traceback')}")
+        out = rec.pop("outputs")
+        e = {"mesh": str(mesh), "wall_ms": rec["wall_ms"] or [rec["first_call_s"] * 1e3],
+             "counted_call_only": not rec["wall_ms"], "first_call_s": rec["first_call_s"],
+             "peak_mib": rec["peak_bytes"] / 2**20, "collectives": rec["collective_bytes_per_device"],
+             "inputs": rec["input_shapes"][-1]}
+        if spy:
+            e["peak_mib_rank"] = torch.cuda.max_memory_allocated(dev) / 2**20
+            e["largest"] = seen.largest()
+        if cell.step == "train":
+            new, _, metrics = out
+            e["metrics"] = {k: float(v) for k, v in metrics.items()}
+            e["metrics_want"] = want["metrics"]
+            e["metrics_fwd"] = {k: abs(e["metrics"][k] - w) <= FAMILY_FWD["atol"] + FAMILY_FWD["rtol"] * abs(w)
+                                for k, w in want["metrics"].items()}
+            e["params"] = family_within(new, shard_tree(want["params"], cell.in_specs[0], mesh), FAMILY_STEP)
+        else:
+            cand = cell.in_specs[1]["cand_ids"]
+            e["scores"] = family_within(out, shard_tree({"s": want["scores"]}, {"s": P(*cand)}, mesh)["s"],
+                                        FAMILY_FWD)
+        res[f"{arch} {shape} {mesh}"] = e
+        del out, want, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def family_worker(out_dir: str) -> int:
     """One rank of phase 15's second world of two (``--family-worker DIR``):
     (g) the recsys cells of FAMILY_RECSYS and (h) the GNN cells of
-    FAMILY_GNN at full size under their meshes, each against the unsharded
-    step's outputs that the card child saved in DIR (this rank's slices of
-    them): loss (and accuracy), the new params or the scores, with wall ms,
-    peak MiB and the counted collectives a rank.  Writes
+    FAMILY_GNN at full size under their meshes (``family_cells``).  Writes
     ``DIR/family_rank<r>.json``."""
     import torch
 
@@ -2328,10 +2466,7 @@ def family_worker(out_dir: str) -> int:
     from repro_torch.kernels.gather import gather_blocks
     from repro_torch.kernels.intersect import intersect_sorted
     from repro_torch.kernels.proximity import proximity_window
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_device_mesh, make_production_mesh
-    from repro_torch.launch.steps import build_cell
-    from repro_torch.parallel.sharding import P, shard_tree
+    from repro_torch.launch.mesh import make_device_mesh
 
     work = Path(out_dir)
     meshes = {(1, 2): make_device_mesh((1, 2), ("data", "model"), backend=WORLD_BACKEND, device="cuda"),
@@ -2344,36 +2479,7 @@ def family_worker(out_dir: str) -> int:
         t = time.perf_counter()
         for fn in counted.values():
             fn.launches = 0
-        for arch, shape, mesh_shape in cells:
-            mesh = meshes[mesh_shape]
-            spec = family_spec(arch)
-            cell = build_cell(spec, shape, make_production_mesh(), mesh)
-            want = torch.load(family_file(work, arch, shape), mmap=True, weights_only=False)
-            torch.cuda.synchronize(dev)
-            rec = dryrun.run_cell(arch, shape, verbose=False, dmesh=mesh, keep_outputs=True, spec=spec,
-                                  repeats=0 if (arch, shape) in FAMILY_ONE_CALL else 1)
-            require(rec["status"] == "ok", f"rank {rank} {arch} {shape} {mesh}: {rec.get('error')}\n"
-                                           f"{rec.get('traceback')}")
-            out = rec.pop("outputs")
-            e = {"mesh": str(mesh), "wall_ms": rec["wall_ms"] or [rec["first_call_s"] * 1e3],
-                 "counted_call_only": not rec["wall_ms"], "first_call_s": rec["first_call_s"],
-                 "peak_mib": rec["peak_bytes"] / 2**20, "collectives": rec["collective_bytes_per_device"],
-                 "inputs": rec["input_shapes"][-1]}
-            if cell.step == "train":
-                new, _, metrics = out
-                e["metrics"] = {k: float(v) for k, v in metrics.items()}
-                e["metrics_want"] = want["metrics"]
-                e["metrics_fwd"] = {k: abs(e["metrics"][k] - w) <= FAMILY_FWD["atol"] + FAMILY_FWD["rtol"] * abs(w)
-                                    for k, w in want["metrics"].items()}
-                e["params"] = family_within(new, shard_tree(want["params"], cell.in_specs[0], mesh), FAMILY_STEP)
-            else:
-                cand = cell.in_specs[1]["cand_ids"]
-                e["scores"] = family_within(out, shard_tree({"s": want["scores"]}, {"s": P(*cand)}, mesh)["s"],
-                                            FAMILY_FWD)
-            res["cells"][f"{arch} {shape} {mesh}"] = e
-            del out, want, rec
-            gc.collect()
-            torch.cuda.empty_cache()
+        res["cells"].update(family_cells(torch, dev, work, cells, meshes))
         res["launches"][f"world of two, {label} {'recsys' if label == '15g' else 'GNN'} cells, rank {rank}"] = {
             kname: fn.launches for kname, fn in counted.items()}
         res["s"][label] = time.perf_counter() - t
@@ -2385,36 +2491,45 @@ def family_worker(out_dir: str) -> int:
     return 0
 
 
+def family_unsharded(torch, dev, work: Path, cells, cuts: dict | None = None) -> dict:
+    """The unsharded step of each (arch, shape) of ``cells`` on ``dev``
+    (cut as ``family_spec(arch, cuts)``), its new params and metrics (or its
+    scores) saved to ``work`` on the host; their wall ms and peak MiB."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_map
+
+    summary = {}
+    for arch, shape in dict.fromkeys((a, s) for a, s, _ in cells):
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = (arch, shape) in FAMILY_ONE_CALL
+        rec = dryrun.run_cell(arch, shape, verbose=False, device=dev, repeats=0 if one else 1, keep_outputs=True,
+                              spec=family_spec(arch, cuts))
+        require(rec["status"] == "ok", f"{arch} {shape} unsharded: {rec.get('error')}\n{rec.get('traceback')}")
+        out = rec.pop("outputs")
+        if isinstance(out, tuple):  # a train step: (params, optimizer state, metrics)
+            out = {"params": tree_map(lambda x: x.cpu(), out[0]), "metrics": {k: float(v) for k, v in out[2].items()}}
+        else:
+            out = {"scores": out.cpu()}
+        torch.save(out, family_file(work, arch, shape))
+        summary[f"{arch} {shape}"] = {
+            "wall_ms": rec["wall_ms"] or [rec["first_call_s"] * 1e3], "peak_mib": rec["peak_bytes"] / 2**20}
+        del out, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def family_world_phase(torch, dev, path_launches: dict) -> dict:
     """Phase 15g and 15h (see the module docstring): the unsharded steps on
     the card, their outputs to the host, then the world of two; returns
     the summary, its worlds' launch counts added to ``path_launches``."""
-    from repro_torch.launch import dryrun
-    from repro_torch.tree import tree_map
-
     t = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_family_"))
     procs: list = []
     summary: dict = {"unsharded": {}}
     try:
-        for arch, shape in dict.fromkeys((a, s) for a, s, _ in FAMILY_RECSYS + FAMILY_GNN):
-            gc.collect()
-            torch.cuda.empty_cache()
-            one = (arch, shape) in FAMILY_ONE_CALL
-            rec = dryrun.run_cell(arch, shape, verbose=False, device=dev, repeats=0 if one else 1, keep_outputs=True,
-                                  spec=family_spec(arch))
-            require(rec["status"] == "ok", f"{arch} {shape} unsharded: {rec.get('error')}\n{rec.get('traceback')}")
-            out = rec.pop("outputs")
-            if isinstance(out, tuple):  # a train step: (params, optimizer state, metrics)
-                out = {"params": tree_map(lambda x: x.cpu(), out[0]), "metrics": {k: float(v) for k, v in out[2].items()}}
-            else:
-                out = {"scores": out.cpu()}
-            torch.save(out, family_file(work, arch, shape))
-            summary["unsharded"][f"{arch} {shape}"] = {
-                "wall_ms": rec["wall_ms"] or [rec["first_call_s"] * 1e3], "peak_mib": rec["peak_bytes"] / 2**20}
-            del out, rec
-        gc.collect()
-        torch.cuda.empty_cache()
+        summary["unsharded"] = family_unsharded(torch, dev, work, FAMILY_RECSYS + FAMILY_GNN)
         t = phase("recsys and GNN unsharded steps at full size, their outputs to the host (15g, 15h)", t)
         world = world_start(procs, ["--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--family-worker",
                                     str(work)])
@@ -2444,6 +2559,666 @@ def family_world_phase(torch, dev, path_launches: dict) -> dict:
         summary["cells"] = {k: [r["cells"][k] for r in ranks] for k in ranks[0]["cells"]}
         summary["worker_s"] = [r["s"] for r in ranks]
         phase("world of two: recsys (15g) and GNN (15h) cells at full size == unsharded", t)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
+class CollectiveSpy:
+    """Within the ``with``: every all-reduce, all-gather and reduce-scatter
+    that ``torch.distributed`` runs (the port's collectives call them through
+    the module), each with its bytes (the whole tensor: an all-gather's
+    output, a reduce-scatter's input), group and CUDA events around it.
+    ``largest()`` (every rank of the world calls it) times the largest of
+    them in the calls, and again alone after a barrier, as bus bandwidth."""
+
+    NAMES = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+             "reduce_scatter_tensor": "reduce-scatter"}
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.calls, self._orig = torch, dev, [], {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        for name in self.NAMES:
+            self._orig[name] = getattr(dist, name)
+            setattr(dist, name, self._wrap(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch.distributed as dist
+
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+
+    def _timed(self, fn):
+        torch = self.torch
+        if self.dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            return ev
+        t = time.perf_counter()
+        fn()
+        return (t, time.perf_counter())
+
+    @staticmethod
+    def _elapsed(ev) -> float:
+        if isinstance(ev[0], float):
+            return (ev[1] - ev[0]) * 1e3
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1])
+
+    def _wrap(self, name, fn):
+        import torch.distributed as dist
+
+        def call(*args, **kwargs):
+            whole = args[1] if name == "reduce_scatter_tensor" else args[0]
+            out = []
+            ev = self._timed(lambda: out.append(fn(*args, **kwargs)))
+            self.calls.append({"name": name, "shape": tuple(whole.shape), "dtype": whole.dtype,
+                               "bytes": whole.numel() * whole.element_size(), "group": kwargs.get("group"),
+                               "ranks": dist.get_world_size(kwargs.get("group")), "op": kwargs.get("op"),
+                               "events": ev})
+            return out[0]
+
+        return call
+
+    def largest(self, replays: int = 3) -> dict | None:
+        """The largest collective (the first of the largest): its kind, ranks,
+        bytes, least time in the calls, and that time replayed alone
+        (``replays`` times after a warm-up and a barrier), each as bus
+        bandwidth (nccl-tests' ``busbw``: bytes / time times 2(n-1)/n for an
+        all-reduce, (n-1)/n for a gather or scatter)."""
+        import torch.distributed as dist
+
+        torch = self.torch
+        if not self.calls:
+            return None
+        big = max(self.calls, key=lambda c: c["bytes"])
+        same = [c for c in self.calls if (c["name"], c["shape"], c["dtype"], c["ranks"]) ==
+                (big["name"], big["shape"], big["dtype"], big["ranks"])]
+        in_call = min(self._elapsed(c["events"]) for c in same)
+        n, fn = big["ranks"], self._orig[big["name"]]
+        whole = torch.zeros(big["shape"], dtype=big["dtype"], device=self.dev)
+        part = torch.zeros((big["shape"][0] // n, *big["shape"][1:]), dtype=big["dtype"], device=self.dev)
+        kw = {"group": big["group"]} | ({"op": big["op"]} if big["op"] is not None else {})
+        args = {"all_reduce": (whole,), "all_gather_into_tensor": (whole, part),
+                "reduce_scatter_tensor": (part, whole)}[big["name"]]
+        dist.barrier()
+        fn(*args, **kw)
+        alone = min(self._elapsed(self._timed(lambda: fn(*args, **kw))) for _ in range(replays))
+        del whole, part
+        factor = (2 if big["name"] == "all_reduce" else 1) * (n - 1) / n
+
+        def busbw(ms: float) -> float:
+            return big["bytes"] / (ms * 1e-3) * factor / 1e9 if ms > 0 else float("inf")
+
+        return {"kind": self.NAMES[big["name"]], "ranks": n, "bytes": big["bytes"], "dtype": str(big["dtype"]),
+                "calls": len(same), "in_call_ms": in_call, "in_call_busbw_gb_s": busbw(in_call),
+                "alone_ms": alone, "alone_busbw_gb_s": busbw(alone)}
+
+
+def largest_line(e: dict | None) -> str:
+    """``CollectiveSpy.largest()``'s entry as one line, against NVLink."""
+    if not e:
+        return "no collective"
+    return (f"largest collective {e['kind']} of {e['bytes']:,} B over {e['ranks']} ranks ({e['calls']} in the calls): "
+            f"{e['in_call_ms']:.3f} ms in the call = {e['in_call_busbw_gb_s']:.1f} GB/s bus, alone "
+            f"{e['alone_ms']:.3f} ms = {e['alone_busbw_gb_s']:.1f} GB/s bus "
+            f"({e['alone_busbw_gb_s'] / NVLINK_GB_S:.1%} of NVLink's {NVLINK_GB_S:.0f} GB/s each way)")
+
+
+def quad_lm_spec(shape: str, rows: int, *, fsdp: bool = False, unsharded: bool = False):
+    """tinyllama's spec for 16b: phase 11's layers (LM_CELL_LAYERS) and a
+    world batch of ``rows`` rows (``world_lm_spec``).  ``unsharded``: the
+    train cell in microbatches of a rank's size (one data rank's share in
+    the config's microbatches), so the step on the world's whole batch fits
+    one card as a rank's share does."""
+    import dataclasses
+
+    spec = world_lm_spec(shape, fsdp=fsdp, layers=LM_CELL_LAYERS[shape], rows=rows)
+    if unsharded and spec.shapes[shape].step == "train":
+        micro = max(1, spec.model_cfg.microbatches)
+        spec = dataclasses.replace(spec, model_cfg=dataclasses.replace(
+            spec.model_cfg, microbatches=micro * rows // QUAD_LM_SHARE[shape]))
+    return spec
+
+
+def quad_lm_rows() -> dict:
+    """16b's world batches: each cell's rows for each data size of
+    QUAD_LM_MESHES (one production data rank's share a data rank)."""
+    return {shape: sorted({share * m[0] for m, _ in QUAD_LM_MESHES}) for shape, share in QUAD_LM_SHARE.items()}
+
+
+def quad_lm_file(work: Path, shape: str, rows: int) -> Path:
+    return work / f"lm_{shape}_{rows}.pt"
+
+
+def quad_worker(out_dir: str) -> int:
+    """One rank of phase 16's world of four (``python -m
+    torch.distributed.run --nproc-per-node 4 chip_smoke.py --quad-worker
+    DIR``), one rank a card over NCCL: (16a) the serve cells under 1x4 and
+    2x2 and ``device_topk_merge``, (16b) tinyllama's train_4k and
+    prefill_32k under QUAD_LM_MESHES, (16c) decode context-parallel over
+    1x4 at 22 layers, (16d) one olmoe MoE layer over model = 4 and the int8
+    gradient all-reduce over pod = 4, (16e) the recsys and (16f) the GNN
+    cells at full size; each against the unsharded outputs phase 16 saved
+    in DIR on one card (or, in 16c and 16d, this rank's own unsharded run).
+    Writes ``DIR/quad_rank<r>.json``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels.gather import gather_blocks
+    from repro_torch.kernels.intersect import intersect_sorted
+    from repro_torch.kernels.proximity import proximity_window
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh, make_production_mesh, use_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim import compressed_grad_allreduce
+    from repro_torch.parallel.sharding import P, gather_tree, shard_tree
+    from repro_torch.search import device_topk_merge
+    from repro_torch.tree import tree_leaves, tree_map
+
+    work = Path(out_dir)
+    if QUAD_DEVICE == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group(QUAD_BACKEND, timeout=datetime.timedelta(seconds=QUAD_TIMEOUT_S))
+    meshes = {shape: make_device_mesh(shape, ("data", "model"), backend=QUAD_BACKEND, device=QUAD_DEVICE)
+              for shape in ((1, 4), (2, 2), (4, 1))}
+    rank, dev = dist.get_rank(), meshes[(1, 4)].device
+    res: dict = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+                 "current_device": torch.cuda.current_device(), "launches": {}, "s": {}, "memory": {}}
+
+    def note(label: str) -> None:
+        """This rank's card memory at ``label``: free and total (as
+        ``cudaMemGetInfo`` reports them), PyTorch's reserved bytes, and what
+        neither holds (the CUDA context, NCCL's communicators and buffers)."""
+        free, total = torch.cuda.mem_get_info(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        res["memory"][label] = {"free": free, "total": total, "reserved": reserved,
+                                "other": total - free - reserved}
+        print(f"rank {rank} {label}: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, PyTorch reserves "
+              f"{reserved / 2**30:.2f}, other {(total - free - reserved) / 2**30:.2f}", flush=True)
+
+    # what one communicator costs the card: the default group's (all four
+    # ranks) and a pair's, each at its first collective
+    note("16 start")
+    dist.barrier()
+    note("16 after the world's communicator")
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one, group=meshes[(2, 2)].group("model"))
+    note("16 after a pair's communicator")
+    counted = {"proximity_window": proximity_window, "intersect_sorted": intersect_sorted,
+               "gather_blocks": gather_blocks}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(path):
+        res["launches"][path] = {kname: fn.launches for kname, fn in counted.items()}
+        return res["launches"][path]
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / max(float(want.float().norm()), 1e-30))
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def run(arch, shape, mesh, **kwargs):
+        """``run_cell`` under ``mesh`` with the collective spy: the record,
+        the first call's outputs, and the entry phase 16 prints."""
+        fresh()
+        with CollectiveSpy(torch, dev) as spy:
+            rec = dryrun.run_cell(arch, shape, verbose=False, dmesh=mesh, keep_outputs=True, **kwargs)
+        require(rec["status"] == "ok", f"rank {rank} {arch} {shape} {mesh}: {rec.get('error')}\n{rec.get('traceback')}")
+        out = rec.pop("outputs")
+        return rec, out, {"mesh": str(mesh), "wall_ms": rec["wall_ms"], "first_call_s": rec["first_call_s"],
+                          "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+                          "collectives": rec["collective_bytes_per_device"], "largest": spy.largest(),
+                          "inputs": rec["input_shapes"]}
+
+    # ---- (16a) the document-sharded serve cells and the top-k merge ----
+    t = time.perf_counter()
+    note("16a")
+    res["serve"] = {}
+    for mshape in QUAD_SERVE_MESHES:
+        mesh = meshes[mshape]
+        for shape in WORLD_SERVE:
+            zero_counts()
+            rec, out, e = run("paper_search", shape, mesh)
+            launches = read_counts(f"world {mesh} paper_search {shape} (phase 16a), rank {rank}")["proximity_window"]
+            out = {k: v.cpu() for k, v in out.items()}
+            want = torch.load(work / f"fold_{shape}.pt")
+            e.update(calls=rec["calls"], cover_launches=launches,
+                     ints_equal=all(torch.equal(out[k], want[k]) for k in ("top_docs", "n_fragments")),
+                     scores_equal=torch.equal(out["top_scores"], want["top_scores"]),
+                     scores_close=torch.allclose(out["top_scores"], want["top_scores"], rtol=SCORE_RTOL, atol=0))
+            res["serve"][f"{shape} {mesh}"] = e
+    n_lists, k = QUAD_MERGE
+    gen = torch.Generator().manual_seed(16)
+    # a few score values, so equal scores meet across ranks; ids all distinct
+    scores = (torch.randint(0, 6, (n_lists, k), generator=gen).float() / 4).sort(dim=1, descending=True).values
+    docs = torch.randperm(n_lists * k, generator=gen).reshape(n_lists, k)
+    want_s, want_d = device_topk_merge(scores.to(dev), docs.to(dev), k)
+    res["merge"] = {}
+    for mshape in QUAD_SERVE_MESHES:
+        mesh, per = meshes[mshape], n_lists // QUAD
+        mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        got_s, got_d = device_topk_merge(scores[mine].to(dev), docs[mine].to(dev), k, mesh=mesh)
+        res["merge"][str(mesh)] = {"equal": torch.equal(got_s, want_s) and torch.equal(got_d, want_d),
+                                   "top": got_s.tolist(), "ties": int((want_s[1:] == want_s[:-1]).sum())}
+    res["s"]["16a"] = time.perf_counter() - t
+
+    # ---- (16b) the LM cells at one data rank's share a rank ----
+    t = time.perf_counter()
+    note("16b")
+    layout = make_production_mesh()
+    res["lm"] = {}
+    zero_counts()
+    for mshape, fsdp in QUAD_LM_MESHES:
+        mesh = meshes[mshape]
+        for shape in QUAD_LM_SHARE:
+            rows = QUAD_LM_SHARE[shape] * mesh.axis_size("data")
+            spec = quad_lm_spec(shape, rows, fsdp=fsdp)
+            note(f"16b {shape} {mesh}{' fsdp' if fsdp else ''}")
+            rec, got, e = run(LM_ARCH, shape, mesh, repeats=1, spec=spec)
+            want = torch.load(quad_lm_file(work, shape, rows), mmap=True, weights_only=False)
+            e.update(world_rows=rows, rows_a_rank=rec["input_shapes"][-1]["tokens"][0])
+            if shape == "train_4k":
+                cell = build_cell(spec, shape, layout, mesh)
+                params = gather_tree(got[0], cell.in_specs[0], mesh)
+                e["params_rel"] = max(rel(a, b.to(dev)) for a, b in zip(tree_leaves(params), tree_leaves(want["params"])))
+                e["metrics"] = {k: float(v) for k, v in got[2].items()}
+                e["metrics_want"] = want["metrics"]
+                e["metrics_rel"] = max(abs(e["metrics"][k] - w) / max(abs(w), 1e-30) for k, w in want["metrics"].items())
+                del params
+            else:
+                logits, cache = got
+                b0 = mesh.coord("data") * logits.shape[0]
+                e["logits_rel"] = rel(logits, want["logits"][b0:b0 + logits.shape[0]].to(dev))
+                e["cache_rel"] = max(rel(cache[c], want["cache"][c][:, b0:b0 + logits.shape[0]].to(dev)) for c in "kv")
+            res["lm"][f"{shape} {mesh}{' fsdp' if fsdp else ''}"] = e
+            del got, want
+    read_counts(f"world of four LM cells (phase 16b), rank {rank}")
+    res["s"]["16b"] = time.perf_counter() - t
+
+    # ---- (16c) context-parallel decode over 1x4 at all 22 layers ----
+    t = time.perf_counter()
+    zero_counts()
+    res["decode"] = {}
+    mesh = meshes[(1, 4)]
+    for shape, (rows, lens) in QUAD_DECODE.items():
+        fresh()
+        note(f"16c {shape}")
+        with CollectiveSpy(torch, dev) as spy:
+            e = decode_record(torch, dev, mesh, shape, rows)
+        e["largest"] = spy.largest()
+        e["holds"] = {}
+        for dtype, layers, _ in QUAD_DECODE_HOLDS[shape]:
+            note(f"16c {shape} {dtype} {layers}")
+            torch.cuda.reset_peak_memory_stats(dev)
+            e["holds"][f"{dtype} {layers}"] = decode_holds(torch, dev, mesh, shape, rows, lens, rel, dtype=dtype,
+                                                           layers=layers,
+                                                           exact=(shape, dtype, layers) in QUAD_DECODE_EXACT)
+            e.setdefault("peak_mib_holds", {})[f"{dtype} {layers}"] = torch.cuda.max_memory_allocated(dev) / 2**20
+        res["decode"][shape] = e
+    read_counts(f"world of four context-parallel decode (phase 16c), rank {rank}")
+    res["s"]["16c"] = time.perf_counter() - t
+
+    # ---- (16d) one olmoe MoE layer over model = 4, the int8 all-reduce ----
+    t = time.perf_counter()
+    note("16d")
+    zero_counts()
+    mesh = meshes[(1, 4)]
+    mspec = get_spec(MOE_ARCH)
+    mcfg, d_model = mspec.model_cfg.moe, mspec.model_cfg.d_model
+    res["moe"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        full = tree_map(lambda a: a.to(dev), moe.init_moe_params(gen, d_model, mcfg, dtype))
+        # a direction every token shares skews the routing, so the config's
+        # capacity drops pairs
+        x = torch.randn((1, WORLD_MOE_TOKENS, d_model), generator=gen.manual_seed(8))
+        x = (x + 2.0 * torch.randn((d_model,), generator=gen)).to(dev, dtype)
+        local = shard_tree(full, {"router": P(), "w_gate": P("model"), "w_up": P("model"), "w_down": P("model")},
+                           mesh)
+        nodrop = dataclasses.replace(mcfg, capacity_factor=MOE_NO_DROP, dispatch="local")
+        want_y, want_aux = moe._moe_sort(x.reshape(-1, d_model), full, nodrop)
+        # the pairs one card's sort dispatch drops: each expert's queue, in
+        # token order, is the same whichever rank holds the expert
+        want_drop = moe.dropped_slots(x, full, dataclasses.replace(mcfg, dispatch="sort"))
+        fresh()
+        with use_mesh(mesh), CollectiveSpy(torch, dev) as spy:
+            y, aux = moe.moe_ffn(x, local, nodrop)
+            dropped = moe.dropped_slots(x, local, dataclasses.replace(mcfg, dispatch="local"))
+            y_cap, _ = moe.moe_ffn(x, local, dataclasses.replace(mcfg, dispatch="local"))
+        res["moe"][str(dtype).replace("torch.", "")] = {
+            "y_rel": rel(y.reshape(want_y.shape), want_y), "aux": float(aux), "aux_want": float(want_aux),
+            "dropped": int(dropped.sum()), "dropped_equal_sort": bool(torch.equal(dropped, want_drop)),
+            "y_cap_finite": bool(torch.isfinite(y_cap).all()), "experts_a_rank": local["w_gate"].shape[0],
+            "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20, "largest": spy.largest()}
+        del full, local, x, y, y_cap, want_y
+    read_counts(f"world of four olmoe MoE layer (phase 16d), rank {rank}")
+    # the int8 all-reduce over pod = 4, on tinyllama's 2-layer gradient
+    # tree: every rank draws every rank's gradients and residuals (a seed a
+    # (rank, leaf)) and sums their int8 values and scales itself
+    mpod = make_device_mesh((QUAD, 1, 1), ("pod", "data", "model"), backend=QUAD_BACKEND, device=QUAD_DEVICE)
+    shapes = tree_leaves(transformer.param_shapes(dataclasses.replace(get_spec(LM_ARCH).model_cfg,
+                                                                      n_layers=WORLD_COMPRESS_LAYERS)))
+
+    def draw(r: int, i: int):
+        g = torch.Generator(device=dev).manual_seed(100_000 * r + i)
+        shape = tuple(shapes[i].shape)
+        return (torch.randn(shape, generator=g, device=dev) * 1e-3, torch.randn(shape, generator=g, device=dev) * 1e-5)
+
+    mine = [draw(rank, i) for i in range(len(shapes))]
+    fresh()
+    with CollectiveSpy(torch, dev) as spy:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out, err = compressed_grad_allreduce([g for g, _ in mine], [e for _, e in mine], mpod, "pod")
+        end.record()
+        end.synchronize()
+    ms = start.elapsed_time(end)
+    worst, bits, err_equal = 0.0, 0, True
+    for i, (o, e_new) in enumerate(zip(out, err)):
+        qs, scales = [], []
+        for r in range(QUAD):
+            g, e_old = mine[i] if r == rank else draw(r, i)
+            xr = g.float() + e_old
+            s = torch.clamp(xr.abs().max(), min=1e-12) / 127.0
+            q = torch.clamp(torch.round(xr / s), -127, 127)
+            qs.append(q.to(torch.int32))
+            scales.append(s)
+            if r == rank:
+                err_equal &= torch.equal(e_new, xr - q * s)
+        total = sum(scales[1:], scales[0])
+        want = (sum(qs[1:], qs[0]).float() * (total / QUAD) / QUAD).to(o.dtype)
+        worst = max(worst, float(((o - want).abs() / want.abs().clamp_min(1e-30)).max()))
+        bits += int((o != want).sum())
+    res["compress"] = {"leaves": len(shapes), "elements": sum(s.numel() for s in shapes), "ms": ms,
+                       "out_rel_max": worst, "out_bits_differ": bits, "err_equal": bool(err_equal),
+                       "largest": spy.largest()}
+    del mine, out, err
+    res["s"]["16d"] = time.perf_counter() - t
+
+    # ---- (16e) recsys and (16f) GNN cells at full size ----
+    for label, cells in (("16e", QUAD_RECSYS), ("16f", QUAD_GNN)):
+        t = time.perf_counter()
+        note(label)
+        zero_counts()
+        res[label] = family_cells(torch, dev, work, cells, meshes, cuts={}, spy=True)
+        read_counts(f"world of four {'recsys' if label == '16e' else 'GNN'} cells (phase {label}), rank {rank}")
+        res["s"][label] = time.perf_counter() - t
+    (work / f"quad_rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# (16b): the trainer's checkpoint from its world of four, resumed in a world
+# of one rank over NCCL for one more step, against the same step of an
+# unsharded run from the seed (the reduced config, as the trainer runs it
+# without --full-scale): each prints its loss
+QUAD_RESUME = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.configs import get_reduced_spec
+from repro_torch.data.pipeline import LMTokenPipeline, PipelineState
+from repro_torch.launch.mesh import make_device_mesh, make_smoke_mesh
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import transformer
+from repro_torch.optim import adamw_init
+from repro_torch.parallel.sharding import P
+from repro_torch.tree import tree_map
+ckpt, steps, rendezvous, backend, device = sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6]
+spec = get_reduced_spec("tinyllama-1.1b")
+cfg, kw = spec.model_cfg, spec.shapes["train_4k"].kwargs
+def fresh():
+    params = transformer.init_params(0, cfg, device=device)
+    return params, adamw_init(params), LMTokenPipeline(cfg.vocab, kw["seq_len"], kw["global_batch"], seed=0)
+def step(cell, params, opt, pipe):
+    return cell.fn(params, opt, {k: torch.from_numpy(v).to(device) for k, v in pipe.next_batch().items()})
+params, opt, pipe = fresh()
+cell = build_cell(spec, "train_4k", make_smoke_mesh())
+for _ in range(steps + 1):
+    params, opt, m = step(cell, params, opt, pipe)
+print("unsharded step", int(opt["step"]), "loss", float(m["loss"]), flush=True)
+dist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=0, world_size=1)
+mesh = make_device_mesh((1, 1), ("data", "model"), backend=backend, device=device)
+cell = build_cell(spec, "train_4k", make_smoke_mesh(), mesh)
+params, opt, pipe = fresh()
+template = {"params": params, "opt": opt, "pipe": pipe.state.as_tree()}
+specs = {"params": cell.in_specs[0], "opt": cell.in_specs[1], "pipe": tree_map(lambda _: P(), template["pipe"])}
+state, at = restore_checkpoint(ckpt, template, device=device, mesh=mesh, specs=specs)
+pipe.state = PipelineState.from_tree(state["pipe"])
+params, opt, m = step(cell, state["params"], state["opt"], pipe)
+print("resumed from step", at, "step", int(opt["step"]), "loss", float(m["loss"]), "backend", dist.get_backend(),
+      flush=True)
+dist.destroy_process_group()
+"""
+
+
+def quad_phase(torch, dev, path_launches: dict) -> dict:
+    """Phase 16 (see the module docstring): the cards, their links and NCCL;
+    the unsharded steps on one card, their outputs to the host; the world of
+    four; the trainer's command line in a world of four and its checkpoint
+    resumed in a world of one.  Returns the summary, the world's launch
+    counts added to ``path_launches``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_map
+
+    t = time.perf_counter()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+    topo = topo.stdout if topo.returncode == 0 else f"(exit {topo.returncode}) {topo.stdout}{topo.stderr}"
+    nccl = torch.cuda.nccl.version() if QUAD_DEVICE == "cuda" else "not used"
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    for line in cards:
+        print(f"16 card {line}")
+    print("16 nvidia-smi topo -m:\n" + topo.rstrip())
+    print(f"16 NCCL {nccl}; torch {torch.__version__}, {torch.cuda.device_count()} cards visible")
+    summary: dict = {"cards": cards, "nccl": nccl, "unsharded": {}}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_quad_"))
+    procs: list = []
+    try:
+        # ---- the unsharded steps, on this card, their outputs to the host ----
+        for shape in WORLD_SERVE:
+            rec = dryrun.run_cell("paper_search", shape, verbose=False, device=dev, keep_outputs=True)
+            require(rec["status"] == "ok", f"{shape}: {rec.get('error')}")
+            torch.save({k: v.cpu() for k, v in rec.pop("outputs").items()}, work / f"fold_{shape}.pt")
+            summary["unsharded"][shape] = {"wall_ms": rec["wall_ms"], "peak_mib": rec["peak_bytes"] / 2**20}
+        for shape, all_rows in quad_lm_rows().items():
+            for rows in all_rows:
+                gc.collect()
+                torch.cuda.empty_cache()
+                rec = dryrun.run_cell(LM_ARCH, shape, verbose=False, device=dev, repeats=0, keep_outputs=True,
+                                      spec=quad_lm_spec(shape, rows, unsharded=True))
+                require(rec["status"] == "ok", f"{shape} {rows} rows unsharded: {rec.get('error')}\n"
+                                               f"{rec.get('traceback')}")
+                out = rec.pop("outputs")
+                if shape == "train_4k":
+                    out = {"params": tree_map(lambda x: x.cpu(), out[0]),
+                           "metrics": {k: float(v) for k, v in out[2].items()}}
+                else:
+                    out = {"logits": out[0].cpu(), "cache": {k: v.cpu() for k, v in out[1].items()}}
+                torch.save(out, quad_lm_file(work, shape, rows))
+                summary["unsharded"][f"{shape} {rows} rows"] = {"wall_ms": [rec["first_call_s"] * 1e3],
+                                                                "peak_mib": rec["peak_bytes"] / 2**20}
+                del out, rec
+        summary["unsharded"].update(family_unsharded(torch, dev, work, QUAD_RECSYS + QUAD_GNN, cuts={}))
+        for key, e in summary["unsharded"].items():
+            print(f"16 unsharded {key} on one card: wall {[round(x, 3) for x in e['wall_ms']]} ms, peak "
+                  f"{e['peak_mib']:.1f} MiB")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = phase("the unsharded steps on one card, their outputs to the host (16)", t)
+
+        # ---- the world of four ----
+        world = world_start(procs, ["--nproc-per-node", str(QUAD), str(ROOT / "chip_smoke.py"), "--quad-worker",
+                                    str(work)], env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        world_finish(world, f"world of four ({QUAD_BACKEND}, one rank a card, chip_smoke.py --quad-worker)",
+                     timeout=900)
+        ranks = [json.loads((work / f"quad_rank{r}.json").read_text()) for r in range(QUAD)]
+        for r in ranks:
+            mem = r["memory"]
+            world_comm = mem["16 after the world's communicator"]["other"] - mem["16 start"]["other"]
+            pair_comm = mem["16 after a pair's communicator"]["other"] - mem["16 after the world's communicator"]["other"]
+            print(f"16 rank {r['rank']}: card memory outside PyTorch's pool (GiB) at each step "
+                  + json.dumps({k: round(v["other"] / 2**30, 2) for k, v in mem.items()})
+                  + f"; a communicator of four ranks {world_comm / 2**20:.0f} MiB, of two {pair_comm / 2**20:.0f} MiB")
+        summary["memory"] = [r["memory"] for r in ranks]
+        for r in ranks:
+            print(f"16 rank {r['rank']}: backend {r['backend']}, device {r['device']}, "
+                  f"torch.cuda.current_device() {r['current_device']}, seconds {json.dumps(r['s'])}")
+        require(all(r["backend"] == QUAD_BACKEND for r in ranks), "a rank of the world of four ran no NCCL")
+        require(sorted(r["current_device"] for r in ranks) == list(range(QUAD)),
+                f"the world of four's ranks are not on four cards: {[r['current_device'] for r in ranks]}")
+        summary["ranks"] = [{k: r[k] for k in ("rank", "backend", "device", "current_device", "s")} for r in ranks]
+        for r in ranks:
+            path_launches.update(r["launches"])
+            for path, counts in r["launches"].items():
+                if "16a" not in path:
+                    require(all(v == 0 for v in counts.values()), f"{path} launched a search kernel: {counts}")
+
+        def line(label, r, e, gloo_key):
+            wall = [round(x, 3) for x in e["wall_ms"]] if e.get("wall_ms") else "none timed"
+            print(f"{label} rank {r['rank']} (card {r['current_device']}): wall {wall} ms, first call "
+                  f"{e.get('first_call_s')} s, peak {e['peak_mib']:.1f} MiB, collectives "
+                  f"{json.dumps(e['collectives'])} B; {largest_line(e.get('largest'))}; phase 15 (gloo): "
+                  f"{PHASE15_GLOO.get(gloo_key, 'none')}")
+
+        # ---- (16a) ----
+        for key in ranks[0]["serve"]:
+            shape = key.split()[0]
+            for r in ranks:
+                e = r["serve"][key]
+                line(f"16a {key}", r, e, shape)
+                require(e["cover_launches"] == e["calls"], f"16a {key} rank {r['rank']}: {e['cover_launches']} cover "
+                                                           f"launches in {e['calls']} calls")
+                require(e["ints_equal"] and e["scores_close"], f"16a {key} rank {r['rank']}: != the one-program fold")
+            print(f"16a {key}: {ranks[0]['serve'][key]['inputs'][0][0]} shards a rank; top_docs and n_fragments == "
+                  f"the one-program fold on every rank, top_scores bit-equal: "
+                  f"{[r['serve'][key]['scores_equal'] for r in ranks]}")
+        for mesh in ranks[0]["merge"]:
+            print(f"16a device_topk_merge over {mesh} ({QUAD_MERGE[0]} lists of {QUAD_MERGE[1]}, "
+                  f"{ranks[0]['merge'][mesh]['ties']} ties in the top): == one card's merge on every rank: "
+                  f"{[r['merge'][mesh]['equal'] for r in ranks]}")
+            require(all(r["merge"][mesh]["equal"] for r in ranks), f"16a device_topk_merge over {mesh}")
+        # ---- (16b) ----
+        for key in ranks[0]["lm"]:
+            shape = key.split()[0]
+            for r in ranks:
+                e = r["lm"][key]
+                line(f"16b {key} ({e['rows_a_rank']} of {e['world_rows']} rows a rank)", r, e, shape)
+                require(e["rows_a_rank"] == QUAD_LM_SHARE[shape], f"16b {key}: {e['rows_a_rank']} rows a rank")
+                if shape == "train_4k":
+                    print(f"16b {key} rank {r['rank']}: metrics {e['metrics']} vs unsharded {e['metrics_want']} (rel "
+                          f"{e['metrics_rel']:.2e}), params rel {e['params_rel']:.2e}")
+                    require(e["metrics_rel"] <= LM_BF16_REL and e["params_rel"] <= LM_BF16_REL,
+                            f"16b {key}: beyond 2e-2")
+                else:
+                    print(f"16b {key} rank {r['rank']}: logits rel {e['logits_rel']:.2e}, cache rel {e['cache_rel']:.2e}")
+                    require(e["logits_rel"] <= LM_BF16_REL and e["cache_rel"] <= LM_BF16_REL, f"16b {key}: beyond 2e-2")
+        # ---- (16c) ----
+        for shape in QUAD_DECODE:
+            for r in ranks:
+                e = r["decode"][shape]
+                line(f"16c {shape} (1x4, all layers, cache slice {e['cache_local']})", r, e, shape)
+                print(f"16c {shape} rank {r['rank']}: peak MiB of each hold's steps "
+                      + json.dumps({k: round(v, 1) for k, v in e["peak_mib_holds"].items()}))
+            for dtype, layers, bound in QUAD_DECODE_HOLDS[shape]:
+                decode_holds_check(f"16c {shape} {dtype} at {layers} layers (bound {bound:g})",
+                                   [r["decode"][shape]["holds"][f"{dtype} {layers}"] for r in ranks], 1, bound)
+        # ---- (16d) ----
+        for r in ranks:
+            for name, e in r["moe"].items():
+                tol = 1e-5 if name == "float32" else LM_BF16_REL
+                print(f"16d olmoe layer {name} rank {r['rank']}: local (1x4, {e['experts_a_rank']} experts a rank) vs "
+                      f"sort, no drops: y rel {e['y_rel']:.2e}, aux {e['aux']:.6f} vs {e['aux_want']:.6f}; at the "
+                      f"config's capacity {e['dropped']} pairs dropped, == one card's sort dispatch: "
+                      f"{e['dropped_equal_sort']}; peak {e['peak_mib']:.1f} MiB; {largest_line(e['largest'])}")
+                require(e["y_rel"] <= tol and e["dropped_equal_sort"] and e["y_cap_finite"], f"16d {name} rank {r['rank']}")
+                require(abs(e["aux"] - e["aux_want"]) <= 1e-4 * abs(e["aux_want"]), f"16d {name}: aux")
+            c = r["compress"]
+            print(f"16d compressed_grad_allreduce rank {r['rank']} (pod = {QUAD}): {c['leaves']} leaves, "
+                  f"{c['elements']:,} elements, {c['ms']:.1f} ms; output vs the plain sum of every rank's int8 "
+                  f"values and scales: max rel {c['out_rel_max']:.2e} ({c['out_bits_differ']} elements differ in "
+                  f"bits), residual equal {c['err_equal']}; {largest_line(c['largest'])}; phase 15 (gloo): "
+                  f"{PHASE15_GLOO['compress']}")
+            require(c["err_equal"] and c["out_rel_max"] <= 1e-6, f"16d rank {r['rank']}: compressed all-reduce")
+        # ---- (16e), (16f) ----
+        for label, cells in (("16e", QUAD_RECSYS), ("16f", QUAD_GNN)):
+            for arch, shape, mesh in cells:
+                key = f"{arch} {shape} {mesh[0]}x{mesh[1]}"
+                want = summary["unsharded"][f"{arch} {shape}"]
+                for r in ranks:
+                    e = r[label][key]
+                    held = e.get("metrics_fwd", {})
+                    close = e.get("params", e.get("scores"))
+                    line(f"{label} {key}{' (the counted call)' if e['counted_call_only'] else ''}", r,
+                         {**e, "peak_mib": e["peak_mib_rank"]}, f"{arch} {shape}")
+                    print(f"{label} {key} rank {r['rank']}: unsharded {[round(x, 3) for x in want['wall_ms']]} ms, "
+                          f"{want['peak_mib']:.1f} MiB; " + (f"metrics {e['metrics']} vs {e['metrics_want']}; "
+                                                              if held else "")
+                          + f"{'params after the step' if 'params' in e else 'scores'}: max abs "
+                            f"{close['max_abs']:.3e}, {close['beyond']} beyond tolerance")
+                    require(all(held.values()) and close["beyond"] == 0,
+                            f"{label} {key} rank {r['rank']}: beyond the float32 tolerances")
+        summary["world"] = {k: [r[k] for r in ranks] for k in ("serve", "merge", "lm", "decode", "moe", "compress",
+                                                                 "16e", "16f")}
+        t = phase("world of four over NCCL: serving, LM, decode, MoE, compression, recsys, GNN (16a-f)", t)
+
+        # ---- (16b) the trainer's command line in a world of four, resumed ----
+        ckpt = work / "ckpt"
+        cli = world_start(procs, ["--nproc-per-node", str(QUAD), "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                                  "--mesh", QUAD_CLI_MESH, "--steps", str(QUAD_CLI_STEPS), "--ckpt-every",
+                                  str(QUAD_CLI_STEPS), "--ckpt-dir", str(ckpt)])
+        cli_out = world_finish(cli, f"python -m torch.distributed.run --nproc-per-node {QUAD} -m "
+                                    f"repro_torch.launch.train --mesh {QUAD_CLI_MESH} (its default backend)")
+        steps = [ln for ln in cli_out.splitlines() if ln.startswith(("step", "done"))]
+        print("  " + " | ".join(steps))
+        require([ln.split()[:2] for ln in steps] == [["step", "0"], ["step", "1"], ["done:", str(QUAD_CLI_STEPS)]],
+                f"the trainer printed {steps}")
+        t_run = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", QUAD_RESUME, str(ROOT / "src"), str(ckpt), str(QUAD_CLI_STEPS),
+                                 str(work / "rendezvous"), QUAD_BACKEND, QUAD_DEVICE], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        out, err = proc.communicate(timeout=300)
+        require(proc.returncode == 0, f"the resume check exited {proc.returncode}: {err[-3000:]}")
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        print("  " + " | ".join(lines) + f" ({time.perf_counter() - t_run:.1f} s)")
+        want_loss = float(next(ln for ln in lines if ln.startswith("unsharded")).split()[-1])
+        got = next(ln for ln in lines if ln.startswith("resumed")).split()
+        got_loss = float(got[got.index("loss") + 1])
+        require(got[3] == str(QUAD_CLI_STEPS) and got[got.index("backend") + 1] == QUAD_BACKEND, f"resumed {got}")
+        require(abs(got_loss - want_loss) <= LM_BF16_REL * max(1.0, abs(want_loss)),
+                f"16b the resumed step's loss {got_loss} != the unsharded run's {want_loss}")
+        summary["cli"] = {"lines": steps, "resume": lines}
+        phase("the trainer's command line in a world of four, its checkpoint resumed in a world of one (16b)", t)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -2563,8 +3338,8 @@ def parse_phases(text: str) -> set[int]:
     for part in text.split(","):
         lo, _, hi = part.partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    if not phases <= ALL_PHASES:
-        raise argparse.ArgumentTypeError(f"phases are 1-15, not {sorted(phases - ALL_PHASES)}")
+    if not phases <= KNOWN_PHASES:
+        raise argparse.ArgumentTypeError(f"phases are 1-16, not {sorted(phases - KNOWN_PHASES)}")
     return phases | (SEARCH_PHASES if phases & SEARCH_PHASES else set())
 
 
@@ -2575,6 +3350,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--world-worker", default=None, help=argparse.SUPPRESS)  # one rank of phase 15's world
     ap.add_argument("--world3-worker", default=None, help=argparse.SUPPRESS)  # one rank of 15f's world of three
     ap.add_argument("--family-worker", default=None, help=argparse.SUPPRESS)  # one rank of 15g-h's world of two
+    ap.add_argument("--quad-worker", default=None, help=argparse.SUPPRESS)  # one rank of phase 16's world of four
     parsed = ap.parse_args(argv)
     if parsed.world_worker is not None:
         return world_worker(parsed.world_worker)
@@ -2582,6 +3358,8 @@ def main(argv: list[str] | None = None) -> int:
         return family_worker(parsed.family_worker)
     if parsed.world3_worker is not None:
         return world3_worker(parsed.world3_worker)
+    if parsed.quad_worker is not None:
+        return quad_worker(parsed.quad_worker)
     phases = parsed.phases
     procs: list = []  # every process the run starts beside its phases
     try:
@@ -2599,6 +3377,10 @@ def _main(procs: list, phases: set[int]) -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if 16 in phases and torch.cuda.device_count() < QUAD:
+        print(f"chip_smoke: phase 16 needs {QUAD} cards, one rank on each; this machine shows "
+              f"{torch.cuda.device_count()}; nothing was run", file=sys.stderr)
         return 1
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -3973,6 +4755,13 @@ def _main(procs: list, phases: set[int]) -> int:
     if card is not None:
         path_launches.update(card.pop("launches_by_path"))
         print("moe, recsys and gnn phases: " + json.dumps(card))
+
+    # ---- 16. the multi-device half over NCCL on four cards --------------------------
+    if 16 in phases:
+        t0 = time.perf_counter()
+        quad = quad_phase(torch, dev, path_launches)
+        print("phase 16: " + json.dumps(quad))
+        t0 = phase("phase 16, whole", t0)
 
     for entry in kernels:
         by_path = {path: counts[entry["name"]] for path, counts in path_launches.items()}

@@ -162,7 +162,10 @@ def make_device_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], *, bac
             lists = _subgroups(shape, keep)
             mine = None
             for ranks in lists:  # every rank creates every group, in order
-                g = dist.new_group(ranks)
+                # a group of the whole world is the default group, whichever
+                # mesh and axes name it: one NCCL communicator (and its
+                # buffers on the card) instead of one for each
+                g = dist.group.WORLD if ranks == list(range(world)) else dist.new_group(ranks)
                 if dist.get_rank() in ranks:
                     mine = g
             groups[tuple(axis_names[d] for d in keep)] = mine

@@ -56,7 +56,57 @@ def lm_case(payload):
             res["steps"].append({k: float(v) for k, v in m.items()})
         res["params"] = _np(gather_tree(params, p_specs, mesh))
         res["opt_step"] = int(opt["step"])
+        res["in_specs"] = _flat_specs(cell.in_specs)
         out[key] = res
+    return out
+
+
+def _flat_specs(in_specs) -> list:
+    """A cell's ``in_specs``: per argument, a dict of path -> spec tuple."""
+    from repro_torch.parallel.sharding import map_with_path
+
+    specs = []
+    for tree in in_specs:
+        flat = {}
+        map_with_path(lambda path, s: flat.__setitem__(path, tuple(s)), tree)
+        specs.append(flat)
+    return specs
+
+
+def share_case(payload):
+    """The reduced tinyllama's train_4k cell through ``run_cell`` under each
+    mesh of the payload, with the smoke's scaled-share spec (``chip_smoke.
+    world_lm_spec``: ``payload["rows"]`` rows a data rank, the cell's global
+    batch scaled by the mesh's data size), and without a mesh on the same
+    spec: the whole batch ``run_cell`` drew, this rank's rows of it, and the
+    metrics of both steps."""
+    import chip_smoke
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for shape in payload["meshes"]:
+        mesh = make_device_mesh(shape, ("data", "model"), backend="gloo", device="cpu")
+        base = get_reduced_spec("tinyllama-1.1b")
+        base = dataclasses.replace(base, model_cfg=dataclasses.replace(base.model_cfg, dtype="float32"))
+        spec = chip_smoke.world_lm_spec("train_4k", rows=payload["rows"] * mesh.axis_size("data"),
+                                        layers=base.model_cfg.n_layers, spec=base)
+        drawn, cut = [], []
+        cell_inputs, shard = dryrun.cell_inputs, dryrun.shard_tree
+        dryrun.cell_inputs = lambda *a, **k: drawn.append(cell_inputs(*a, **k)) or drawn[-1]
+        dryrun.shard_tree = lambda *a, **k: cut.append(shard(*a, **k)) or cut[-1]
+        try:
+            got = dryrun.run_cell("tinyllama-1.1b", "train_4k", verbose=False, device="cpu", dmesh=mesh, repeats=0,
+                                  spec=spec, keep_outputs=True)
+        finally:
+            dryrun.cell_inputs, dryrun.shard_tree = cell_inputs, shard
+        want = dryrun.run_cell("tinyllama-1.1b", "train_4k", verbose=False, device="cpu", repeats=0, spec=spec,
+                               keep_outputs=True)
+        assert got["status"] == "ok" and want["status"] == "ok", (got.get("traceback"), want.get("traceback"))
+        out[shape] = {"global_tokens": drawn[0][2]["tokens"].numpy(), "tokens": cut[-1]["tokens"].numpy(),
+                      "metrics": {k: float(v) for k, v in got["outputs"][2].items()},
+                      "metrics_unsharded": {k: float(v) for k, v in want["outputs"][2].items()},
+                      "in_specs": _flat_specs(build_cell(spec, "train_4k", dryrun.make_production_mesh(),
+                                                         mesh).in_specs)}
     return out
 
 

@@ -108,6 +108,7 @@ from repro.launch.steps import build_cell
 from repro.parallel.sharding import _path_str
 res = {}
 for mesh_shape, arch, cell, changes in json.loads(%r):
+    key = json.dumps([mesh_shape, arch, cell, changes])
     n = int(np.prod(mesh_shape))
     mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"), devices=jax.devices()[:n])
     spec = get_reduced_spec(arch)
@@ -119,7 +120,7 @@ for mesh_shape, arch, cell, changes in json.loads(%r):
     for tree in build_cell(spec, cell, mesh).in_specs:
         leaves, _ = jax.tree_util.tree_flatten_with_path(tree, is_leaf=lambda x: isinstance(x, P) or x is None)
         flat.append({_path_str(p): list(s) for p, s in leaves})
-    res[json.dumps([mesh_shape, arch, cell, json.loads(json.dumps(changes, default=str))])] = flat
+    res[key] = flat
 np.savez(OUT, specs=np.array(json.dumps(res)))
 """
 

@@ -5,8 +5,11 @@ the cost counter charges against ``analyze_hlo``'s for the reduced cells
 (train, prefill and the two context-parallel decode cells).
 
 Meshes ``2x2`` (data x tensor/expert parallelism), ``2x2`` with ``fsdp``,
-and ``1x4`` (tinyllama's 2 kv heads do not split 4 ways: ``wk`` and ``wv``
-are replicated and each rank takes the kv head of its q heads).  The
+``1x4`` (tinyllama's 2 kv heads do not split 4 ways: ``wk`` and ``wv``
+are replicated and each rank takes the kv head of its q heads), and ``4x1``
+with and without ``fsdp`` (a row of the batch a rank; each layer gathered
+over four data ranks), each cell's ``in_specs`` the reference's on a
+forced host mesh of four devices.  The
 variants: tinyllama, olmoe with a shared expert (its FFN column- and
 row-split over ``model``), and llama4-maverick (dense and MoE sublayers
 interleaved); MoE experts split over ``model`` (gathered for the
@@ -21,10 +24,10 @@ import numpy as np
 import pytest
 
 from _lm_compare import ref_cfg, ref_params
-from _torch_worlds import run_reference, run_world
+from _torch_worlds import reference_in_specs, run_reference, run_world, spec_key
 from test_torch_tensor_parallel import check, run_cases
 
-MESHES = [((2, 2), False), ((2, 2), True), ((1, 4), False)]
+MESHES = [((2, 2), False), ((2, 2), True), ((1, 4), False), ((4, 1), False), ((4, 1), True)]
 SHARED = {"moe": {"n_experts": 8, "top_k": 2, "d_ff": 64, "n_shared_experts": 1, "capacity_factor": 1.25,
                   "dispatch": "einsum"}}
 VARIANTS = {"tinyllama-1.1b": ("tinyllama-1.1b", {}), "olmoe-shared": ("olmoe-1b-7b", SHARED),
@@ -83,6 +86,27 @@ def lm(tmp_path_factory):
 def test_sharded_train_step_on_four_ranks_equals_the_unsharded_reference(lm, variant, mesh):
     ref, cases, params_of, ranks = lm
     check(ref, params_of, ranks, f"{variant} {mesh}")
+
+
+@pytest.fixture(scope="module")
+def lm_specs(tmp_path_factory):
+    """The reference's train cell's ``in_specs`` for each (variant, mesh) on a
+    forced host mesh of four devices."""
+    cells = [(shape, arch, "train_4k", {**changes, "fsdp": fsdp}) for arch, changes in VARIANTS.values()
+             for shape, fsdp in MESHES]
+    return reference_in_specs(cells, 4, tmp_path_factory.mktemp("specs"))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("mesh", [f"{s[0]}x{s[1]}{' fsdp' if f else ''}" for s, f in MESHES])
+def test_train_in_specs_on_four_ranks_equal_the_reference_forced_mesh(lm, lm_specs, variant, mesh):
+    """Every rank's train cell shards params, optimizer state and batch as
+    the reference's cell does on a forced host mesh of the same shape."""
+    _, cases, _, ranks = lm
+    arch, shape, fsdp, changes = cases[f"{variant} {mesh}"]
+    want = lm_specs[spec_key(shape, arch, "train_4k", {**changes, "fsdp": fsdp})]
+    for r in ranks:
+        assert [{k: list(v) for k, v in t.items()} for t in r[f"{variant} {mesh}"]["in_specs"]] == want
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,9 @@ unsharded run: edges over the flattened ``(data, model)`` axes, nodes over
 ``gat-cora``'s two reduced cells (``full_graph_sm``, a node task;
 ``molecule``, a graph task) and a cut of ``ogb_products`` with
 ``shard_nodes=True`` (64 nodes, 256 edges: both divide 2 and 4), on meshes
-``1x2``, ``2x1`` (a world of two) and ``2x2`` (a world of four), with the
+``1x2``, ``2x1`` (a world of two), ``2x2`` and ``1x4`` (a world of four:
+under ``1x4`` the edges split four ways over ``model`` and the nodes stay
+whole), with the
 reference's weights carried across and the batch cut per rank by the
 cell's ``in_specs``.  The batches hold padded edges (``src = dst = 0``,
 mask 0, all at the end: the last rank's block is mostly padding) and
@@ -36,7 +38,7 @@ from repro_torch.models import gnn
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 CELLS = ["full_graph_sm", "molecule", "ogb_cut"]
-MESHES = [(1, 2), (2, 1), (2, 2)]
+MESHES = [(1, 2), (2, 1), (2, 2), (1, 4)]
 # ogb_products cut to a size the CPU runs, its task and widths kept
 OGB_CUT = {"n_nodes": 64, "n_edges": 256, "d_feat": 100, "n_classes": 47, "task": "node", "shard_nodes": True,
            "self_loops": False}
@@ -140,7 +142,7 @@ def world(tmp_path_factory):
     base = {"params": params, "inputs": inputs}
     two = run_world(2, "_torch_world_cases:family_case", {"cases": {**cases[(1, 2)], **cases[(2, 1)]}, **base},
                     tmp_path_factory.mktemp("two"), timeout=900)
-    four = run_world(4, "_torch_world_cases:family_case", {"cases": cases[(2, 2)], **base},
+    four = run_world(4, "_torch_world_cases:family_case", {"cases": {**cases[(2, 2)], **cases[(1, 4)]}, **base},
                      tmp_path_factory.mktemp("four"), timeout=900)
     return ref, two + four, inputs
 

@@ -6,9 +6,11 @@ incremental service) against the host route on the CPU; the dense LM path
 MoE, recsys and GNN train steps on the card at reduced sizes, the GNN's
 chunked aggregate against its unchunked form, the cost counter's count
 on the card against the CPU's, and worlds of ranks on the card: a world of
-one over NCCL against no mesh, bit for bit, and a world of two (gloo: NCCL
-refuses two ranks of one communicator on one card) against one rank, its
-context-parallel decode (half the cache's positions a rank) included.
+one over NCCL against no mesh, bit for bit, a world of two on one card
+(gloo: NCCL refuses two ranks of one communicator on one card) against one
+rank, its context-parallel decode (half the cache's positions a rank)
+included, and, where two cards are present, a world of two over NCCL with
+a rank on each.
 
 Every test here needs a CUDA device: each is marked ``gpu`` and skips (in a
 fixture, at run time) where there is none.  This file imports neither jax
@@ -706,6 +708,37 @@ def test_world_of_two_on_card_equals_one_rank(cuda, tmp_path):
     meshes = [((1, 2), False), ((2, 1), True)]
     for res in run_world(2, "test_torch_gpu:_world_case", {"backend": "gloo", "meshes": meshes}, tmp_path):
         for key, row in res.items():
+            assert row["serve_online"]["equal"], (key, row)
+            assert row["train_4k"]["rel"] <= 1e-5, (key, row)
+
+
+def _nccl_world_case(payload):
+    """``_world_case`` in a rank of a world over NCCL, with the card the
+    rank runs on."""
+    meshes = _world_case(payload)  # the mesh sets the rank's card
+    return {"card": torch.cuda.current_device(), "meshes": meshes}
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL runs one rank a card")
+    return cuda
+
+
+def test_world_of_two_over_nccl_on_two_cards_equals_no_mesh(two_cards, tmp_path):
+    """A world of two ranks over NCCL, one on each of two cards: the reduced
+    serve_online bit for bit the one-program fold, and a float32 train_4k
+    step of the reduced (2-layer) tinyllama within 1e-5 of no mesh, under
+    1x2 and 2x1 with FSDP."""
+    from _torch_worlds import run_world
+
+    meshes = [((1, 2), False), ((2, 1), True)]
+    ranks = run_world(2, "test_torch_gpu:_nccl_world_case", {"backend": "nccl", "meshes": meshes}, tmp_path,
+                      timeout=300, backend="nccl")
+    assert sorted(res["card"] for res in ranks) == [0, 1]
+    for res in ranks:
+        for key, row in res["meshes"].items():
             assert row["serve_online"]["equal"], (key, row)
             assert row["train_4k"]["rel"] <= 1e-5, (key, row)
 

@@ -5,7 +5,9 @@ the data axes and MIND's negatives from the whole global batch.
 FM, AutoInt, DCN-v2 and MIND at their reduced configs (every table's rows
 divide 2, so each is row-sharded over ``model``; DCN-v2's ``mlp/*/w``
 column-split), each cell (train, score, retrieval) on meshes ``1x2``,
-``2x1`` (a world of two) and ``2x2`` (a world of four), with the
+``2x1`` (a world of two) and ``2x2`` (a world of four), and in the world of
+four FM under ``1x4`` (its 2,000 rows a quarter a rank) and MIND under
+``4x1`` (its negatives from four data ranks' rows), with the
 reference's weights carried across and cut per rank by the cell's
 ``in_specs``; the reference runs unsharded in a jax subprocess
 (``run_reference``, one device).  float32: forward (loss, scores) rtol 1e-4 / atol 1e-5,
@@ -35,6 +37,7 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 MODELS = ["fm", "autoint", "dcn-v2", "mind"]
 CELLS = ["train_batch", "serve_p99", "retrieval_cand"]
 MESHES = [(1, 2), (2, 1), (2, 2)]
+FOUR = {"fm": (1, 4), "mind": (4, 1)}  # the further meshes of the world of four
 FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-6)
 
@@ -141,10 +144,14 @@ def world(tmp_path_factory):
                     {"cases": {**cases[(1, 2)], **cases[(2, 1)]}, "params": params, "inputs": inputs,
                      "save_case": "fm train_batch 1x2", "save": str(root / "world2"), "state": state},
                     tmp_path_factory.mktemp("two"), timeout=900)
-    four = run_world(4, "_torch_world_cases:family_case", {"cases": cases[(2, 2)], "params": params,
+    further = {f"{arch} {cell} {shape[0]}x{shape[1]}": {"arch": arch, "shape": cell, "mesh": shape, "params": arch,
+                                                         "inputs": f"{arch} {cell}"}
+               for arch, shape in FOUR.items() for cell in CELLS}
+    four = run_world(4, "_torch_world_cases:family_case", {"cases": {**cases[(2, 2)], **further}, "params": params,
                                                            "inputs": inputs},
                      tmp_path_factory.mktemp("four"), timeout=900)
-    specs = reference_in_specs([(shape, arch, cell, {}) for shape in MESHES for arch in MODELS for cell in CELLS], 4,
+    specs = reference_in_specs([(shape, arch, cell, {}) for shape in MESHES for arch in MODELS for cell in CELLS]
+                               + [(shape, arch, cell, {}) for arch, shape in FOUR.items() for cell in CELLS], 4,
                                tmp_path_factory.mktemp("specs"))
     return ref, two + four, specs, root
 
@@ -155,6 +162,35 @@ def world(tmp_path_factory):
 def test_sharded_cell_equals_the_unsharded_reference(world, arch, cell, mesh):
     """Every rank of the world: the loss, the gradients (gathered) and the
     params after one step, or the scores gathered over the rows' axes."""
+    _check_cell(world, arch, cell, mesh)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("arch", list(FOUR))
+def test_four_rank_cell_equals_the_unsharded_reference(world, arch, cell):
+    """FM under ``1x4`` and MIND under ``4x1``, as the meshes above."""
+    _check_cell(world, arch, cell, "x".join(map(str, FOUR[arch])))
+
+
+@pytest.mark.parametrize("arch", list(FOUR))
+def test_four_rank_in_specs_equal_the_reference_forced_mesh(world, arch):
+    """FM's table and ``w_linear`` row-sharded four ways, MIND's batch over
+    four data ranks: each cell's ``in_specs`` are the reference's on a
+    forced host mesh of four devices."""
+    _, ranks, specs, _ = world
+    shape = FOUR[arch]
+    for cell in CELLS:
+        want = specs[spec_key(shape, arch, cell, {})]
+        got = [r[f"{arch} {cell} {shape[0]}x{shape[1]}"]["in_specs"] for r in ranks
+               if f"{arch} {cell} {shape[0]}x{shape[1]}" in r]
+        assert len(got) == 4
+        for g in got:
+            assert [{k: list(v) for k, v in t.items()} for t in g] == want, cell
+    fm = [r["fm train_batch 1x4"]["in_specs"][0] for r in ranks if "fm train_batch 1x4" in r]
+    assert len(fm) == 4 and all(g["table"] == ("model", None) and g["w_linear"] == ("model",) for g in fm)
+
+
+def _check_cell(world, arch, cell, mesh):
     ref, ranks, _, _ = world
     want = ref[f"{arch} {cell}"]
     key = f"{arch} {cell} {mesh}"

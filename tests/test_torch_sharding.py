@@ -151,6 +151,10 @@ def _world(payload):
                                       dmesh=mesh)
                 out[("decode", cell)] = {k: rec.get(k) for k in ("status", "error", "input_shapes")}
                 out[("decode", cell)]["seq_len"] = spec.shapes[cell].kwargs["seq_len"]
+        import torch.distributed as dist
+
+        out[(shape, "groups")] = {axes: (g is dist.group.WORLD, dist.get_world_size(g))
+                                  for axes, g in mesh._groups.items()}
         batch = {"tokens": torch.arange(8 * 3).reshape(8, 3)}
         bspecs = sh.batch_specs(batch, mesh)
         out[(shape, "batch")] = {"rows": sh.shard_tree(batch, bspecs, mesh)["tokens"][:, 0].tolist(),
@@ -168,7 +172,7 @@ def test_shard_tree_then_gather_tree_is_the_identity(world):
     meshes, ranks = world
     for res in ranks:
         for key, row in res.items():
-            if key[0] != "decode" and key[1] != "batch":
+            if key[0] != "decode" and key[1] not in ("batch", "groups"):
                 assert row["identity"], key
                 assert row["local_numel"] < row["full_numel"], key
 
@@ -181,6 +185,21 @@ def test_batch_rows_split_over_the_data_axes_in_coordinate_order(world):
             row = res[(shape, "batch")]
             per = 8 // n_data
             assert row["rows"] == [3 * i for i in range(row["coord"] * per, (row["coord"] + 1) * per)]
+
+
+def test_groups_of_the_whole_world_are_the_default_group(world):
+    """Every mesh's group over all of the world's ranks (its every axis, or
+    an axis as large as the world) is the default group, so NCCL holds one
+    communicator for them all; every smaller group is a group of its own."""
+    meshes, ranks = world
+    for shape, axes in meshes:
+        for res in ranks:
+            groups = res[(shape, "groups")]
+            assert len(groups) == 2 ** len(axes) - 1
+            assert groups[axes] == (True, 4)
+            for names, (is_world, size) in groups.items():
+                want = int(np.prod([shape[axes.index(a)] for a in names]))
+                assert size == want and is_world == (want == 4), (shape, names)
 
 
 def _stand_in_world(shape):

@@ -11,16 +11,24 @@ ranks.  Tolerances (``tests/_lm_compare.py``): loss and metrics rtol 1e-4 /
 atol 1e-5, gradients (gathered) rtol 1e-3 / atol 1e-6, params after three
 AdamW steps atol 1e-5.  ``global_norm`` is tested alone: a wrong norm moves
 every step through the clip.
+
+The four-card smoke's scaled-share spec (``chip_smoke.world_lm_spec``: one
+production data rank's share a rank, the cell's global batch scaled by the
+world's data size) in a gloo world of four under ``4x1`` and ``2x2``: each
+rank's rows of the batch ``run_cell`` draws are the rows the reference's
+cell puts on the same device of a forced host mesh of that shape, given the
+same global batch.
 """
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
 import pytest
 
 from _lm_compare import FWD, GRAD, lm_batch, ref_cfg, ref_params
-from _torch_worlds import run_world
+from _torch_worlds import run_reference, run_world
 from repro.configs import get_reduced_spec as ref_get_reduced_spec
 from repro.launch.steps import build_cell as ref_build_cell
 from repro.models import transformer as ref_tf
@@ -30,6 +38,33 @@ from repro.optim import global_norm as ref_global_norm
 ARCHS = ["tinyllama-1.1b", "olmoe-1b-7b"]
 MESHES = [((1, 2), False), ((2, 1), False), ((2, 1), True)]
 B, S = 4, 32
+SHARE_MESHES = [(4, 1), (2, 2)]
+SHARE_ROWS = 2  # a data rank's rows
+
+# the reference's train cell on a forced host mesh of each shape, given the
+# global batch a world drew: each device's rows of its tokens
+_PER_DEVICE = r"""
+import dataclasses, json
+import numpy as np, jax
+from jax.sharding import NamedSharding
+from repro.configs import get_reduced_spec
+from repro.launch.steps import build_cell
+z = dict(np.load(INPUTS))
+res = {}
+for shape in json.loads(%r):
+    key = "x".join(map(str, shape))
+    tokens = z[key]
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"), devices=jax.devices()[:4])
+    spec = get_reduced_spec("tinyllama-1.1b")
+    c = spec.shapes["train_4k"]
+    c = dataclasses.replace(c, kwargs={**c.kwargs, "global_batch": tokens.shape[0]})
+    cell = build_cell(dataclasses.replace(spec, shapes={**spec.shapes, "train_4k": c}), "train_4k", mesh)
+    put = jax.device_put(tokens, NamedSharding(mesh, cell.in_specs[2]["tokens"]))
+    order = list(mesh.devices.flat)
+    for sh in put.addressable_shards:
+        res[f"{key}/{order.index(sh.device)}"] = np.asarray(sh.data)
+np.savez(OUT, **res)
+"""
 
 
 def reference_runs(cases: dict, batches: list) -> dict:
@@ -72,7 +107,7 @@ def run_cases(world: int, meshes, variants: dict, tmp_path):
             params_of[key] = name
     payload = {"cases": cases, "params_of": params_of, "batches": batches,
                "params": {name: r["params0"] for name, r in ref.items()}}
-    ranks = run_world(world, "_torch_world_cases:lm_case", payload, tmp_path)
+    ranks = run_world(world, "_torch_world_cases:lm_case", payload, tmp_path, timeout=900)
     return ref, cases, params_of, ranks
 
 
@@ -163,3 +198,32 @@ def test_trainer_cli_in_a_world_prints_on_rank_zero_and_checkpoints_the_whole_st
     b = json.loads((ckpt / "one" / "step_2" / "manifest.json").read_text())
     for k in ("n_leaves", "treedef", "leaf_shapes", "leaf_dtypes"):
         assert a[k] == b[k], k
+
+
+@pytest.fixture(scope="module")
+def share(tmp_path_factory):
+    ranks = run_world(4, "_torch_world_cases:share_case", {"meshes": SHARE_MESHES, "rows": SHARE_ROWS},
+                      tmp_path_factory.mktemp("share"), timeout=600)
+    drawn = {"x".join(map(str, m)): ranks[0][m]["global_tokens"] for m in SHARE_MESHES}
+    ref = run_reference(_PER_DEVICE % (json.dumps([list(m) for m in SHARE_MESHES]),), 4,
+                        tmp_path_factory.mktemp("reference"), inputs=drawn)
+    return ranks, ref
+
+
+@pytest.mark.parametrize("mesh", SHARE_MESHES)
+def test_scaled_share_gives_each_rank_the_reference_devices_rows(share, mesh):
+    """Each rank runs one data rank's share (``SHARE_ROWS`` rows), its rows
+    of the world's batch are the reference's rows on the same device, every
+    rank drew the same batch, and the step's metrics are the unsharded
+    step's on that batch."""
+    ranks, ref = share
+    key = "x".join(map(str, mesh))
+    want_rows = SHARE_ROWS * mesh[0]
+    for r, res in enumerate(ranks):
+        got = res[mesh]
+        assert got["global_tokens"].shape[0] == want_rows
+        np.testing.assert_array_equal(got["global_tokens"], ranks[0][mesh]["global_tokens"])
+        assert got["tokens"].shape[0] == SHARE_ROWS
+        np.testing.assert_array_equal(got["tokens"], ref[f"{key}/{r}"])
+        for k, w in got["metrics_unsharded"].items():
+            np.testing.assert_allclose(got["metrics"][k], w, **(GRAD if k == "grad_norm" else FWD))
